@@ -1,0 +1,266 @@
+"""The port's plain kernel versions (what its CUDA wrappers run on CPU
+tensors) against the JAX package's oracles, and where cheap against the
+Pallas kernels themselves in interpret mode. fp32 unless stated, with the
+JAX suite's bar of atol = rtol = 1e-4."""
+
+import contextlib
+import importlib
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iuvl_tpu.ops.pallas import flash_attention as jfa
+from iuvl_tpu.ops.pallas import mask_upscale as jmu
+from iuvl_tpu.models.sam.mask_decoder import _bd_constants, _pack_bd
+from iuvl_tpu.ops.pallas import mlp_block as jmb
+from iuvl_tpu.ops.pallas import twoway_attention as jta
+from iuvl_tpu.ops.pallas import window_block as jwb
+from iuvl_tpu_torch.ops import rel_pos_attention as trpa
+from iuvl_tpu_torch.ops.cuda import flash_attention as tfa
+from iuvl_tpu_torch.ops.cuda import mask_upscale as tmu
+from iuvl_tpu_torch.ops.cuda import mlp_block as tmb
+from iuvl_tpu_torch.ops.cuda import twoway_attention as tta
+from iuvl_tpu_torch.ops.cuda import window_block as twb
+
+# iuvl_tpu.ops re-exports a function under the submodule's name
+jrpa = importlib.import_module("iuvl_tpu.ops.rel_pos_attention")
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@contextlib.contextmanager
+def interpret(module):
+    """Run ``module``'s pallas_calls in interpret mode (CPU)."""
+    orig = pl.pallas_call
+
+    def interp(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    module.pl.pallas_call = interp
+    try:
+        yield
+    finally:
+        module.pl.pallas_call = orig
+
+
+def _rand(rs, *shape, std=1.0):
+    return (rs.randn(*shape) * std).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _close(port, ref, **tol):
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32),
+                               **(tol or TOL))
+
+
+@pytest.mark.parametrize("stored, size", [(9, 5), (5, 7), (13, 4)])
+def test_rel_pos_table_matches_jax(stored, size):
+    """Includes the linear-resize branch, up and down (antialiased)."""
+    rp = _rand(np.random.RandomState(stored), stored, 6)
+    ref = jrpa.rel_pos_table(size, size, jnp.asarray(rp))
+    _close(trpa.rel_pos_table(size, size, _t(rp)), ref, atol=1e-6, rtol=1e-6)
+
+
+def test_pos_embed_bicubic_resize_matches_jax():
+    from iuvl_tpu_torch.ops.resize import resize_axis
+
+    pos = _rand(np.random.RandomState(1), 1, 6, 6, 4)
+    for size in (9, 4):
+        ref = jax.image.resize(jnp.asarray(pos), (1, size, size, 4), method="bicubic")
+        out = resize_axis(resize_axis(_t(pos), 1, size, "cubic"), 2, size, "cubic")
+        _close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_naive_rel_pos_attention_matches_jax():
+    rs = np.random.RandomState(2)
+    q, k, v = (_rand(rs, 2, 2, 20, 8) for _ in range(3))
+    rph, rpw = _rand(rs, 7, 8, std=0.3), _rand(rs, 9, 8, std=0.3)
+    ref = jrpa.rel_pos_attention(*map(jnp.asarray, (q, k, v, rph, rpw)), (4, 5),
+                                 impl="xla_naive")
+    for fn in (trpa.rel_pos_attention_naive, trpa.rel_pos_attention):
+        _close(fn(*map(_t, (q, k, v, rph, rpw)), (4, 5)), ref)
+
+
+def _window_inputs(win=4, heads=2, d=16, nw=4, seed=3):
+    rs = np.random.RandomState(seed)
+    c = heads * d
+    return dict(
+        xw=_rand(rs, nw, win * win, c, std=0.5), wqkv=_rand(rs, c, 3 * c, std=0.1),
+        bqkv=_rand(rs, 3 * c, std=0.1), wo=_rand(rs, c, c, std=0.1),
+        bo=_rand(rs, c, std=0.1), rph=_rand(rs, 2 * win - 1, d, std=0.2),
+        rpw=_rand(rs, 2 * win - 1, d, std=0.2))
+
+
+def _window_port(a, win, heads):
+    # JAX kernels are (in, out); the port takes nn.Linear (out, in).
+    rh, rw = trpa.rel_pos_tables(_t(a["rph"]), _t(a["rpw"]), (win, win))
+    return twb.window_attention_block(
+        _t(a["xw"]), _t(a["wqkv"].T), _t(a["bqkv"]), _t(a["wo"].T), _t(a["bo"]), rh, rw,
+        heads)
+
+
+def test_window_block_plain_matches_jax_oracle_and_kernel():
+    win, heads = 4, 2
+    a = _window_inputs(win, heads)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    jargs = (j["xw"], j["wqkv"], j["bqkv"], j["wo"], j["bo"], j["rph"], j["rpw"], win, heads)
+    out = _window_port(a, win, heads)
+    assert twb.window_attention_block.launches == 0
+    _close(out, jwb._block_xla(*jargs))
+    with interpret(jwb):
+        _close(out, jwb.window_attention_block(*jargs))
+
+
+def _rowbias_inputs(h=4, w=4, heads=3, d=16, b=2, c_out=24, seed=4):
+    rs = np.random.RandomState(seed)
+    n = h * w
+    return dict(q=_rand(rs, b, heads, n, d), k=_rand(rs, b, heads, n, d),
+                v=_rand(rs, b, heads, n, d), rph=_rand(rs, 2 * h - 1, d, std=0.3),
+                rpw=_rand(rs, 2 * w - 1, d, std=0.3),
+                wo=_rand(rs, heads * d, c_out, std=0.1), bo=_rand(rs, c_out, std=0.1))
+
+
+def test_rowbias_proj_plain_matches_jax_oracle_and_kernel():
+    """Several heads, a non-zero bias, multiple q/k blocks in the kernel."""
+    hw = (4, 4)
+    a = _rowbias_inputs()
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    out = trpa.rel_pos_attention_proj(
+        _t(a["q"]), _t(a["k"]), _t(a["v"]), *trpa.rel_pos_tables(_t(a["rph"]), _t(a["rpw"]), hw),
+        _t(a["wo"].T), _t(a["bo"]))
+    assert tfa.flash_attention_rowbias_proj.launches == 0
+    jargs = (j["q"], j["k"], j["v"], j["rph"], j["rpw"], j["wo"], j["bo"], hw)
+    _close(out, jrpa._attn_then_proj(*jargs, "xla_naive"))
+    with interpret(jfa):
+        _close(out, jrpa._rowbias_proj_route(*jargs))
+
+
+def _tail_inputs(t=64, c=32, hidden=128, seed=5):
+    rs = np.random.RandomState(seed)
+    return dict(x=_rand(rs, t, c), a=_rand(rs, t, c), scale=1 + _rand(rs, c, std=0.1),
+                bias=_rand(rs, c, std=0.1), w1=_rand(rs, c, hidden, std=0.1),
+                b1=_rand(rs, hidden, std=0.1), w2=_rand(rs, hidden, c, std=0.1),
+                b2=_rand(rs, c, std=0.1))
+
+
+def _tail_port(a, dtype=torch.float32):
+    # JAX's w2 (H, C) is the transposed second weight the port takes.
+    cast = lambda k: _t(a[k]).to(dtype)  # noqa: E731
+    return tmb.block_tail(cast("x"), cast("a"), _t(a["scale"]), _t(a["bias"]),
+                          _t(a["w1"].T).to(dtype), cast("b1"), cast("w2"), cast("b2"))
+
+
+def _tail_jax(a, dtype=jnp.float32):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    return (j["x"].astype(dtype), j["a"].astype(dtype), j["scale"], j["bias"],
+            j["w1"], j["b1"], j["w2"], j["b2"])
+
+
+def test_block_tail_plain_matches_jax_oracle_and_kernel():
+    a = _tail_inputs()
+    out = _tail_port(a)
+    assert tmb.block_tail.launches == 0
+    _close(out, jmb._tail_xla(*_tail_jax(a)))
+    with interpret(jmb):
+        _close(out, jmb.block_tail(*_tail_jax(a)))
+
+
+def test_block_tail_plain_matches_jax_oracle_bf16():
+    """bf16 storage: the two frameworks round at the same points, but the
+    bf16 products and the tanh GELU may land one bf16 ulp (2^-8 relative)
+    apart, so the bound is the JAX suite's bf16 bar of 1e-2."""
+    a = _tail_inputs(seed=6)
+    out = _tail_port(a, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    _close(out, jmb._tail_xla(*_tail_jax(a, jnp.bfloat16)), atol=1e-2, rtol=1e-2)
+
+
+def _upscale_inputs(b=2, n=16, c=32, m=4, seed=7):
+    rs = np.random.RandomState(seed)
+    c4, c8 = c // 4, c // 8
+    return dict(keys=_rand(rs, b, n, c, std=0.5),
+                k1=_rand(rs, 2, 2, c4, c, std=0.2), b1=_rand(rs, c4, std=0.1),
+                lnw=1 + _rand(rs, c4, std=0.1), lnb=_rand(rs, c4, std=0.1),
+                k2=_rand(rs, 2, 2, c8, c4, std=0.3), b2=_rand(rs, c8, std=0.1),
+                hyper=_rand(rs, b, m, c8, std=0.5))
+
+
+def test_masks_upscale_plain_matches_jax_oracle_and_kernel():
+    a = _upscale_inputs()
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    jargs = (j["keys"], j["k1"], j["b1"], j["lnw"], j["lnb"], j["k2"], j["b2"], j["hyper"])
+    # flax ConvTranspose kernel (kh, kw, out, in) -> torch (in, out, kh, kw)
+    deconv = lambda k: tmu.flat_deconv(_t(k.transpose(3, 2, 0, 1)))  # noqa: E731
+    flat = tmu.masks_upscale(_t(a["keys"]), deconv(a["k1"]), _t(a["b1"]), _t(a["lnw"]),
+                             _t(a["lnb"]), deconv(a["k2"]), _t(a["b2"]), _t(a["hyper"]))
+    assert tmu.masks_upscale.launches == 0
+    ref = jmu.masks_upscale_xla(*jargs)
+    _close(flat, ref)
+    _close(tmu.unflatten_masks(flat, 4, 4, 4), jmu.unflatten_masks(ref, 4, 4, 4))
+    with interpret(jmu):
+        _close(flat, jmu.masks_upscale(*jargs))
+
+
+def _twoway_inputs(shared, b=3, t=5, n=24, heads=2, d=8, c=32, seed=8):
+    """Weights in JAX's (in, out) layout; biases, PE and the LN params
+    non-zero, so that a dropped term shows."""
+    rs = np.random.RandomState(seed)
+    i = heads * d
+    a = dict(keys=_rand(rs, 1 if shared else b, n, c), pe=_rand(rs, n, i, std=0.5),
+             q=_rand(rs, b, t, i), kp=_rand(rs, b, t, i), vp=_rand(rs, b, t, i),
+             ln_w=1 + _rand(rs, c, std=0.1), ln_b=_rand(rs, c, std=0.1))
+    for name, shape in (("q", (c, i)), ("k", (c, i)), ("v", (c, i)), ("o", (i, c))):
+        a["w" + name] = _rand(rs, *shape, std=0.2)
+        a["b" + name] = _rand(rs, shape[1], std=0.1)
+    return a
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["batch1_keys", "per_prompt_keys"])
+def test_t2i_stream_plain_matches_jax_oracle_and_kernel(shared):
+    """The TPU functions take block-diagonally packed queries and return
+    packed rows; the port's take and return (B, T, heads*d)."""
+    heads, d, per = 2, 8, 8
+    a = _twoway_inputs(shared)
+    b, t, i = a["q"].shape
+    out = tta.t2i_stream(*map(_t, (a["q"], a["keys"], a["pe"], a["wk"].T, a["bk"],
+                                   a["wv"].T, a["bv"])), heads)
+    assert tta.t2i_stream.launches == 0
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    jargs = (_pack_bd(j["q"], heads, d, per), j["keys"], j["pe"][None], j["wk"], j["bk"],
+             j["wv"], j["bv"])
+    headmask = jnp.asarray(_bd_constants(heads, d, per)[2])
+
+    def merge(obd):
+        return (obd.reshape(b, heads, per, i) * headmask[:, None, :]).sum(1)[:, :t]
+
+    _close(out, merge(jta.t2i_stream_xla(*jargs)))
+    with interpret(jta):
+        _close(out, merge(jta.t2i_stream(*jargs)))
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["batch1_keys", "per_prompt_keys"])
+def test_i2t_block_step_plain_matches_jax_oracle_and_kernel(shared):
+    heads, d, per = 2, 8, 8
+    a = _twoway_inputs(shared, seed=9)
+    t = a["kp"].shape[1]
+    out = tta.i2t_block_step(*map(_t, (a["keys"], a["pe"], a["kp"], a["vp"], a["wq"].T,
+                                       a["bq"], a["wo"].T, a["bo"], a["ln_w"], a["ln_b"])),
+                             heads)
+    assert tta.i2t_block_step.launches == 0
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    smask = np.where(np.tile(np.arange(per) < t, heads), 0.0, -1e30).astype(np.float32)
+    jargs = (j["keys"], j["pe"][None], _pack_bd(j["kp"], heads, d, per),
+             _pack_bd(j["vp"], heads, d, per), j["wq"], j["bq"], j["wo"], j["bo"],
+             j["ln_w"], j["ln_b"], jnp.asarray(_bd_constants(heads, d, per)[1]),
+             jnp.asarray(smask), d ** -0.5)
+    _close(out, jta.i2t_block_step_xla(*jargs))
+    with interpret(jta):
+        _close(out, jta.i2t_block_step(*jargs))
