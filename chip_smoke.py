@@ -1,32 +1,51 @@
-"""Drive the port's SAM serving path once on one CUDA card, and check it.
+"""Drive the port's SAM serving path and its seg train step on one CUDA
+card, and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
 1. device: require CUDA; print torch/CUDA versions and the card's name and
    power limit (nvidia-smi).
-2. build: compile the hand-written kernels from iuvl_tpu_torch/csrc.
-3. kernels: each kernel against its plain PyTorch version at the ViT-B,
-   1024^2, bf16 shapes of the serving path. The relative L2 error must stay
-   within the kernel's own bound (KERNEL_BOUNDS), and every planted fault
-   (a bias, rel-pos or PE term dropped, a head or mask token swapped; run
-   through the plain version) must move the output by more than that
-   bound, so the bound is shown to catch them. Times from CUDA events after
-   a warm-up.
-4. slice: ViT-B bf16 with seeded random weights answers REQUESTS requests
-   (one 1024^2 image encoded once without the SimpleFPN, which serving
-   never reads, then 1024 point prompts decoded in chunks of 256) through
-   the kernels, with per-request launch counts checked; the same requests
-   go through the plain versions in bf16 and in fp32. The kernel path's
-   masks must be no further from the fp32 masks than SLICE_FACTOR times the
-   plain bf16 path's distance, in relative L2 of the logits and in
-   1 - mean per-mask IoU of ``logits > 0``.
-5. prints the kernel table as one JSON line, the nvidia-smi line, and
+2. build: compile the hand-written kernels from iuvl_tpu_torch/csrc (one
+   nvcc per source, in parallel).
+3. kernels: each kernel against its plain PyTorch version at the shapes of
+   the path that runs it (ViT-B, 1024^2, bf16). Every output's relative L2
+   error must stay within its own bound (KERNEL_BOUNDS). Planted faults
+   run through the plain version (a bias, rel-pos or PE term dropped, heads
+   or tokens swapped, a wrong lse, a reduction that misses its last 16
+   rows): each must move some output by more than its bound, and each
+   output's bound must catch some fault.
+   Times from CUDA events after a warm-up; for B11 and B12 also the one
+   PyTorch call that computes the same function (timed only, never a
+   path). Then the global-block grad switch: the training route (B11 +
+   projection) against the serving route (B2) on the same inputs.
+4. serving: SAM ViT-B bf16 with seeded random weights answers REQUESTS
+   requests (one 1024^2 image encoded once, 1024 point prompts decoded in
+   chunks of 256) through the kernels, with per-request launch counts
+   checked; the same requests go through the plain versions in bf16 and in
+   fp32. The kernel path's masks must be no further from the fp32 masks
+   than SLICE_FACTOR times the plain bf16 path's distance, in relative L2
+   of the logits and in 1 - mean per-mask IoU of ``logits > 0``.
+5. train: the SysLearner seg train step (ViT-B + SimpleFPN, 6-layer
+   deformable pixel decoder, 9-layer unified decoder, 101 queries; bf16;
+   seeded random weights) for STEPS steps of one 1024^2 image, 134 x 512
+   text embeddings and 20 gt masks, through the kernels, the plain versions
+   in bf16 and the plain versions in fp32, with the same point draws; each
+   step's assignments are the fp32 path's. Launch counts per step are
+   checked. For each loss term of the first step (class CE, mask BCE,
+   dice, each over the 10 kept layers) and the gradient of each parameter
+   group, the kernel path's relative L2 from fp32 must be at most
+   SLICE_FACTOR times the plain bf16 path's. A control pair (plain bf16
+   and fp32 on slightly perturbed weights) takes the first step too: its
+   ratios, and every path's ratio per layer's loss scalar, are printed,
+   not gated. Step times after one warm-up step.
+6. prints the kernel table as one JSON line, the nvidia-smi line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,22 +54,33 @@ import time
 import numpy as np
 import torch
 
-# Relative L2 error of each kernel against its plain bf16 version on the
-# card: about 3-7x its sound reading, and 5x or more below its smallest
-# planted fault's (PERF.md, Findings, lists both readings).
+# Relative L2 error of each kernel output against its plain bf16 version
+# on the card: about 3-7x its sound reading, and 5x or more below its
+# smallest planted fault's (PERF.md, Findings, lists both readings).
 KERNEL_BOUNDS = {
-    "window_attention_block": 5e-4,
-    "flash_attention_rowbias_proj": 1e-2,
-    "block_tail": 5e-4,
-    "masks_upscale": 2e-4,
-    "t2i_stream": 5e-3,
-    "i2t_block_step": 2e-4,
+    "window_attention_block": {"out": 5e-4},
+    "flash_attention_rowbias_proj": {"out": 1e-2},
+    "block_tail": {"out": 5e-4},
+    "masks_upscale": {"out": 2e-4},
+    "t2i_stream": {"out": 5e-3},
+    "i2t_block_step": {"out": 2e-4},
+    "window_block_backward": {"dx": 1e-3, "dwqkv": 5e-4, "dbqkv": 5e-4, "dwo": 5e-4,
+                              "dbo": 1e-5, "drh": 5e-4, "drw": 5e-4},
+    "block_tail_backward": {"dxa": 1e-3, "dscale": 5e-4, "dbias": 5e-4, "dw1": 5e-4,
+                            "db1": 5e-4, "dw2": 5e-4, "db2": 1e-5},
+    # fp32 atomics: colliding rows add in no fixed order.
+    "tap_scatter": {"acc": 1e-6},
+    # dq, dk inherit the forward's rounding of o through delta = rowsum(do o).
+    "flash_attention": {"o": 5e-3, "lse": 1e-5, "dq": 5e-3, "dk": 5e-3, "dv": 1e-3},
 }
-# The kernel path's masks against the fp32 plain path's may be this many
-# times as far off as the plain bf16 path's (sound: 0.99).
+GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
+# A bf16 path's distance from the fp32 path: the kernels may be this many
+# times as far off as the plain versions (sound: about 1).
 SLICE_FACTOR = 1.25
 REQUESTS = 3
 N_PROMPTS, CHUNK = 1024, 256
+STEPS = 3
+N_CLASSES, N_TARGETS, MATCH_POINTS = 133, 20, 12544
 SEED = 0
 BIAS_STD = 0.3  # biases, PE and rel-pos terms: a fair share of a unit signal
 PALLAS = "iuvl_tpu/ops/pallas/"
@@ -61,7 +91,13 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "masks_upscale": ("mask_upscale.cu", "mask_upscale.py:181"),
     "t2i_stream": ("twoway_attention.cu", "twoway_attention.py:305"),
     "i2t_block_step": ("twoway_attention.cu", "twoway_attention.py:163"),
+    "window_block_backward": ("window_block_bwd.cu", "window_block.py:273"),
+    "block_tail_backward": ("mlp_block_bwd.cu", "mlp_block.py:212"),
+    "flash_attention": ("flash_attention_train.cu", "flash_attention.py:193"),
+    "tap_scatter": ("tap_scatter.cu", "tap_scatter.py:39"),
 }
+# H100 SXM peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA cores, HBM3.
+BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(*a):
@@ -102,23 +138,67 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def flash_fwd_bwd(q, k, v, do):
+    """One call of the B11 wrapper pair, as the global block's training
+    route makes it: forward with lse, then backward."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    return (o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do))
+
+
+def flash_fwd_bwd_plain(q, k, v, do):
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd_plain(q, k, v)
+    return (o, lse, *fa.flash_attention_bwd_plain(q, k, v, o, lse, do))
+
+
 def kernels():
-    """kernel name -> its wrapper (whose ``launches`` counts) and plain version."""
+    """kernel name -> (wrappers whose ``launches`` count it, its call, its
+    plain version, output names)."""
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+    from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
     from iuvl_tpu_torch.ops.cuda import window_block as wb
 
+    one = lambda fn, plain: ((fn,), fn, plain, ("out",))  # noqa: E731
     return {
-        "window_attention_block": (wb.window_attention_block, wb.window_attention_block_plain),
-        "flash_attention_rowbias_proj": (fa.flash_attention_rowbias_proj,
-                                         fa.rowbias_proj_plain),
-        "block_tail": (mb.block_tail, mb.block_tail_plain),
-        "masks_upscale": (mu.masks_upscale, mu.masks_upscale_plain),
-        "t2i_stream": (ta.t2i_stream, ta.t2i_stream_plain),
-        "i2t_block_step": (ta.i2t_block_step, ta.i2t_block_step_plain),
+        "window_attention_block": one(wb.window_attention_block,
+                                      wb.window_attention_block_plain),
+        "flash_attention_rowbias_proj": one(fa.flash_attention_rowbias_proj,
+                                            fa.rowbias_proj_plain),
+        "block_tail": one(mb.block_tail, mb.block_tail_plain),
+        "masks_upscale": one(mu.masks_upscale, mu.masks_upscale_plain),
+        "t2i_stream": one(ta.t2i_stream, ta.t2i_stream_plain),
+        "i2t_block_step": one(ta.i2t_block_step, ta.i2t_block_step_plain),
+        "window_block_backward": ((wb.window_block_backward,), wb.window_block_backward,
+                                  wb.window_block_backward_plain,
+                                  ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "drh", "drw")),
+        "block_tail_backward": ((mb.block_tail_backward,), mb.block_tail_backward,
+                                mb.block_tail_backward_plain,
+                                ("dxa", "dscale", "dbias", "dw1", "db1", "dw2", "db2")),
+        "flash_attention": ((fa.flash_attention_fwd, fa.flash_attention_bwd), flash_fwd_bwd,
+                            flash_fwd_bwd_plain, ("o", "lse", "dq", "dk", "dv")),
+        "tap_scatter": ((ts.tap_scatter,), ts.tap_scatter, ts.tap_scatter_plain, ("acc",)),
     }
+
+
+def reset_launches() -> None:
+    for wrappers, *_ in kernels().values():
+        for fn in wrappers:
+            fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: sum(fn.launches for fn in wrappers)
+            for name, (wrappers, *_) in kernels().items()}
 
 
 def _zero(i):
@@ -136,11 +216,39 @@ def _swap(i, dim, width):
     return fault
 
 
+def _shift(i, by, hi):
+    return lambda a: a[:i] + ((a[i] + by).clamp(max=hi),) + a[i + 1:]
+
+
+def _zero_cols(i, lo, hi):
+    """Columns lo:hi of argument i's last dim zeroed."""
+    def fault(a):
+        t = a[i].clone()
+        t[..., lo:hi] = 0
+        return a[:i] + (t,) + a[i + 1:]
+    return fault
+
+
+def _tile_missed(j, i, rows):
+    """Output j computed by a reduction that misses the last ``rows`` rows
+    of argument i (flattened to rows of its last dim): output j of the
+    plain version run on argument i with those rows zeroed, every other
+    output sound."""
+    def fault(a):
+        t = a[i].clone()
+        t.view(-1, t.shape[-1])[-rows:] = 0
+        return a[:i] + (t,) + a[i + 1:]
+    return ("out", j, fault)
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
-    """(name, args, planted faults {name: args -> args}, timing iters) at the
-    slice shapes, with the weight layouts the models hand the kernels."""
+    """(name, args, planted faults {name: args -> args, or ("out", j)},
+    timing iters) at the path shapes, with the weight layouts the models
+    hand the kernels."""
     from iuvl_tpu_torch.ops.cuda.mask_upscale import flat_deconv
-    from iuvl_tpu_torch.ops.rel_pos_attention import rel_pos_features, rel_pos_tables
+    from iuvl_tpu_torch.ops.point_sample import _tap_weights
+    from iuvl_tpu_torch.ops.rel_pos_attention import (augment_qk_rel_pos, rel_pos_features,
+                                                      rel_pos_tables)
 
     bf, f32 = torch.bfloat16, torch.float32
 
@@ -152,8 +260,8 @@ def kernel_cases(rs: np.random.RandomState, dev):
     win = (t(25, 196, c), t(3 * c, c, std=c ** -0.5), t(3 * c, std=s, dtype=f32),
            t(c, c, std=c ** -0.5), t(c, std=s, dtype=f32), rh, rw, heads)
     q, k, v = (t(1, heads, n, d) for _ in range(3))
-    relh, relw = rel_pos_features(q, *rel_pos_tables(t(127, d, std=s), t(127, d, std=s),
-                                                     (64, 64)))
+    grh, grw = rel_pos_tables(t(127, d, std=s), t(127, d, std=s), (64, 64))
+    relh, relw = rel_pos_features(q, grh, grw)
     flash = (q * d ** -0.5, k, v, relh, relw, t(c, c, std=c ** -0.5), t(c, std=s, dtype=f32),
              64)
     tail = (t(n, c), t(n, c), 1.0 + t(c, std=0.1, dtype=f32), t(c, std=s, dtype=f32),
@@ -170,6 +278,17 @@ def kernel_cases(rs: np.random.RandomState, dev):
     i2t = (t(CHUNK, n, cd), t(n, i_dim, std=s), t(CHUNK, tok, i_dim), t(CHUNK, tok, i_dim),
            t(i_dim, cd, std=cd ** -0.5), t(i_dim, std=s), t(cd, i_dim, std=i_dim ** -0.5),
            t(cd, std=s), 1.0 + t(cd, std=0.1, dtype=f32), t(cd, std=s, dtype=f32), 8)
+    # Training shapes: the windowed blocks' backward (B9) and the tails' (B10);
+    # B11 on the rel-pos-augmented q, k of a global block; B12 on the
+    # criterion's 20 matched 256^2 masks at 12544 points.
+    win_bwd = (win[0], t(25, 196, c), win[1], win[2], win[3], rh, rw, heads)
+    tail_bwd = tail[:2] + (t(n, c),) + tail[2:7]
+    q_aug, k_aug = augment_qk_rel_pos(q, k, grh, grw)
+    flash_train = (q_aug, k_aug, v, t(1, heads, n, d))
+    coords = torch.from_numpy(rs.rand(N_TARGETS, MATCH_POINTS, 2).astype(np.float32)).to(dev)
+    base, wgts, _, span = _tap_weights(256, 256, coords, f32)
+    scatter = (base.to(torch.int32).contiguous(),
+               (t(N_TARGETS, MATCH_POINTS, 1, dtype=f32) * wgts).contiguous(), span)
     return [
         ("window_attention_block", win,
          {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
@@ -189,7 +308,88 @@ def kernel_cases(rs: np.random.RandomState, dev):
         ("i2t_block_step", i2t,
          {"bq dropped": _zero(5), "bo dropped": _zero(7), "pe_wq dropped": _zero(1),
           "LN bias dropped": _zero(9), "heads 0/1 swapped in kp": _swap(2, 2, 16)}, 10),
+        ("window_block_backward", win_bwd,
+         {"rel-pos branch dropped": lambda a: a[:5] + (torch.zeros_like(rh),
+                                                        torch.zeros_like(rw)) + a[7:],
+          "bqkv dropped": _zero(3), "dbo misses the last 16 rows": _tile_missed(4, 1, 16),
+          "heads 0/1 swapped in g": _swap(1, 2, d)}, 5),
+        ("block_tail_backward", tail_bwd,
+         {"db2 misses the last 16 rows": _tile_missed(6, 2, 16), "LN bias dropped": _zero(4),
+          "b1 dropped": _zero(6), "dscale misses the last 16 rows": _tile_missed(1, 2, 16)},
+         5),
+        ("flash_attention", flash_train,
+         {"wrong lse (+0.05)": "lse", "heads 0/1 swapped in do": _swap(3, 1, 1),
+          "heads 0/1 swapped in v": _swap(2, 1, 1),
+          "relh dropped from q_aug": _zero_cols(0, d, 2 * d)}, 3),
+        ("tap_scatter", scatter,
+         {"rows one cell off": _shift(0, 1, span - 1), "taps 0/1 swapped": _swap(1, 2, 1)},
+         10),
     ]
+
+
+def work(name: str, args, outs) -> tuple[float, float, str]:
+    """(flops, bytes, flops' rate) of one call: the least work of the
+    function on these inputs, each product it needs done once, and the
+    bytes it must move, each tensor argument read once and each output
+    written once. A backward recomputes what its arguments do not hold:
+    B9 and B10 are handed no activations, B11 is handed o and lse, so its
+    backward needs s once (p from lse), dp, dq, dk and dv."""
+    nbytes = sum(a.numel() * a.element_size() for a in (*args, *outs) if torch.is_tensor(a))
+    if name == "window_attention_block":
+        nw, n, c = args[0].shape
+        flops = nw * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c
+                      + 4 * n * c * args[5].shape[0])
+    elif name == "flash_attention_rowbias_proj":
+        b, h, n, d = args[0].shape
+        flops = 4 * b * h * n * n * d + 2 * b * n * h * d * args[5].shape[0]
+    elif name == "block_tail":
+        flops = 4 * args[0].shape[0] * args[0].shape[1] * args[4].shape[0]
+    elif name == "masks_upscale":
+        p, n, c = args[0].shape
+        flops = (2 * p * n * c * args[1].shape[1] + 2 * p * 4 * n * args[5].numel()
+                 + 2 * p * 16 * n * args[7].shape[1] * args[7].shape[2])
+    elif name == "t2i_stream":
+        p, tok, i = args[0].shape
+        pk, n, cd = args[1].shape
+        flops = 4 * pk * n * cd * i + 4 * p * tok * n * i
+    elif name == "i2t_block_step":
+        p, n, cd = args[0].shape
+        tok, i = args[2].shape[1:]
+        flops = 4 * p * n * cd * i + 4 * p * n * tok * i
+    elif name == "window_block_backward":
+        nw, n, c = args[0].shape
+        flops = 22 * nw * n * c * c + 12 * nw * n * n * c
+    elif name == "block_tail_backward":
+        flops = 10 * args[0].shape[0] * args[0].shape[1] * args[5].shape[0]
+    elif name == "flash_attention":
+        b, h, n, dqk = args[0].shape
+        dv = args[2].shape[-1]
+        flops = b * h * 2 * n * n * ((dqk + dv) + (3 * dqk + 2 * dv))
+    else:  # tap_scatter: 4 fp32 adds a row
+        return 4 * args[0].numel(), nbytes, F32_FLOPS
+    return flops, nbytes, BF16_FLOPS
+
+
+def library_call(name: str, args):
+    """The one PyTorch call that computes the same function, where one
+    exists (timed only): SDPA forward + backward for B11, ``index_add_``
+    for B12. None for the rest: no single call fuses their projections,
+    rel-pos terms, norms or backward."""
+    if name == "flash_attention":
+        q, k, v, do = (a.detach().requires_grad_(i < 3) for i, a in enumerate(args))
+
+        def call():
+            q.grad = k.grad = v.grad = None
+            with torch.enable_grad():
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0).backward(do)
+        return call
+    if name == "tap_scatter":
+        base, rows, span = args
+        n = base.shape[0]
+        idx = (base.long() + torch.arange(n, device=base.device)[:, None] * span).reshape(-1)
+        flat = rows.reshape(-1, 4)
+        return lambda: torch.zeros((n * span, 4), device=rows.device).index_add_(0, idx, flat)
+    return None
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -198,42 +398,108 @@ def kernel_phase(dev) -> list[dict]:
     rows, failed = [], []
     table = kernels()
     for name, args, faults, iters in kernel_cases(np.random.RandomState(SEED), dev):
-        kern, plain = table[name]
-        bound = KERNEL_BOUNDS[name]
-        out = kern(*args)
+        _, kern, plain, names = table[name]
+        bounds = KERNEL_BOUNDS[name]
+        out = as_tuple(kern(*args))
         torch.cuda.synchronize()
-        ref = plain(*args)
+        ref = as_tuple(plain(*args))
         torch.cuda.synchronize()
-        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
-            raise RuntimeError(f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)}"
-                               " or non-finite output")
-        err = rel_l2(out, ref)
-        max_abs = float((out.float() - ref.float()).abs().max())
+        for o, r, oname in zip(out, ref, names):
+            if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+                raise RuntimeError(f"{name} {oname}: shape {tuple(o.shape)} vs "
+                                   f"{tuple(r.shape)} or non-finite output")
+        errs = {o_n: rel_l2(o, r) for o, r, o_n in zip(out, ref, names)}
+        max_abs = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
         # Both bf16 results against the plain version in fp32 on the same
         # (bf16-valued) inputs: how far bf16 alone moves the result.
-        ref32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
-        log(f"kernel {name}: vs fp32 plain: kernel rel_l2 {rel_l2(out, ref32):.3e}, "
-            f"bf16 plain rel_l2 {rel_l2(ref, ref32):.3e}")
+        ref32 = as_tuple(plain(*[a.float() if torch.is_tensor(a) and a.is_floating_point()
+                                 else a for a in args]))
+        log(f"kernel {name}: vs fp32 plain: kernel rel_l2 "
+            + ", ".join(f"{o_n} {rel_l2(o, r):.3e}" for o, r, o_n in zip(out, ref32, names))
+            + "; bf16 plain rel_l2 "
+            + ", ".join(f"{o_n} {rel_l2(o, r):.3e}" for o, r, o_n in zip(ref, ref32, names)))
         del ref32
-        fault_errs = {f: rel_l2(plain(*plant(args)), ref) for f, plant in faults.items()}
-        log(f"kernel {name}: planted faults (plain version) rel_l2 "
-            + ", ".join(f"{f} {e:.3e}" for f, e in fault_errs.items()))
+        fault_errs = {}
+        for fault, plant in faults.items():
+            if plant == "lse":  # B11: the backward given a wrong lse
+                from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+                o, lse = fa.flash_attention_fwd_plain(*args[:3])
+                planted = (o, lse + 0.05, *fa.flash_attention_bwd_plain(*args[:3], o,
+                                                                        lse + 0.05, args[3]))
+            elif isinstance(plant, tuple):
+                _, j, move = plant
+                planted = ref[:j] + (as_tuple(plain(*move(args)))[j],) + ref[j + 1:]
+            else:
+                planted = as_tuple(plain(*plant(args)))
+            fault_errs[fault] = {o_n: rel_l2(p, r) for p, r, o_n in zip(planted, ref, names)}
+        log(f"kernel {name}: planted faults (plain version) rel_l2 " + "; ".join(
+            f"{f}: " + ", ".join(f"{o_n} {e:.3e}" for o_n, e in es.items())
+            for f, es in fault_errs.items()))
         ms = cuda_ms(lambda: kern(*args), iters)
         plain_ms = cuda_ms(lambda: plain(*args), iters)
-        log(f"kernel {name}: rel_l2 {err:.3e} (bound {bound:g}) max_abs {max_abs:.3e} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not err <= bound:
-            failed.append(f"{name}: rel L2 {err} over its bound {bound}")
-        weak = {f: e for f, e in fault_errs.items() if not e > bound}
+        lib = library_call(name, args)
+        library_ms = cuda_ms(lib, iters) if lib is not None else None
+        flops, nbytes, rate = work(name, args, out)
+        t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+        log(f"kernel {name}: rel_l2 " + ", ".join(f"{o_n} {e:.3e} (bound {bounds[o_n]:g})"
+                                                  for o_n, e in errs.items())
+            + f"; max_abs {max_abs:.3e}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms if library_ms is None else round(library_ms, 4)} ms; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+        over = {o_n: e for o_n, e in errs.items() if not e <= bounds[o_n]}
+        if over:
+            failed.append(f"{name}: rel L2 {over} over its bounds {bounds}")
+        weak = [f for f, es in fault_errs.items()
+                if not any(e > bounds[o_n] for o_n, e in es.items())]
         if weak:
-            failed.append(f"{name}: bound {bound} would not catch {weak}")
+            failed.append(f"{name}: bounds {bounds} would not catch {weak}")
+        untested = [o_n for o_n in names
+                    if not any(es[o_n] > bounds[o_n] for es in fault_errs.values())]
+        if untested:
+            failed.append(f"{name}: no planted fault reads above the bound of {untested}")
         source, replaces = SOURCES[name]
         rows.append(dict(name=name, route="cuda", source="iuvl_tpu_torch/csrc/" + source,
                          replaces=PALLAS + replaces, max_abs_err=max_abs, ms=ms,
-                         plain_ms=plain_ms))
+                         plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         library_ms=library_ms))
     if failed:
         raise RuntimeError("kernel checks failed: " + "; ".join(failed))
     return rows
+
+
+def grad_switch_phase(dev) -> None:
+    """The global block's two routes on the same inputs: the training route
+    (autograd records it: augmented q, k, B11, projection in PyTorch)
+    against the serving route (B2), as one forward."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+    from iuvl_tpu_torch.ops.rel_pos_attention import rel_pos_attention_proj, rel_pos_tables
+
+    rs = np.random.RandomState(SEED + 4)
+    t = lambda *s, std=1.0, dtype=torch.bfloat16: torch.from_numpy(  # noqa: E731
+        rs.randn(*s).astype(np.float32) * std).to(dev, dtype)
+    q, k, v = (t(1, 12, 4096, 64) for _ in range(3))
+    rh, rw = rel_pos_tables(t(127, 64, std=BIAS_STD), t(127, 64, std=BIAS_STD), (64, 64))
+    wo, bo = t(768, 768, std=768 ** -0.5), t(768, std=BIAS_STD, dtype=torch.float32)
+    reset_launches()
+    with torch.no_grad():
+        serve = rel_pos_attention_proj(q, k, v, rh, rw, wo, bo)
+    counts_serve = launches()
+    with torch.enable_grad():
+        train = rel_pos_attention_proj(q.requires_grad_(), k, v, rh, rw, wo, bo)
+    counts = launches()
+    torch.cuda.synchronize()
+    err = rel_l2(train.detach(), serve)
+    log(f"grad switch: training route vs serving route rel_l2 {err:.3e} "
+        f"(bound {GRAD_SWITCH_BOUND:g}); B2 launches {counts_serve['flash_attention_rowbias_proj']}"
+        f" then {counts['flash_attention_rowbias_proj']}, B11 forward "
+        f"{fa.flash_attention_fwd.launches}")
+    if not (counts_serve["flash_attention_rowbias_proj"] == 1 and counts["flash_attention"] == 1
+            and counts["flash_attention_rowbias_proj"] == 1):
+        raise RuntimeError(f"grad switch: routes not taken as expected: {counts}")
+    if not err <= GRAD_SWITCH_BOUND:
+        raise RuntimeError(f"grad switch: rel L2 {err} over {GRAD_SWITCH_BOUND}")
 
 
 def serve(model, image, points, labels):
@@ -263,51 +529,51 @@ def mask_iou(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
     return float((inter[keep] / union[keep]).mean()), int(keep.sum())
 
 
-def slice_phase(dev) -> dict:
+def serving_phase(dev) -> dict:
     from iuvl_tpu_torch.models.sam import build_sam, sam_model_registry
 
     per_request = {"window_attention_block": 8, "flash_attention_rowbias_proj": 4,
                    "block_tail": 12, "masks_upscale": N_PROMPTS // CHUNK,
                    "t2i_stream": 3 * N_PROMPTS // CHUNK, "i2t_block_step": 2 * N_PROMPTS // CHUNK}
-    wrappers = {name: kern for name, (kern, _) in kernels().items()}
     gen = torch.Generator().manual_seed(SEED)
     model = sam_model_registry["vit_b"](dtype="bfloat16", device=dev, generator=gen).eval()
     plain = {}
     for dtype in ("bfloat16", "float32"):
-        plain[dtype] = build_sam("vit_b", dtype=dtype, attn_impl="plain",
-                                 twoway_impl="plain").eval()
+        plain[dtype] = build_sam("vit_b", dtype=dtype, attn_impl="plain", twoway_impl="plain",
+                                 device=dev).eval()
         plain[dtype].load_state_dict(model.state_dict())
-        plain[dtype].to(dev)
     rs = np.random.RandomState(SEED + 1)
     totals = {k: 0 for k in per_request}
     timing = {"kernels": [], "plain": []}
     with torch.inference_mode():
         for r in range(REQUESTS):
-            request(r, model, plain, rs, dev, wrappers, per_request, totals, timing)
+            request(r, model, plain, rs, dev, per_request, totals, timing)
     for path, runs in timing.items():  # steady state: requests after the first
         enc = float(np.mean([e for e, _ in runs[1:]]))
         dec = float(np.mean([np.mean(d) for _, d in runs[1:]]))
         per_image = enc + dec * (N_PROMPTS // CHUNK)
-        log(f"slice {path} (mean of requests 1..{REQUESTS - 1}): encode {enc * 1e3:.2f} ms, "
+        log(f"serving {path} (mean of requests 1..{REQUESTS - 1}): encode {enc * 1e3:.2f} ms, "
             f"{dec * 1e3:.2f} ms per {CHUNK}-prompt chunk, {N_PROMPTS / per_image:.1f} masks/s")
+    del model, plain
+    torch.cuda.empty_cache()
     return totals
 
 
-def request(r, model, plain, rs, dev, wrappers, per_request, totals, timing):
+def request(r, model, plain, rs, dev, per_request, totals, timing):
     """Serve request r through the kernels (checking the launch counts) and
     through the plain paths, and hold the masks against the fp32 ones."""
     image = torch.from_numpy(rs.rand(1, 1024, 1024, 3).astype(np.float32) * 255).to(dev)
     points = torch.from_numpy(rs.rand(N_PROMPTS, 1, 2).astype(np.float32) * 1024).to(dev)
     labels = torch.ones(N_PROMPTS, 1, dtype=torch.int32, device=dev)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     masks_k, enc_k, dec_k = serve(model, image, points, labels)
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    for name, want in per_request.items():
-        if counts[name] != want:
-            raise RuntimeError(f"request {r}: {name} launched {counts[name]} times, "
-                               f"expected {want}")
-        totals[name] += counts[name]
+    counts = launches()
+    for name, got in counts.items():
+        want = per_request.get(name, 0)
+        if got != want:
+            raise RuntimeError(f"request {r}: {name} launched {got} times, expected {want}")
+        if name in totals:
+            totals[name] += got
     masks_p, enc_p, dec_p = serve(plain["bfloat16"], image, points, labels)
     masks_32 = serve(plain["float32"], image, points, labels)[0]
     want_shape = (N_PROMPTS, 4, 256, 256)
@@ -336,6 +602,238 @@ def request(r, model, plain, rs, dev, wrappers, per_request, totals, timing):
                            f"{SLICE_FACTOR} x the plain bf16 path's {1 - iou_p}")
 
 
+# Launches of each kernel wrapper per train step of the kernel path.
+PER_STEP = {"window_attention_block": 8, "block_tail": 12, "window_block_backward": 8,
+            "block_tail_backward": 12, "flash_attention": 8, "tap_scatter": 10}
+GROUPS = ("image_encoder.", "pixel_decoder.", "predictor.")
+
+
+def step_draws(gen: torch.Generator, n_layers: int) -> dict:
+    """One step's uniform draws of the criterion, by name, from ``gen``."""
+    p = MATCH_POINTS
+    out = {}
+    for i in range(n_layers):
+        out[f"layer{i}/match"] = torch.rand((1, p, 2), generator=gen, device=gen.device)
+        out[f"layer{i}/over"] = torch.rand((N_TARGETS, 3 * p, 2), generator=gen,
+                                           device=gen.device)
+        out[f"layer{i}/rand"] = torch.rand((N_TARGETS, p - int(0.75 * p), 2), generator=gen,
+                                           device=gen.device)
+    return out
+
+
+TRAIN_CONFIG = dict(sam_size="base", img_size=1024, dtype="bfloat16", attn_impl="auto",
+                    msdeform_impl="auto")
+# In the order they run: the fp32 path's assignments serve every path.
+TRAIN_PATHS = ("plain_fp32", "plain_bf16", "kernels", "control_fp32", "control_bf16")
+
+
+def perturbed(state: dict, seed: int, dev) -> dict:
+    """The control pair's weights: each floating-point entry scaled by
+    1 + 2^-9 u, u uniform in [-1, 1] from ``seed``. That changes the bf16
+    rounding of a good share of the weights; the pair's fp32 path takes the
+    same weights, so the pair is one more sound bf16 path with its own fp32
+    reference."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: v * (1 + 2.0 ** -9 * (2 * torch.rand(v.shape, generator=gen, device=dev) - 1))
+            if v.is_floating_point() else v for k, v in state.items()}
+
+
+def capture_grads(state, model, into: dict) -> None:
+    """Have the next optimizer update first copy every parameter's gradient
+    (before clipping) into ``into``."""
+    opt = state.optimizer
+
+    def copy_then_step():
+        into.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        del opt.step
+        return opt.step()
+
+    opt.step = copy_then_step
+
+
+def train_phase(dev) -> dict:
+    """STEPS train steps through the kernels, the plain bf16 and the plain
+    fp32 paths, and on the first step the control pair too (plain bf16 and
+    fp32 on perturbed weights); returns the kernel path's launch totals."""
+    from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion, SegTargets
+    from iuvl_tpu_torch.models.xdecoder import convert
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.train.optimizer import Optimizer
+    from iuvl_tpu_torch.train.train_step import TrainState, make_train_step
+
+    cfg = SysLearnerConfig(**TRAIN_CONFIG)
+    size = cfg.img_size
+    plain = {"bf16": dataclasses.replace(cfg, attn_impl="plain"),
+             "fp32": dataclasses.replace(cfg, attn_impl="plain", dtype="float32")}
+    cfgs = {"kernels": cfg, "plain_bf16": plain["bf16"], "plain_fp32": plain["fp32"],
+            "control_bf16": plain["bf16"], "control_fp32": plain["fp32"]}
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    models = {"kernels": build_syslearner(cfg, device=dev, generator=gen)}
+    weights = models["kernels"].state_dict()
+    control = perturbed(weights, SEED + 5, dev)
+    for path in cfgs:
+        if path != "kernels":
+            models[path] = build_syslearner(cfgs[path], device=dev)
+            models[path].load_state_dict(control if path.startswith("control") else weights)
+    del weights, control
+    paths = convert.flax_paths(cfg)
+    states = {path: TrainState(Optimizer(m.named_parameters(), paths=paths, base_lr=1e-4,
+                                         total_steps=1000))
+              for path, m in models.items()}
+    n_params = sum(p.numel() for p in models["kernels"].parameters())
+    log(f"train: {len(models)} x SysLearner ({n_params / 1e6:.1f} M parameters each) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_fns = {path: make_train_step(m, SegCriterion(
+        CriterionConfig(num_classes=N_CLASSES), impl=cfgs[path].attn_impl),
+        match_points=MATCH_POINTS) for path, m in models.items()}
+    rs = np.random.RandomState(SEED + 2)
+    text = torch.from_numpy(rs.randn(N_CLASSES + 1, cfg.syslearner_dim).astype(np.float32))
+    text = text.to(dev)
+    draw_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n_layers = 10
+    totals = {k: 0 for k in PER_STEP}
+    times = {"kernels": [], "plain_bf16": []}
+    for step in range(STEPS):
+        image = torch.from_numpy(
+            rs.rand(1, size, size, 3).astype(np.float32) * 255).to(dev)
+        targets = SegTargets(
+            labels=torch.from_numpy(rs.randint(0, N_CLASSES, (1, N_TARGETS))).to(dev),
+            masks=torch.from_numpy(
+                (rs.rand(1, N_TARGETS, size, size) > 0.7).astype(np.float32)
+            ).to(dev),
+            valid=torch.from_numpy(rs.rand(1, N_TARGETS) > 0.3).to(dev))
+        draws = step_draws(draw_gen, n_layers)
+        metrics, grads = {}, {}
+        for path in [p for p in TRAIN_PATHS if p in models]:
+            if step == 0:
+                grads[path] = {}
+                capture_grads(states[path], models[path], grads[path])
+            assignments = None if path == "plain_fp32" else metrics["plain_fp32"]["assignments"]
+            reset_launches()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            _, metrics[path] = step_fns[path](states[path], image, text, targets, draws,
+                                              assignments=assignments)
+            torch.cuda.synchronize()
+            if path in times:
+                times[path].append(time.perf_counter() - t_start)
+            counts = launches()
+            if path == "kernels":
+                check_step_launches(step, counts, totals)
+            elif any(counts.values()):
+                raise RuntimeError(f"step {step} {path}: kernels launched {counts}")
+        check_step(step, metrics, grads)
+        if step == 0:  # the control pair has served its purpose
+            for path in ("control_bf16", "control_fp32"):
+                del models[path], states[path], step_fns[path]
+            del grads
+            torch.cuda.empty_cache()
+    for path, ts in times.items():
+        mean = float(np.mean(ts[1:]))
+        log(f"train {path}: step times {[round(s * 1e3, 1) for s in ts]} ms; mean of steps "
+            f"1..{STEPS - 1} {mean * 1e3:.1f} ms, {1 / mean:.3f} img/s")
+    del models, states
+    torch.cuda.empty_cache()
+    return totals
+
+
+def check_step_launches(step: int, counts: dict, totals: dict) -> None:
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    log(f"train step {step} kernels: launches {counts} (B11 forward "
+        f"{fa.flash_attention_fwd.launches}, backward {fa.flash_attention_bwd.launches})")
+    for name, got in counts.items():
+        want = PER_STEP.get(name, 0)
+        if got != want:
+            raise RuntimeError(f"train step {step}: {name} launched {got} times, "
+                               f"expected {want}")
+        if name in totals:
+            totals[name] += got
+    if fa.flash_attention_fwd.launches != 4 or fa.flash_attention_bwd.launches != 4:
+        raise RuntimeError(f"train step {step}: B11 forward/backward calls "
+                           f"{fa.flash_attention_fwd.launches}/{fa.flash_attention_bwd.launches}"
+                           ", expected 4/4")
+
+
+LOSS_TERMS = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice")
+
+
+def check_step(step: int, metrics: dict, grads: dict) -> None:
+    """Print the losses; on the first step gate each loss term (class CE,
+    mask BCE, dice: the vector of its values over the kept layers) and each
+    parameter group's gradient: the kernel path may be at most
+    SLICE_FACTOR times as far from fp32, in relative L2, as the plain bf16
+    path. The control pair (a second sound bf16 path, held against its own
+    fp32 path) is read the same way, ungated, and so is each layer's loss
+    scalar: there the control shows how far the ratio of two sound bf16
+    paths spreads, which is why one scalar is no gate."""
+    ref = metrics["plain_fp32"]
+    keys = sorted(k for k in ref if k.startswith("loss_"))
+    for path, m in metrics.items():
+        if not all(bool(torch.isfinite(m[k])) for k in keys):
+            raise RuntimeError(f"train step {step} {path}: non-finite loss")
+    for path, m in metrics.items():
+        log(f"train step {step} {path}: loss_total {float(m['loss_total']):.6f}, "
+            + ", ".join(f"{term[5:]} " + " ".join(
+                f"{float(m[k]):.5f}" for k in keys if k.startswith(term + "_"))
+                for term in LOSS_TERMS)
+            + f"; grad_norm {float(m['grad_norm']):.4f}")
+    if step:
+        return
+    # Each bf16 path against its own fp32 path.
+    pairs = {"kernels": "plain_fp32", "plain_bf16": "plain_fp32",
+             "control_bf16": "control_fp32"}
+
+    def rel(path, key):
+        r = float(metrics[pairs[path]][key])
+        return abs(float(metrics[path][key]) - r) / abs(r)
+
+    ratios = {"kernels": [], "control_bf16": []}
+    for key in keys:
+        e = {path: rel(path, key) for path in pairs}
+        r = {path: e[path] / max(e["plain_bf16"], 1e-30) for path in ratios}
+        log(f"train step 0 {key}: fp32 {float(ref[key]):.6f}, rel err kernels "
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}"
+            f"; ratio to plain bf16 kernels {r['kernels']:.2f} control {r['control_bf16']:.2f}")
+        if key != "loss_total":
+            for path in ratios:
+                ratios[path].append(r[path])
+    for path, rs in ratios.items():
+        log(f"train step 0 per-layer loss scalars, {path} / plain bf16: "
+            f"{sum(x > SLICE_FACTOR for x in rs)} of {len(rs)} above {SLICE_FACTOR}; "
+            f"min {min(rs):.3f} median {float(np.median(rs)):.3f} max {max(rs):.3f} (not gated)")
+
+    def dist(vec, path):
+        return rel_l2(vec[path], vec[pairs[path]])
+
+    failed = []
+    for term in LOSS_TERMS:
+        vec = {path: torch.stack([m[k].float() for k in keys if k.startswith(term + "_")])
+               for path, m in metrics.items()}
+        e = {path: dist(vec, path) for path in pairs}
+        log(f"train step 0 {term} ({len(vec['kernels'])} layers): rel L2 to fp32 kernels "
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}"
+            f"; ratio kernels {e['kernels'] / e['plain_bf16']:.3f} control (not gated) "
+            f"{e['control_bf16'] / e['plain_bf16']:.3f}")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    for group in GROUPS:
+        names = [n for n in grads["plain_fp32"] if n.startswith(group)]
+        vec = {path: torch.cat([grads[path][n].float().flatten() for n in names])
+               for path in grads}
+        e = {path: dist(vec, path) for path in pairs}
+        log(f"train step 0 grad {group[:-1]}: rel L2 to fp32 kernels {e['kernels']:.3e} plain "
+            f"bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}; ratio kernels "
+            f"{e['kernels'] / e['plain_bf16']:.3f} control (not gated) "
+            f"{e['control_bf16'] / e['plain_bf16']:.3f}")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"grad {group}: {e['kernels']:.3e} > {SLICE_FACTOR} x "
+                          f"{e['plain_bf16']:.3e}")
+    if failed:
+        raise RuntimeError("train gate failed: " + "; ".join(failed))
+
+
 def main() -> int:
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -344,11 +842,19 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.BUILD_DIR})")
-    with torch.inference_mode():
+    with torch.no_grad():
         rows = kernel_phase(dev)
-    launches = slice_phase(dev)
+    grad_switch_phase(dev)
+    t0 = time.perf_counter()
+    serving = serving_phase(dev)
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training = train_phase(dev)
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = serving.get(row["name"], 0) + training.get(row["name"], 0)
+        if not row["launches"]:
+            raise RuntimeError(f"{row['name']}: never launched on the main paths")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -150,14 +150,26 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_sam(variant: str = "vit_b", device=None,
+def target_device(device, builder: str) -> torch.device:
+    """The device an entry point builds on: the card unless the caller asks
+    for another. Raises when the card is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{builder}: no CUDA card (torch.cuda.is_available() is false); "
+                           "pass device='cpu' to build on the CPU")
+    return device
+
+
+def build_sam(variant: str = "vit_b", device="cuda",
               generator: torch.Generator | None = None, **overrides) -> Sam:
-    """Build ``variant`` with ``overrides`` of SamConfig; with ``generator``
-    the weights are drawn from it (on the CPU), then moved to ``device``."""
+    """Build ``variant`` with ``overrides`` of SamConfig on ``device`` (the
+    card by default; ``device='cpu'`` for the CPU); with ``generator`` the
+    weights are drawn from it (on the CPU), then moved to ``device``."""
+    device = target_device(device, "build_sam")
     model = Sam(SamConfig(**{**SAM_VARIANTS[variant], **overrides}))
     if generator is not None:
         init_random_(model, generator)
-    return model.to(device) if device is not None else model
+    return model.to(device)
 
 
 sam_model_registry = {name: functools.partial(build_sam, name) for name in SAM_VARIANTS}

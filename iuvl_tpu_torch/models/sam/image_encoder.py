@@ -6,9 +6,17 @@ a few global blocks) -> the 256-ch SAM neck (``orig_neck``) and the
 four-branch SimpleFPN (``neck``). Parameter names are the reference SAM
 state-dict names; tensors are NHWC at the public functions, as in JAX.
 
-Kernels on this path: the windowed attention body (B1), the global
-attention + projection (B2) and every block tail (B3), chosen with
-``attn_impl='auto'``; ``attn_impl='plain'`` runs their plain versions.
+Kernels on this path, chosen with ``attn_impl='auto'`` (``'plain'`` runs
+their plain versions):
+
+- serving (no gradient recorded): the windowed attention body (B1), the
+  global attention + projection (B2) and every block tail (B3), on weight
+  layouts cached per weight state (``ops.common.prepared``);
+- training (autograd records the call, ``ops.common.needs_grad``): B1 with
+  its backward B9, the augmented global attention B11 (forward and
+  backward) with the projection in PyTorch, and B3 with its backward B10,
+  on layouts made from the parameters inside the graph, so that every
+  parameter gets its gradient.
 """
 
 from __future__ import annotations
@@ -19,11 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.common import (conv_nhwc, conv_transpose_nhwc, gelu, layer_norm_2d,
-                           layer_norm_f32, prepared)
-from ...ops.cuda.mlp_block import block_tail, block_tail_plain
+from ...ops.common import (conv_nhwc, conv_transpose_nhwc, gelu, group_norm_f32,
+                           layer_norm_2d, layer_norm_f32, linear, needs_grad, prepared)
+from ...ops.cuda.mlp_block import block_tail, block_tail_plain, block_tail_train
 from ...ops.cuda.window_block import (window_attention_block,
-                                      window_attention_block_plain)
+                                      window_attention_block_plain,
+                                      window_attention_block_train)
 from ...ops.rel_pos_attention import rel_pos_attention_proj, rel_pos_tables
 from ...ops.resize import resize_axis
 
@@ -96,13 +105,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        wqkv, bqkv, wo, bo, rh, rw = self.weights((h, w))
-        if self.windowed:
-            fn = (window_attention_block if self.attn_impl == "auto"
-                  else window_attention_block_plain)
-            out = fn(x.reshape(b, h * w, c), wqkv, bqkv, wo, bo, rh, rw, self.num_heads)
-            return out.reshape(b, h, w, c)
-        qkv = (x.to(self.dtype) @ wqkv.t() + bqkv.to(self.dtype))
+        if needs_grad(x, *self.parameters()):
+            wqkv, bqkv, wo, bo = (self.qkv.weight, self.qkv.bias, self.proj.weight,
+                                  self.proj.bias)
+            rh, rw = rel_pos_tables(self.rel_pos_h, self.rel_pos_w, (h, w))
+            if self.windowed:
+                out = window_attention_block_train(x.reshape(b, h * w, c), wqkv, bqkv, wo, bo,
+                                                   rh, rw, self.num_heads, self.attn_impl)
+                return out.reshape(b, h, w, c)
+        else:
+            wqkv, bqkv, wo, bo, rh, rw = self.weights((h, w))
+            if self.windowed:
+                fn = (window_attention_block if self.attn_impl == "auto"
+                      else window_attention_block_plain)
+                out = fn(x.reshape(b, h * w, c), wqkv, bqkv, wo, bo, rh, rw, self.num_heads)
+                return out.reshape(b, h, w, c)
+        qkv = linear(x, wqkv, bqkv, self.dtype)
         qkv = qkv.reshape(b, h * w, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous()
         out = rel_pos_attention_proj(q, k, v, rh, rw, wo, bo, impl=self.attn_impl)
@@ -143,8 +161,14 @@ class Block(nn.Module):
         y = self.attn(y)
         if self.window_size > 0:
             y = window_unpartition(y, self.window_size, pad_hw, (h, w))
-        fn = block_tail if self.attn_impl == "auto" else block_tail_plain
-        out = fn(x.reshape(-1, c), y.reshape(-1, c), *self.tail_weights())
+        x2, y2 = x.reshape(-1, c), y.reshape(-1, c)
+        if needs_grad(x, y, *self.norm2.parameters(), *self.mlp.parameters()):
+            n2, mlp = self.norm2, self.mlp
+            out = block_tail_train(x2, y2, n2.weight, n2.bias, mlp.lin1.weight, mlp.lin1.bias,
+                                   mlp.lin2.weight, mlp.lin2.bias, self.attn_impl)
+        else:
+            fn = block_tail if self.attn_impl == "auto" else block_tail_plain
+            out = fn(x2, y2, *self.tail_weights())
         return out.reshape(b, h, w, c)
 
     def tail_weights(self):
@@ -159,10 +183,11 @@ class Block(nn.Module):
 
 def _group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
     """GroupNorm(1) over (H, W, C) of an NHWC map, in fp32 (flax
-    ``GroupNorm(num_groups=1)`` reduces over every non-batch axis)."""
-    y = F.group_norm(x.float().permute(0, 3, 1, 2), gn.num_groups,
-                     gn.weight.float(), gn.bias.float(), gn.eps)
-    return y.permute(0, 2, 3, 1)
+    ``GroupNorm(num_groups=1)`` reduces over every non-batch axis, with the
+    fast variance). Plain reductions over the whole map: ``F.group_norm``
+    gives each (batch, group) row one CUDA block, 27.6 ms for SimpleFPN's 8
+    norms at 1024^2 (PERF.md)."""
+    return group_norm_f32(x, gn.num_groups, gn.weight, gn.bias, gn.eps)
 
 
 class SimpleFPN(nn.Module):
@@ -257,10 +282,13 @@ class ImageEncoderViT(nn.Module):
         y = xp @ kernel.to(self.dtype) + proj.bias.to(self.dtype)
         return y.reshape(b, gh, gw, -1)
 
-    def forward(self, x: torch.Tensor, return_fpn: bool = True):
-        """``return_fpn=False`` skips SimpleFPN and returns ``None`` in its
-        place: a JAX program that reads only the embedding (the serving
-        path, ``bench.py``) never computes it, as XLA drops it as dead code."""
+    def forward(self, x: torch.Tensor, return_fpn: bool = True,
+                return_embedding: bool = True):
+        """``return_fpn=False`` skips SimpleFPN, ``return_embedding=False``
+        the SAM neck, each returning ``None`` in its place: a JAX program
+        that reads only one of them (serving and ``bench.py`` the
+        embedding, the seg train step the FPN) never computes the other, as
+        XLA drops it as dead code."""
         x = self._patch_embed(x)
         pos = self.pos_embed
         h, w = x.shape[1], x.shape[2]
@@ -269,8 +297,10 @@ class ImageEncoderViT(nn.Module):
         x = x + pos.to(x.dtype)
         for blk in self.blocks:
             x = blk(x)
-        y = conv_nhwc(x, self.orig_neck[0], self.dtype)
-        y = self.orig_neck[1](y)
-        y = conv_nhwc(y, self.orig_neck[2], self.dtype, padding=1)
-        sam_embedding = self.orig_neck[3](y)
+        sam_embedding = None
+        if return_embedding:
+            y = conv_nhwc(x, self.orig_neck[0], self.dtype)
+            y = self.orig_neck[1](y)
+            y = conv_nhwc(y, self.orig_neck[2], self.dtype, padding=1)
+            sam_embedding = self.orig_neck[3](y)
         return sam_embedding, self.neck(x) if return_fpn else None

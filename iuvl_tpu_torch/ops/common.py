@@ -10,10 +10,19 @@ import torch
 import torch.nn.functional as F
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``: the switch between
+    the training routes (kernels with backward kernels, weight layouts made
+    inside the graph) and the serving routes (cached layouts)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def prepared(owner: torch.nn.Module, name: str, make, *params: torch.Tensor):
     """``make()``, computed once per state of ``params`` and kept on
     ``owner``: the weight layouts the kernels take (casts, transposes,
     expanded tables) are made when the weights change, not at every call.
+    Made under ``no_grad``, so they carry no gradient: a caller that trains
+    (:func:`needs_grad`) builds its layouts inside the graph instead.
     The key is each parameter's storage, dtype and in-place version, so
     ``load_state_dict`` and ``.to()`` make them anew. (Tensors made under
     ``torch.inference_mode`` have no version: weights of a model built
@@ -51,6 +60,18 @@ def layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
     mul = torch.rsqrt(var + eps) * scale.float()
     return (xf - mu) * mul + bias.float()
+
+
+def group_norm_f32(x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """flax ``nn.GroupNorm(dtype=float32)`` on NHWC: fp32 statistics over
+    (H, W, C / groups) with the fast variance; returns fp32."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    mu = xf.mean((1, 3), keepdim=True)
+    var = torch.clamp((xf * xf).mean((1, 3), keepdim=True) - mu * mu, min=0.0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return y * scale.float() + bias.float()
 
 
 def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

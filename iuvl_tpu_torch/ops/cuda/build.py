@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``iuvl_tpu/native/build.py``).
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, lands in ``iuvl_tpu_torch/_build/`` and is redone when
-a hash of the sources and flags changes. Each C entry point launches on the
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once in parallel, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use, lands in ``iuvl_tpu_torch/_build/`` and is redone when a
+hash of the sources and flags changes. Each C entry point launches on the
 stream it is given and returns ``cudaGetLastError()``; :func:`launch`
 raises when that is not 0. There is no fallback: without ``nvcc`` or with
 a failed build the call raises, with the compiler's output.
@@ -32,7 +33,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +46,11 @@ SIGNATURES = {
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
     "iuvl_t2i_stream": (P,) * 8 + (I, I, I, I, P),
     "iuvl_i2t_block_step": (P,) * 11 + (I, I, I, I, F, F, P),
+    "iuvl_window_block_bwd": (P,) * 21 + (I, I, I, I, P),
+    "iuvl_block_tail_bwd": (P,) * 21 + (I, I, I, F, P),
+    "iuvl_flash_fwd": (P,) * 5 + (I, I, I, I, P),
+    "iuvl_flash_bwd": (P,) * 10 + (I, I, I, I, P),
+    "iuvl_tap_scatter": (P, P, P, I, I, I, P),
 }
 
 
@@ -80,25 +86,42 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into ``_build/libiuvl_kernels_<hash>.so`` unless
-    that file exists. Returns its path; raises KernelBuildError."""
+    that file exists: one ``nvcc -c`` per source, all started together,
+    then one link. Returns the library's path; raises KernelBuildError."""
     nvcc = find_nvcc()
     out = BUILD_DIR / f"libiuvl_kernels_{source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    (BUILD_DIR / "ptxas.log").write_text(proc.stderr)
-    if verbose:
-        print(proc.stderr, file=sys.stderr)
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        procs = []
+        for cu in sorted(SRC_DIR.glob("*.cu")):
+            obj = work / (cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        tmp = work / "lib.so"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in procs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                   f"{proc.stderr}")
+        (BUILD_DIR / "ptxas.log").write_text("".join(logs))
+        if verbose:
+            print("".join(logs), file=sys.stderr)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .common import linear, needs_grad
 from .resize import resize_axis
 
 
@@ -91,17 +92,48 @@ def rel_pos_attention_naive(q, k, v, rel_pos_h, rel_pos_w, hw):
     return torch.matmul(attn, v)
 
 
+def augment_qk_rel_pos(q, k, rh, rw):
+    """Fold the decomposed rel-pos bias into the q.k contraction
+    (``iuvl_tpu`` ``augment_qk_rel_pos``): ``q_aug = [q * d**-0.5, relh,
+    relw]`` and ``k_aug = [k, onehot(key row), onehot(key column)]``, so
+    that ``q_aug . k_aug`` is the scaled score plus the bias and plain
+    softmax attention on them is rel-pos attention. q, k (B, heads, N, d)
+    with N = h * w; rh, rw from :func:`rel_pos_tables`. Returns
+    (q_aug, k_aug), (B, heads, N, d + h + w) in q's dtype."""
+    h, w = rh.shape[0], rw.shape[0]
+    b, heads, n, d = q.shape
+    relh, relw = rel_pos_features(q, rh, rw)
+    eye = lambda size: torch.eye(size, dtype=q.dtype, device=q.device)  # noqa: E731
+    onehot = torch.cat([eye(h).repeat_interleave(w, dim=0), eye(w).repeat(h, 1)], dim=-1)
+    k_aug = torch.cat([k, onehot.expand(b, heads, n, h + w)], dim=-1)
+    q_aug = torch.cat([q * d ** -0.5, relh, relw], dim=-1)
+    return q_aug, k_aug
+
+
 def rel_pos_attention_proj(q, k, v, rh, rw, wo, bo, impl: str = "auto"):
     """Global-block attention with the output projection folded in:
     ``(B, N, heads*d) @ wo^T + bo`` in token-major (B, N, C) layout; rh, rw
-    from :func:`rel_pos_tables`, wo in q's dtype, bo fp32.
+    from :func:`rel_pos_tables`; wo, bo rounded to q's dtype where used.
 
-    The relh/relw features come from the unscaled q; attention then runs
-    on the pre-scaled q through ``flash_attention_rowbias_proj`` (the CUDA
-    kernel for CUDA tensors under ``impl='auto'``, its plain version on the
-    CPU or under ``impl='plain'``)."""
-    from .cuda import flash_attention as fa
+    The route depends on differentiation, as the JAX grad switch does
+    (``_global_attention_proj_gradswitch``):
 
+    - not recorded by autograd (serving): the relh/relw features come from
+      the unscaled q, and attention runs on the pre-scaled q through
+      ``flash_attention_rowbias_proj`` (B2: the CUDA kernel for CUDA tensors
+      under ``impl='auto'``, its plain version on the CPU or under
+      ``impl='plain'``); wo in q's dtype, bo fp32;
+    - recorded (training, :func:`~iuvl_tpu_torch.ops.common.needs_grad`):
+      :func:`augment_qk_rel_pos`, then ``flash_attention`` (B11 forward and
+      backward, or their plain versions), the relayout and the projection
+      as plain PyTorch, whose backward autograd takes."""
+    from .cuda import flash_attention as fa  # it imports this module
+
+    if needs_grad(q, k, v, rh, rw, wo, bo):
+        q_aug, k_aug = augment_qk_rel_pos(q, k, rh, rw)
+        out = fa.flash_attention(q_aug, k_aug, v, impl=impl)
+        b, heads, n, d = out.shape
+        return linear(out.transpose(1, 2).reshape(b, n, heads * d), wo, bo, q.dtype)
     relh, relw = rel_pos_features(q, rh, rw)
     fn = fa.flash_attention_rowbias_proj if impl == "auto" else fa.rowbias_proj_plain
     return fn(q * (q.shape[-1] ** -0.5), k, v, relh, relw, wo, bo, rw.shape[0])

@@ -19,14 +19,41 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.models.sam as sam\n"
         "import iuvl_tpu_torch.models.sam.convert\n"
         "import iuvl_tpu_torch.ops.cuda.build\n"
+        "import iuvl_tpu_torch.models.xdecoder as xd\n"
+        "import iuvl_tpu_torch.models.xdecoder.convert\n"
+        "import iuvl_tpu_torch.losses.criterion, iuvl_tpu_torch.losses.matcher\n"
+        "import iuvl_tpu_torch.train.optimizer, iuvl_tpu_torch.train.train_step\n"
+        "import iuvl_tpu_torch.ops.msdeform, iuvl_tpu_torch.ops.point_sample\n"
+        "import iuvl_tpu_torch.ops.position_embedding, iuvl_tpu_torch.ops.cuda.tap_scatter\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
-        "global_attn_indexes=(1,), img_size=128, window_size=4)\n"
+        "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
+        "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
+        "mask_proposals=4, pixel_decoder_layers=1, nheads=4, dim_feedforward=32), "
+        "device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'iuvl_tpu', 'flax'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_jax():
+    """Not one source file of the port, nor chip_smoke.py, names jax,
+    flax or the JAX package in an import."""
+    import ast
+    import pathlib
+
+    files = [*pathlib.Path(REPO, "iuvl_tpu_torch").rglob("*.py"),
+             pathlib.Path(REPO, "chip_smoke.py")]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "flax", "optax", "iuvl_tpu")]
+    assert len(files) > 20 and not bad, bad
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -45,6 +72,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+    from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
     from iuvl_tpu_torch.ops.cuda import window_block as wb
 
@@ -62,9 +90,40 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
                   heads)
     ta.i2t_block_step(r(2, 16, c), r(16, 16), r(2, 3, 16), r(2, 3, 16), r(16, c), r(16),
                       r(c, 16), r(c), r(c), r(c), heads)
+    wb.window_block_backward(r(4, win * win, c), r(4, win * win, c), r(3 * c, c), r(3 * c),
+                             r(c, c), r(win, win, 16), r(win, win, 16), heads)
+    mb.block_tail_backward(r(8, c), r(8, c), r(8, c), r(c), r(c), r(4 * c, c), r(4 * c),
+                           r(4 * c, c))
+    o, lse = fa.flash_attention_fwd(r(1, heads, 16, 24), r(1, heads, 16, 24), r(1, heads, 16, 8))
+    fa.flash_attention_bwd(r(1, heads, 16, 24), r(1, heads, 16, 24), r(1, heads, 16, 8), o, lse,
+                           r(1, heads, 16, 8))
+    ts.tap_scatter(torch.zeros(2, 5, dtype=torch.int32), r(2, 5, 4), 7)
     for fn in (wb.window_attention_block, fa.flash_attention_rowbias_proj,
-               mb.block_tail, mu.masks_upscale, ta.t2i_stream, ta.i2t_block_step):
+               mb.block_tail, mu.masks_upscale, ta.t2i_stream, ta.i2t_block_step,
+               wb.window_block_backward, mb.block_tail_backward, fa.flash_attention_fwd,
+               fa.flash_attention_bwd, ts.tap_scatter):
         assert fn.launches == 0, fn.__name__
+
+
+@pytest.mark.parametrize("builder", ["build_sam", "build_syslearner"])
+def test_builders_default_to_the_card(builder, monkeypatch):
+    """An entry point builds on the card unless asked for the CPU, and
+    without a card it raises instead of quietly building on the CPU."""
+    from iuvl_tpu_torch.models.sam import build_sam
+    from iuvl_tpu_torch.models.xdecoder import SysLearnerConfig, build_syslearner
+
+    small = dict(img_size=64, syslearner_dim=32, mask_proposals=4, pixel_decoder_layers=1,
+                 nheads=4, dim_feedforward=32)
+    build = {"build_sam": lambda **kw: build_sam(
+                 "vit_b", embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                 img_size=64, **kw),
+             "build_syslearner": lambda **kw: build_syslearner(
+                 SysLearnerConfig(**small), **kw)}[builder]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build()
+    model = build(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 @pytest.mark.parametrize("field, value", [("attn_impl", "pallas"), ("attn_impl", "block"),
