@@ -9,16 +9,19 @@ Phases (any failure raises, so the exit code is non-zero):
 2. build: compile the hand-written kernels from iuvl_tpu_torch/csrc (one
    nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the path that runs it (ViT-B, 1024^2, bf16). Every output's relative L2
-   error must stay within its own bound (KERNEL_BOUNDS). Planted faults
-   run through the plain version (a bias, rel-pos or PE term dropped, heads
-   or tokens swapped, a wrong lse, a reduction that misses its last 16
-   rows): each must move some output by more than its bound, and each
-   output's bound must catch some fault.
-   Times from CUDA events after a warm-up; for B11 and B12 also the one
-   PyTorch call that computes the same function (timed only, never a
-   path). Then the global-block grad switch: the training route (B11 +
-   projection) against the serving route (B2) on the same inputs.
+   the path that runs it (ViT-B, 1024^2, bf16; the deformable core B7 and
+   its backward glue B8 at the res3 level of the batch-2 train step). Every
+   output's relative L2 error must stay within its own bound
+   (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
+   rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
+   a reduction that misses its last 16 rows, a tap at the wrong row, the
+   zero-padding validity dropped): each must move some output by more than
+   its bound, and each output's bound must catch some fault. B8's two entry
+   points must agree exactly. Times from CUDA events after a warm-up; for
+   B11, B12 and B7's gather and scatter also the PyTorch call that computes
+   the same function (timed only, never a path). Then the global-block grad
+   switch: the training route (B11 + projection) against the serving route
+   (B2) on the same inputs.
 4. serving: SAM ViT-B bf16 with seeded random weights answers REQUESTS
    requests (one 1024^2 image encoded once, 1024 point prompts decoded in
    chunks of 256) through the kernels, with per-request launch counts
@@ -28,23 +31,29 @@ Phases (any failure raises, so the exit code is non-zero):
    of the logits and in 1 - mean per-mask IoU of ``logits > 0``.
 5. train: the SysLearner seg train step (ViT-B + SimpleFPN, 6-layer
    deformable pixel decoder, 9-layer unified decoder, 101 queries; bf16;
-   seeded random weights) for STEPS steps of one 1024^2 image, 134 x 512
-   text embeddings and 20 gt masks, through the kernels, the plain versions
+   seeded random weights) for STEPS steps of 1024^2 images, 134 x 512
+   text embeddings and 20 gt masks an image, at batch 1 (the plain 'wide'
+   deformable core) and then at batch 2 (the flat core: B7 and B8), each
+   through the kernels, the plain versions
    in bf16 and the plain versions in fp32, with the same point draws; each
    step's assignments are the fp32 path's. Launch counts per step are
-   checked. For each loss term of the first step (class CE, mask BCE,
-   dice, each over the 10 kept layers) and the gradient of each parameter
-   group, the kernel path's relative L2 from fp32 must be at most
-   SLICE_FACTOR times the plain bf16 path's. A control pair (plain bf16
-   and fp32 on slightly perturbed weights) takes the first step too: its
-   ratios, and every path's ratio per layer's loss scalar, are printed,
-   not gated. Step times after one warm-up step.
+   checked. For each loss term (class CE, mask BCE, dice, each over the 10
+   kept layers, pooled over GATE_BATCHES batches at the first step's
+   weights, the first step's batch among them) and the gradient of each
+   parameter group on the first step,
+   the kernel path's relative L2 from fp32 must be at most SLICE_FACTOR
+   times the plain bf16 path's. At batch 1 a control pair
+   (plain bf16 and fp32 on slightly perturbed weights) takes the first step
+   too: its ratios, and every path's ratio per layer's loss scalar, are
+   printed, not gated. Step times after one warm-up step, and each path's
+   peak device memory.
 6. prints the kernel table as one JSON line, the nvidia-smi line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -72,6 +81,14 @@ KERNEL_BOUNDS = {
     "tap_scatter": {"acc": 1e-6},
     # dq, dk inherit the forward's rounding of o through delta = rowsum(do o).
     "flash_attention": {"o": 5e-3, "lse": 1e-5, "dq": 5e-3, "dk": 5e-3, "dv": 1e-3},
+    # The deformable core: the forward and B8's dots sum fp32 products in
+    # another order; the gather and B8's contrib are exact (a copy, one
+    # rounding of one product); the scatter adds with fp32 atomics.
+    "ms_deform_level_fwd": {"out": 5e-7},
+    "deform_gather_rows": {"g4": 0.0},
+    "deform_bwd_glue_q": {"contrib": 0.0, "dots": 5e-7},
+    "deform_bwd_glue": {"contrib": 0.0, "dots": 5e-7},
+    "deform_scatter_dv": {"dv": 5e-8},
 }
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
@@ -80,22 +97,33 @@ SLICE_FACTOR = 1.25
 REQUESTS = 3
 N_PROMPTS, CHUNK = 1024, 256
 STEPS = 3
+GATE_BATCHES = 16  # the loss gate's batches at the first step's weights
 N_CLASSES, N_TARGETS, MATCH_POINTS = 133, 20, 12544
 SEED = 0
 BIAS_STD = 0.3  # biases, PE and rel-pos terms: a fair share of a unit signal
 PALLAS = "iuvl_tpu/ops/pallas/"
+MSDEFORM = "iuvl_tpu/ops/msdeform.py"
 SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
-    "window_attention_block": ("window_block.cu", "window_block.py:148"),
-    "flash_attention_rowbias_proj": ("flash_attention.cu", "flash_attention.py:1271"),
-    "block_tail": ("mlp_block.cu", "mlp_block.py:115"),
-    "masks_upscale": ("mask_upscale.cu", "mask_upscale.py:181"),
-    "t2i_stream": ("twoway_attention.cu", "twoway_attention.py:305"),
-    "i2t_block_step": ("twoway_attention.cu", "twoway_attention.py:163"),
-    "window_block_backward": ("window_block_bwd.cu", "window_block.py:273"),
-    "block_tail_backward": ("mlp_block_bwd.cu", "mlp_block.py:212"),
-    "flash_attention": ("flash_attention_train.cu", "flash_attention.py:193"),
-    "tap_scatter": ("tap_scatter.cu", "tap_scatter.py:39"),
+    "window_attention_block": ("window_block.cu", PALLAS + "window_block.py:148"),
+    "flash_attention_rowbias_proj": ("flash_attention.cu", PALLAS + "flash_attention.py:1271"),
+    "block_tail": ("mlp_block.cu", PALLAS + "mlp_block.py:115"),
+    "masks_upscale": ("mask_upscale.cu", PALLAS + "mask_upscale.py:181"),
+    "t2i_stream": ("twoway_attention.cu", PALLAS + "twoway_attention.py:305"),
+    "i2t_block_step": ("twoway_attention.cu", PALLAS + "twoway_attention.py:163"),
+    "window_block_backward": ("window_block_bwd.cu", PALLAS + "window_block.py:273"),
+    "block_tail_backward": ("mlp_block_bwd.cu", PALLAS + "mlp_block.py:212"),
+    "flash_attention": ("flash_attention_train.cu", PALLAS + "flash_attention.py:193"),
+    "tap_scatter": ("tap_scatter.cu", PALLAS + "tap_scatter.py:39"),
+    # B7: the flat core of the JAX package (XLA, not Pallas), per level.
+    "ms_deform_level_fwd": ("msdeform.cu", MSDEFORM + ":489"),  # _flat_level_fwd_impl
+    "deform_gather_rows": ("msdeform.cu", MSDEFORM + ":442"),  # _flat_gather_rows(_wide_map)
+    "deform_scatter_dv": ("msdeform.cu", MSDEFORM + ":637"),  # dv4 scatter + fold (:669)
+    "deform_bwd_glue_q": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:71"),
+    "deform_bwd_glue": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:111"),
 }
+# Checked and timed, on no path: JAX's row-layout glue, which its flat
+# backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default).
+OFF_PATH = ("deform_bwd_glue",)
 # H100 SXM peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA cores, HBM3.
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 
@@ -161,14 +189,16 @@ def flash_fwd_bwd_plain(q, k, v, do):
 def kernels():
     """kernel name -> (wrappers whose ``launches`` count it, its call, its
     plain version, output names)."""
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
     from iuvl_tpu_torch.ops.cuda import window_block as wb
 
-    one = lambda fn, plain: ((fn,), fn, plain, ("out",))  # noqa: E731
+    one = lambda fn, plain, out="out": ((fn,), fn, plain, (out,))  # noqa: E731
     return {
         "window_attention_block": one(wb.window_attention_block,
                                       wb.window_attention_block_plain),
@@ -187,6 +217,13 @@ def kernels():
         "flash_attention": ((fa.flash_attention_fwd, fa.flash_attention_bwd), flash_fwd_bwd,
                             flash_fwd_bwd_plain, ("o", "lse", "dq", "dk", "dv")),
         "tap_scatter": ((ts.tap_scatter,), ts.tap_scatter, ts.tap_scatter_plain, ("acc",)),
+        "ms_deform_level_fwd": one(md.ms_deform_level_fwd, md.ms_deform_level_fwd_plain),
+        "deform_gather_rows": one(md.deform_gather_rows, md.deform_gather_rows_plain, "g4"),
+        "deform_bwd_glue_q": ((dg.deform_bwd_glue_q,), dg.deform_bwd_glue_q,
+                              dg.deform_bwd_glue_plain, ("contrib", "dots")),
+        "deform_bwd_glue": ((dg.deform_bwd_glue,), dg.deform_bwd_glue, dg.deform_bwd_glue_plain,
+                            ("contrib", "dots")),
+        "deform_scatter_dv": one(md.deform_scatter_dv, md.deform_scatter_dv_plain, "dv"),
     }
 
 
@@ -241,11 +278,73 @@ def _tile_missed(j, i, rows):
     return ("out", j, fault)
 
 
+def _planted(fn):
+    """A fault planted inside the plain version: ``fn(args)`` gives all its
+    outputs."""
+    return ("calc", fn)
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _wrong_wrap(plain):
+    """The plain version with slot 2 read at row offset w - 1 instead of w."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+
+    def fault(args):
+        with _patched(md, "tap_offsets", lambda w: (0, 1, w - 1, w + 1)):
+            return as_tuple(plain(*args))
+    return _planted(fault)
+
+
+def _no_validity(plain):
+    """The plain version with every tap weighted as if it lay inside the
+    map: the clip shift kept, the zero-padding validity dropped."""
+    from iuvl_tpu_torch.ops import msdeform as core
+
+    sound = core.wide_idx_wslot
+
+    def without_validity(h, w, x, y):
+        idx, _ = sound(h, w, x, y)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        px, py = x0.clamp(0, w - 1) - x0, y0.clamp(0, h - 1) - y0
+        sx = (torch.where(px > 0, fx, 1 - fx), torch.where(px > 0, 0 * fx, fx))
+        sy = (torch.where(py > 0, fy, 1 - fy), torch.where(py > 0, 0 * fy, fy))
+        return idx, torch.stack([sy[0] * sx[0], sy[0] * sx[1], sy[1] * sx[0], sy[1] * sx[1]],
+                                dim=-1)
+
+    def fault(args):
+        with _patched(core, "wide_idx_wslot", without_validity):
+            return as_tuple(plain(*args))
+    return _planted(fault)
+
+
+def _out_cols_swapped(plain, j):
+    """Output j with its columns 0 and 1 swapped, every other output sound."""
+    def fault(args):
+        outs = list(as_tuple(plain(*args)))
+        outs[j] = outs[j][:, [1, 0, 2, 3]]
+        return tuple(outs)
+    return _planted(fault)
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
     hand the kernels."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda.mask_upscale import flat_deconv
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
     from iuvl_tpu_torch.ops.point_sample import _tap_weights
     from iuvl_tpu_torch.ops.rel_pos_attention import (augment_qk_rel_pos, rel_pos_features,
                                                       rel_pos_tables)
@@ -289,6 +388,26 @@ def kernel_cases(rs: np.random.RandomState, dev):
     base, wgts, _, span = _tap_weights(256, 256, coords, f32)
     scatter = (base.to(torch.int32).contiguous(),
                (t(N_TARGETS, MATCH_POINTS, 1, dtype=f32) * wgts).contiguous(), span)
+    # B7 and B8 at the res3 level (128^2) of the batch-2 train step: 8 heads
+    # of 64, the 21504 queries of all three levels x 4 points, sampling within
+    # a few pixels of their reference points (as the compass-grid offsets do);
+    # the per-image kernels on image 0.
+    nh, side, pts = 8, 128, 4
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]  # (Lq, 2)
+    lq = ref.shape[0]
+    jitter = torch.from_numpy(rs.randn(2, nh, lq, pts, 2).astype(np.float32) * 2.5).to(dev)
+    xy = ref[None, None, :, None, :] * side - 0.5 + jitter  # pixel coordinates
+    x, y = xy[..., 0].contiguous(), xy[..., 1].contiguous()
+    aw = torch.from_numpy(rs.rand(2, nh, lq, pts).astype(np.float32) / 12).to(dev)
+    v = t(2, nh, side * side, d)
+    deform_fwd = (v, x, y, aw, side, side)
+    idx, wslot = wide_idx_wslot(side, side, x[0], y[0])
+    gather = (v[0], idx, side)
+    glue = (md.deform_gather_rows_plain(*gather), t(nh * lq, d, dtype=f32),
+            (wslot * aw[0][..., None]).reshape(-1, 4).contiguous(), pts)
+    scatter_dv = (dg.deform_bwd_glue_plain(*glue)[0], idx, side * side, side)
+    glue_faults = {"dots slots 0/1 swapped": _out_cols_swapped(dg.deform_bwd_glue_plain, 1),
+                   "contrib to the wrong slot (wa slots 0/1 swapped)": _swap(2, 1, 1)}
     return [
         ("window_attention_block", win,
          {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
@@ -324,6 +443,17 @@ def kernel_cases(rs: np.random.RandomState, dev):
         ("tap_scatter", scatter,
          {"rows one cell off": _shift(0, 1, span - 1), "taps 0/1 swapped": _swap(1, 2, 1)},
          10),
+        ("ms_deform_level_fwd", deform_fwd,
+         {"slot 2 at offset w - 1": _wrong_wrap(md.ms_deform_level_fwd_plain),
+          "validity mask dropped": _no_validity(md.ms_deform_level_fwd_plain)}, 10),
+        ("deform_gather_rows", gather,
+         {"slot 2 at offset w - 1": _wrong_wrap(md.deform_gather_rows_plain),
+          "heads 0/1 swapped in v": _swap(0, 0, 1)}, 10),
+        ("deform_bwd_glue_q", glue, glue_faults, 10),
+        ("deform_bwd_glue", glue, glue_faults, 10),
+        ("deform_scatter_dv", scatter_dv,
+         {"misses the last 16 rows": _tile_missed(0, 0, 16),
+          "slot 2 at offset w - 1": _wrong_wrap(md.deform_scatter_dv_plain)}, 10),
     ]
 
 
@@ -365,8 +495,16 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         b, h, n, dqk = args[0].shape
         dv = args[2].shape[-1]
         flops = b * h * 2 * n * n * ((dqk + dv) + (3 * dqk + 2 * dv))
-    else:  # tap_scatter: 4 fp32 adds a row
+    elif name == "tap_scatter":  # 4 fp32 adds a row
         return 4 * args[0].numel(), nbytes, F32_FLOPS
+    elif name == "ms_deform_level_fwd":  # a multiply-add per tap and channel (fp32)
+        return 2 * args[1].numel() * 4 * args[0].shape[-1], nbytes, F32_FLOPS
+    elif name == "deform_gather_rows":  # a copy
+        return 0, nbytes, F32_FLOPS
+    elif name == "deform_scatter_dv":  # an fp32 add per element of contrib
+        return args[0].numel(), nbytes, F32_FLOPS
+    else:  # B8: per element of g4 a multiply-add (dots) and a multiply (contrib)
+        return 3 * args[0].numel(), nbytes, F32_FLOPS
     return flops, nbytes, BF16_FLOPS
 
 
@@ -389,6 +527,22 @@ def library_call(name: str, args):
         idx = (base.long() + torch.arange(n, device=base.device)[:, None] * span).reshape(-1)
         flat = rows.reshape(-1, 4)
         return lambda: torch.zeros((n * span, 4), device=rows.device).index_add_(0, idx, flat)
+    if name in ("deform_gather_rows", "deform_scatter_dv"):
+        # The JAX formulation's calls on a prebuilt (nh * hw, 4d) wide map, its
+        # build and the fold not timed: index_select for the gather,
+        # index_add_ of the fp32 rows for the scatter.
+        idx, w = args[1], args[-1]
+        nh = idx.shape[0]
+        hw = args[0].shape[1] if name == "deform_gather_rows" else args[2]
+        rows = (torch.arange(nh, device=idx.device).view(nh, 1, 1) * hw + idx.long()).reshape(-1)
+        if name == "deform_gather_rows":
+            v = args[0]
+            wide = torch.cat([torch.roll(v, -off, dims=1) for off in (0, 1, w, w + 1)],
+                             dim=-1).reshape(nh * hw, -1)
+            return lambda: wide.index_select(0, rows)
+        src = args[0].float()
+        return lambda: torch.zeros((nh * hw, src.shape[1]), device=src.device).index_add_(
+            0, rows, src)
     return None
 
 
@@ -397,11 +551,14 @@ def kernel_phase(dev) -> list[dict]:
     check failed."""
     rows, failed = [], []
     table = kernels()
+    glue_outs = {}
     for name, args, faults, iters in kernel_cases(np.random.RandomState(SEED), dev):
         _, kern, plain, names = table[name]
         bounds = KERNEL_BOUNDS[name]
         out = as_tuple(kern(*args))
         torch.cuda.synchronize()
+        if name.startswith("deform_bwd_glue"):
+            glue_outs[name] = out
         ref = as_tuple(plain(*args))
         torch.cuda.synchronize()
         for o, r, oname in zip(out, ref, names):
@@ -427,6 +584,8 @@ def kernel_phase(dev) -> list[dict]:
                 o, lse = fa.flash_attention_fwd_plain(*args[:3])
                 planted = (o, lse + 0.05, *fa.flash_attention_bwd_plain(*args[:3], o,
                                                                         lse + 0.05, args[3]))
+            elif isinstance(plant, tuple) and plant[0] == "calc":
+                planted = plant[1](args)
             elif isinstance(plant, tuple):
                 _, j, move = plant
                 planted = ref[:j] + (as_tuple(plain(*move(args)))[j],) + ref[j + 1:]
@@ -460,10 +619,15 @@ def kernel_phase(dev) -> list[dict]:
             failed.append(f"{name}: no planted fault reads above the bound of {untested}")
         source, replaces = SOURCES[name]
         rows.append(dict(name=name, route="cuda", source="iuvl_tpu_torch/csrc/" + source,
-                         replaces=PALLAS + replaces, max_abs_err=max_abs, ms=ms,
+                         replaces=replaces, max_abs_err=max_abs, ms=ms,
                          plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
                          library_ms=library_ms))
+    same = all(torch.equal(a, b) for a, b in zip(glue_outs["deform_bwd_glue_q"],
+                                                 glue_outs["deform_bwd_glue"]))
+    log(f"kernel deform_bwd_glue_q and deform_bwd_glue on the same inputs: identical {same}")
+    if not same:
+        failed.append("deform_bwd_glue_q and deform_bwd_glue differ")
     if failed:
         raise RuntimeError("kernel checks failed: " + "; ".join(failed))
     return rows
@@ -602,21 +766,25 @@ def request(r, model, plain, rs, dev, per_request, totals, timing):
                            f"{SLICE_FACTOR} x the plain bf16 path's {1 - iou_p}")
 
 
-# Launches of each kernel wrapper per train step of the kernel path.
-PER_STEP = {"window_attention_block": 8, "block_tail": 12, "window_block_backward": 8,
-            "block_tail_backward": 12, "flash_attention": 8, "tap_scatter": 10}
+# Launches of each kernel wrapper per train step of the kernel path. At
+# batch 1 the deformable core is the plain 'wide' core; at batch 2 it is
+# the flat core: the B7 forward once per layer and level (6 x 3), the
+# gather, B8 and the scatter once per layer, level and image.
+PER_STEP = {1: {"window_attention_block": 8, "block_tail": 12, "window_block_backward": 8,
+                "block_tail_backward": 12, "flash_attention": 8, "tap_scatter": 10}}
+PER_STEP[2] = {**PER_STEP[1], "ms_deform_level_fwd": 18, "deform_gather_rows": 36,
+               "deform_bwd_glue_q": 36, "deform_scatter_dv": 36}
 GROUPS = ("image_encoder.", "pixel_decoder.", "predictor.")
 
 
-def step_draws(gen: torch.Generator, n_layers: int) -> dict:
+def step_draws(gen: torch.Generator, n_layers: int, batch: int) -> dict:
     """One step's uniform draws of the criterion, by name, from ``gen``."""
-    p = MATCH_POINTS
+    p, n = MATCH_POINTS, batch * N_TARGETS
     out = {}
     for i in range(n_layers):
-        out[f"layer{i}/match"] = torch.rand((1, p, 2), generator=gen, device=gen.device)
-        out[f"layer{i}/over"] = torch.rand((N_TARGETS, 3 * p, 2), generator=gen,
-                                           device=gen.device)
-        out[f"layer{i}/rand"] = torch.rand((N_TARGETS, p - int(0.75 * p), 2), generator=gen,
+        out[f"layer{i}/match"] = torch.rand((batch, p, 2), generator=gen, device=gen.device)
+        out[f"layer{i}/over"] = torch.rand((n, 3 * p, 2), generator=gen, device=gen.device)
+        out[f"layer{i}/rand"] = torch.rand((n, p - int(0.75 * p), 2), generator=gen,
                                            device=gen.device)
     return out
 
@@ -651,11 +819,29 @@ def capture_grads(state, model, into: dict) -> None:
     opt.step = copy_then_step
 
 
-def train_phase(dev) -> dict:
-    """STEPS train steps through the kernels, the plain bf16 and the plain
-    fp32 paths, and on the first step the control pair too (plain bf16 and
-    fp32 on perturbed weights); returns the kernel path's launch totals."""
-    from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion, SegTargets
+def make_batch(rs: np.random.RandomState, batch: int, size: int, dev):
+    """Seeded images (raw RGB) and targets: 20 binary gt masks an image
+    (70% zero), ~30% of them invalid."""
+    from iuvl_tpu_torch.losses.criterion import SegTargets
+
+    image = torch.from_numpy(rs.rand(batch, size, size, 3).astype(np.float32) * 255).to(dev)
+    targets = SegTargets(
+        labels=torch.from_numpy(rs.randint(0, N_CLASSES, (batch, N_TARGETS))).to(dev),
+        masks=torch.from_numpy(
+            (rs.rand(batch, N_TARGETS, size, size) > 0.7).astype(np.float32)).to(dev),
+        valid=torch.from_numpy(rs.rand(batch, N_TARGETS) > 0.3).to(dev))
+    return image, targets
+
+
+def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
+    """``steps`` train steps on ``batch`` images a step through the kernels,
+    the plain bf16 and the plain fp32 paths, and with ``control`` on the
+    first step the control pair too (plain bf16 and fp32 on perturbed
+    weights). Before the steps, :func:`loss_gate` gates the loss terms on
+    the first step's batch and GATE_BATCHES - 1 more at the same weights;
+    at batch 1 they are also gated on the first step's batch alone.
+    Returns the kernel path's launch totals."""
+    from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion
     from iuvl_tpu_torch.models.xdecoder import convert
     from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
     from iuvl_tpu_torch.train.optimizer import Optimizer
@@ -665,45 +851,47 @@ def train_phase(dev) -> dict:
     size = cfg.img_size
     plain = {"bf16": dataclasses.replace(cfg, attn_impl="plain"),
              "fp32": dataclasses.replace(cfg, attn_impl="plain", dtype="float32")}
-    cfgs = {"kernels": cfg, "plain_bf16": plain["bf16"], "plain_fp32": plain["fp32"],
-            "control_bf16": plain["bf16"], "control_fp32": plain["fp32"]}
+    cfgs = {"kernels": cfg, "plain_bf16": plain["bf16"], "plain_fp32": plain["fp32"]}
+    if control:
+        cfgs.update(control_bf16=plain["bf16"], control_fp32=plain["fp32"])
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
     models = {"kernels": build_syslearner(cfg, device=dev, generator=gen)}
     weights = models["kernels"].state_dict()
-    control = perturbed(weights, SEED + 5, dev)
+    shifted = perturbed(weights, SEED + 5, dev) if control else None
     for path in cfgs:
         if path != "kernels":
             models[path] = build_syslearner(cfgs[path], device=dev)
-            models[path].load_state_dict(control if path.startswith("control") else weights)
-    del weights, control
+            models[path].load_state_dict(shifted if path.startswith("control") else weights)
+    del weights, shifted
     paths = convert.flax_paths(cfg)
     states = {path: TrainState(Optimizer(m.named_parameters(), paths=paths, base_lr=1e-4,
                                          total_steps=1000))
               for path, m in models.items()}
     n_params = sum(p.numel() for p in models["kernels"].parameters())
-    log(f"train: {len(models)} x SysLearner ({n_params / 1e6:.1f} M parameters each) built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    step_fns = {path: make_train_step(m, SegCriterion(
-        CriterionConfig(num_classes=N_CLASSES), impl=cfgs[path].attn_impl),
-        match_points=MATCH_POINTS) for path, m in models.items()}
-    rs = np.random.RandomState(SEED + 2)
+    log(f"train batch {batch}: {len(models)} x SysLearner ({n_params / 1e6:.1f} M parameters "
+        f"each) built in {time.perf_counter() - t0:.1f} s")
+    crits = {path: SegCriterion(CriterionConfig(num_classes=N_CLASSES),
+                                impl=cfgs[path].attn_impl) for path in models}
+    step_fns = {path: make_train_step(m, crits[path], match_points=MATCH_POINTS)
+                for path, m in models.items()}
+    rs = np.random.RandomState(SEED + 2 + 10 * (batch - 1))
     text = torch.from_numpy(rs.randn(N_CLASSES + 1, cfg.syslearner_dim).astype(np.float32))
     text = text.to(dev)
     draw_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n_layers = 10
-    totals = {k: 0 for k in PER_STEP}
+    data = [(*make_batch(rs, batch, size, dev), step_draws(draw_gen, n_layers, batch))
+            for _ in range(steps)]
+    gate_rs = np.random.RandomState(SEED + 20)
+    gate_gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    loss_gate(models, crits, text, data[:1] + [
+        (*make_batch(gate_rs, batch, size, dev), step_draws(gate_gen, n_layers, batch))
+        for _ in range(GATE_BATCHES - 1)])
+    per_step = PER_STEP[batch]
+    totals = {k: 0 for k in per_step}
     times = {"kernels": [], "plain_bf16": []}
-    for step in range(STEPS):
-        image = torch.from_numpy(
-            rs.rand(1, size, size, 3).astype(np.float32) * 255).to(dev)
-        targets = SegTargets(
-            labels=torch.from_numpy(rs.randint(0, N_CLASSES, (1, N_TARGETS))).to(dev),
-            masks=torch.from_numpy(
-                (rs.rand(1, N_TARGETS, size, size) > 0.7).astype(np.float32)
-            ).to(dev),
-            valid=torch.from_numpy(rs.rand(1, N_TARGETS) > 0.3).to(dev))
-        draws = step_draws(draw_gen, n_layers)
+    peak = {path: 0 for path in models}
+    for step, (image, targets, draws) in enumerate(data):
         metrics, grads = {}, {}
         for path in [p for p in TRAIN_PATHS if p in models]:
             if step == 0:
@@ -712,39 +900,47 @@ def train_phase(dev) -> dict:
             assignments = None if path == "plain_fp32" else metrics["plain_fp32"]["assignments"]
             reset_launches()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t_start = time.perf_counter()
             _, metrics[path] = step_fns[path](states[path], image, text, targets, draws,
                                               assignments=assignments)
             torch.cuda.synchronize()
             if path in times:
                 times[path].append(time.perf_counter() - t_start)
+            peak[path] = max(peak[path], torch.cuda.max_memory_allocated())
             counts = launches()
             if path == "kernels":
-                check_step_launches(step, counts, totals)
+                check_step_launches(step, counts, totals, per_step)
             elif any(counts.values()):
                 raise RuntimeError(f"step {step} {path}: kernels launched {counts}")
-        check_step(step, metrics, grads)
-        if step == 0:  # the control pair has served its purpose
+        check_step(step, metrics, grads, gate_losses=batch == 1)
+        if step == 0 and control:  # the control pair has served its purpose
             for path in ("control_bf16", "control_fp32"):
                 del models[path], states[path], step_fns[path]
-            del grads
             torch.cuda.empty_cache()
+        del grads
+    del data
+    resident = torch.cuda.memory_allocated()
     for path, ts in times.items():
         mean = float(np.mean(ts[1:]))
-        log(f"train {path}: step times {[round(s * 1e3, 1) for s in ts]} ms; mean of steps "
-            f"1..{STEPS - 1} {mean * 1e3:.1f} ms, {1 / mean:.3f} img/s")
+        log(f"train batch {batch} {path}: step times {[round(s * 1e3, 1) for s in ts]} ms; mean "
+            f"of steps 1..{steps - 1} {mean * 1e3:.1f} ms, {batch / mean:.3f} img/s")
+    log(f"train batch {batch}: peak memory allocated during a step (GiB) "
+        + ", ".join(f"{path} {b / 2**30:.2f}" for path, b in peak.items())
+        + f"; after the steps {resident / 2**30:.2f} GiB held by the "
+        f"{len(models)} models and their optimizer states")
     del models, states
     torch.cuda.empty_cache()
     return totals
 
 
-def check_step_launches(step: int, counts: dict, totals: dict) -> None:
+def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict) -> None:
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
 
     log(f"train step {step} kernels: launches {counts} (B11 forward "
         f"{fa.flash_attention_fwd.launches}, backward {fa.flash_attention_bwd.launches})")
     for name, got in counts.items():
-        want = PER_STEP.get(name, 0)
+        want = per_step.get(name, 0)
         if got != want:
             raise RuntimeError(f"train step {step}: {name} launched {got} times, "
                                f"expected {want}")
@@ -759,10 +955,11 @@ def check_step_launches(step: int, counts: dict, totals: dict) -> None:
 LOSS_TERMS = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice")
 
 
-def check_step(step: int, metrics: dict, grads: dict) -> None:
-    """Print the losses; on the first step gate each loss term (class CE,
-    mask BCE, dice: the vector of its values over the kept layers) and each
-    parameter group's gradient: the kernel path may be at most
+def check_step(step: int, metrics: dict, grads: dict, gate_losses: bool) -> None:
+    """Print the losses; on the first step gate each parameter group's
+    gradient and, with ``gate_losses``, each loss term (class CE, mask BCE,
+    dice: the vector of its values over the kept layers; :func:`loss_gate`
+    gates them over many batches): the kernel path may be at most
     SLICE_FACTOR times as far from fp32, in relative L2, as the plain bf16
     path. The control pair (a second sound bf16 path, held against its own
     fp32 path) is read the same way, ungated, and so is each layer's loss
@@ -784,18 +981,24 @@ def check_step(step: int, metrics: dict, grads: dict) -> None:
     # Each bf16 path against its own fp32 path.
     pairs = {"kernels": "plain_fp32", "plain_bf16": "plain_fp32",
              "control_bf16": "control_fp32"}
+    if "control_bf16" not in metrics:
+        del pairs["control_bf16"]
 
     def rel(path, key):
         r = float(metrics[pairs[path]][key])
         return abs(float(metrics[path][key]) - r) / abs(r)
 
-    ratios = {"kernels": [], "control_bf16": []}
+    def others(e, fmt, label=""):
+        return "".join(f" {path}{label} {fmt(e[path])}" for path in pairs
+                       if path.startswith("control"))
+
+    ratios = {path: [] for path in pairs if path != "plain_bf16"}
     for key in keys:
         e = {path: rel(path, key) for path in pairs}
         r = {path: e[path] / max(e["plain_bf16"], 1e-30) for path in ratios}
         log(f"train step 0 {key}: fp32 {float(ref[key]):.6f}, rel err kernels "
-            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}"
-            f"; ratio to plain bf16 kernels {r['kernels']:.2f} control {r['control_bf16']:.2f}")
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}{others(e, '{:.3e}'.format)}"
+            f"; ratio to plain bf16 kernels {r['kernels']:.2f}{others(r, '{:.2f}'.format)}")
         if key != "loss_total":
             for path in ratios:
                 ratios[path].append(r[path])
@@ -812,21 +1015,22 @@ def check_step(step: int, metrics: dict, grads: dict) -> None:
         vec = {path: torch.stack([m[k].float() for k in keys if k.startswith(term + "_")])
                for path, m in metrics.items()}
         e = {path: dist(vec, path) for path in pairs}
+        r = {path: e[path] / e["plain_bf16"] for path in pairs}
         log(f"train step 0 {term} ({len(vec['kernels'])} layers): rel L2 to fp32 kernels "
-            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}"
-            f"; ratio kernels {e['kernels'] / e['plain_bf16']:.3f} control (not gated) "
-            f"{e['control_bf16'] / e['plain_bf16']:.3f}")
-        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}{others(e, '{:.3e}'.format)}"
+            f"; ratio kernels {r['kernels']:.3f}{others(r, '{:.3f}'.format)} (one batch"
+            + ("" if gate_losses else ", not gated") + ")")
+        if gate_losses and not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
             failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
     for group in GROUPS:
         names = [n for n in grads["plain_fp32"] if n.startswith(group)]
         vec = {path: torch.cat([grads[path][n].float().flatten() for n in names])
                for path in grads}
         e = {path: dist(vec, path) for path in pairs}
+        r = {path: e[path] / e["plain_bf16"] for path in pairs}
         log(f"train step 0 grad {group[:-1]}: rel L2 to fp32 kernels {e['kernels']:.3e} plain "
-            f"bf16 {e['plain_bf16']:.3e} control {e['control_bf16']:.3e}; ratio kernels "
-            f"{e['kernels'] / e['plain_bf16']:.3f} control (not gated) "
-            f"{e['control_bf16'] / e['plain_bf16']:.3f}")
+            f"bf16 {e['plain_bf16']:.3e}{others(e, '{:.3e}'.format)}; ratio kernels "
+            f"{r['kernels']:.3f}{others(r, '{:.3f}'.format, ' (not gated)')}")
         if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
             failed.append(f"grad {group}: {e['kernels']:.3e} > {SLICE_FACTOR} x "
                           f"{e['plain_bf16']:.3e}")
@@ -834,7 +1038,55 @@ def check_step(step: int, metrics: dict, grads: dict) -> None:
         raise RuntimeError("train gate failed: " + "; ".join(failed))
 
 
+def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
+    """Gate each loss term (its 10 layers' values) pooled over ``batches``
+    (images, targets, draws), every path at the same weights: forward and
+    criterion as in a train step (autograd recording, so the training
+    routes run; no backward, no update), the fp32 path's assignments on
+    every path. The kernel path's relative L2 from fp32 must be at most
+    SLICE_FACTOR times the plain bf16 path's. On one batch the ratio of two
+    sound bf16 paths spreads over about 0.4-2.5 (PERF.md, Findings), so one
+    batch's ten values per term are no gate."""
+    from iuvl_tpu_torch.losses.matcher import batched_hungarian
+    from iuvl_tpu_torch.ops.point_sample import given_draws
+    from iuvl_tpu_torch.train.train_step import split_seg_outputs
+
+    paths = ("plain_fp32", "plain_bf16", "kernels")
+    values = {path: {term: [] for term in LOSS_TERMS} for path in paths}
+    per_batch = []
+    for images, targets, draws in batches:
+        assignments = None
+        for path in paths:
+            model, crit, draw = models[path], crits[path], given_draws(draws)
+            with torch.enable_grad():
+                obj = split_seg_outputs(model.forward_seg(images, text), model.cfg.num_queries)
+                costs, kept = crit.collect_costs(obj, targets, draw, MATCH_POINTS)
+                if assignments is None:
+                    assignments = batched_hungarian(costs)
+                losses = crit.losses_from_assignments(kept, assignments, targets, draw)
+            for term in LOSS_TERMS:
+                values[path][term] += [float(v.detach()) for k, v in sorted(losses.items())
+                                       if k.startswith(term + "_")]
+            del obj, kept, losses
+        per_batch.append({term: [
+            rel_l2(torch.tensor(values[path][term][-10:]), torch.tensor(
+                values["plain_fp32"][term][-10:])) for path in paths[1:]] for term in LOSS_TERMS})
+    failed = []
+    for term in LOSS_TERMS:
+        vec = {path: torch.tensor(values[path][term], dtype=torch.float64) for path in paths}
+        e = {path: rel_l2(vec[path], vec["plain_fp32"]) for path in paths[1:]}
+        one = [round(b[term][1] / b[term][0], 2) for b in per_batch]
+        log(f"train {term} over {len(batches)} batches ({len(vec['kernels'])} values): rel L2 "
+            f"to fp32 kernels {e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}; ratio "
+            f"{e['kernels'] / e['plain_bf16']:.3f} (one batch at a time, not gated: {one})")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    if failed:
+        raise RuntimeError("train loss gate failed: " + "; ".join(failed))
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = device_phase()
     dev = torch.device("cuda", 0)
     from iuvl_tpu_torch.ops.cuda import build
@@ -848,13 +1100,16 @@ def main() -> int:
     t0 = time.perf_counter()
     serving = serving_phase(dev)
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    training = train_phase(dev)
-    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    paths = [serving]
+    for batch, control in ((1, True), (2, False)):
+        t0 = time.perf_counter()
+        paths.append(train_phase(dev, batch, STEPS, control))
+        log(f"train phase, batch {batch}: {time.perf_counter() - t0:.1f} s")
     for row in rows:
-        row["launches"] = serving.get(row["name"], 0) + training.get(row["name"], 0)
-        if not row["launches"]:
+        row["launches"] = sum(counts.get(row["name"], 0) for counts in paths)
+        if not row["launches"] and row["name"] not in OFF_PATH:
             raise RuntimeError(f"{row['name']}: never launched on the main paths")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,9 @@ from .unified_decoder import UnifiedDecoder
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
-# msdeform_impl values of the JAX package that the port runs as the plain
-# PyTorch core (the msdeform kernels B7, B8 are not ported yet).
-MSDEFORM_IMPLS = ("auto", "wide", "xla")
+# msdeform_impl values of the JAX package that the port runs (``ops/msdeform.py``):
+# ``flat`` with the B7 and B8 kernels, ``wide`` and ``xla`` as the plain core.
+MSDEFORM_IMPLS = ("auto", "flat", "wide", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +93,7 @@ class SysLearner(nn.Module):
         d = cfg.syslearner_dim
         self.pixel_decoder = DeformablePixelDecoder(
             conv_dim=d, mask_dim=d, num_layers=cfg.pixel_decoder_layers, n_heads=cfg.nheads,
-            dtype=dtype)
+            dtype=dtype, msdeform_impl=cfg.msdeform_impl, attn_impl=cfg.attn_impl)
         self.predictor = UnifiedDecoder(
             hidden_dim=d, dim_proj=d, num_queries=cfg.num_queries, contxt_len=cfg.contxt_len,
             nheads=cfg.nheads, dim_feedforward=cfg.dim_feedforward, mask_dim=d, dtype=dtype)

@@ -7,8 +7,10 @@ token stream, then top-down fusion into res2 and a 1x1 mask-features
 projection. NHWC throughout. Rounding points follow the flax modules'
 ``dtype=`` casts: 1x1 convs and Dense layers in the working dtype, the
 sampling offsets and attention weights, GroupNorm and LayerNorm in fp32.
-The deformable core is ``ops/msdeform.py`` (plain PyTorch; its kernel B7
-waits in ROADMAP.md Queue B).
+The deformable core is ``ops/msdeform.py``: ``msdeform_impl`` picks its route
+as JAX's ``impl`` does (``auto``: the flat core with the B7 and B8 kernels at
+batch > 1, the plain ``wide`` core at batch 1), ``attn_impl='plain'`` the
+kernels' plain versions.
 
 Parameter names mirror the flax tree (``models/xdecoder/convert.py``);
 1x1 convs are ``nn.Linear`` (out, in).
@@ -44,10 +46,11 @@ def sampling_offset_grid(n_heads: int, n_levels: int, n_points: int) -> torch.Te
 
 class MSDeformAttn(nn.Module):
     def __init__(self, d_model: int = 512, n_levels: int = 3, n_heads: int = 8,
-                 n_points: int = 4, dtype: torch.dtype = torch.float32):
+                 n_points: int = 4, dtype: torch.dtype = torch.float32,
+                 msdeform_impl: str = "xla", attn_impl: str = "auto"):
         super().__init__()
         self.n_heads, self.n_levels, self.n_points = n_heads, n_levels, n_points
-        self.dtype = dtype
+        self.dtype, self.msdeform_impl, self.attn_impl = dtype, msdeform_impl, attn_impl
         self.value_proj = nn.Linear(d_model, d_model)
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
@@ -69,16 +72,19 @@ class MSDeformAttn(nn.Module):
                                   device=query.device)
         locations = (reference_points[:, :, None, :, None, :]
                      + offsets / normalizer[None, None, None, :, None, :])
-        out = ms_deform_attn_core(value, spatial_shapes, locations, attn)
+        out = ms_deform_attn_core(value, spatial_shapes, locations, attn,
+                                  impl=self.msdeform_impl, attn_impl=self.attn_impl)
         return linear(out, self.output_proj.weight, self.output_proj.bias, self.dtype)
 
 
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 512, d_ffn: int = 1024, n_levels: int = 3,
-                 n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32):
+                 n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
+                 msdeform_impl: str = "xla", attn_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype,
+                                      msdeform_impl, attn_impl)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -114,7 +120,8 @@ class DeformablePixelDecoder(nn.Module):
 
     def __init__(self, in_dims: Sequence[int] = (128, 256, 512, 1024), conv_dim: int = 512,
                  mask_dim: int = 512, num_layers: int = 6, n_heads: int = 8,
-                 n_points: int = 4, dtype: torch.dtype = torch.float32):
+                 n_points: int = 4, dtype: torch.dtype = torch.float32,
+                 msdeform_impl: str = "xla", attn_impl: str = "auto"):
         super().__init__()
         self.dtype, self.conv_dim = dtype, conv_dim
         res2, res3, res4, res5 = in_dims
@@ -122,7 +129,8 @@ class DeformablePixelDecoder(nn.Module):
         self.input_gn = nn.ModuleList(nn.GroupNorm(32, conv_dim, eps=1e-5) for _ in range(3))
         self.level_embed = nn.Parameter(torch.zeros(3, conv_dim))
         self.layers = nn.ModuleList(
-            DeformableEncoderLayer(conv_dim, 1024, 3, n_heads, n_points, dtype)
+            DeformableEncoderLayer(conv_dim, 1024, 3, n_heads, n_points, dtype, msdeform_impl,
+                                   attn_impl)
             for _ in range(num_layers))
         self.fpn_lateral = nn.Linear(res2, conv_dim, bias=False)
         self.fpn_lateral_gn = nn.GroupNorm(32, conv_dim, eps=1e-5)

@@ -25,6 +25,7 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.train.optimizer, iuvl_tpu_torch.train.train_step\n"
         "import iuvl_tpu_torch.ops.msdeform, iuvl_tpu_torch.ops.point_sample\n"
         "import iuvl_tpu_torch.ops.position_embedding, iuvl_tpu_torch.ops.cuda.tap_scatter\n"
+        "import iuvl_tpu_torch.ops.cuda.msdeform, iuvl_tpu_torch.ops.cuda.deform_bwd_glue\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
@@ -69,8 +70,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing():
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
@@ -98,10 +101,19 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     fa.flash_attention_bwd(r(1, heads, 16, 24), r(1, heads, 16, 24), r(1, heads, 16, 8), o, lse,
                            r(1, heads, 16, 8))
     ts.tap_scatter(torch.zeros(2, 5, dtype=torch.int32), r(2, 5, 4), 7)
+    idx = torch.randint(0, 12, (heads, 6, 4), generator=g, dtype=torch.int32)
+    md.ms_deform_level_fwd(r(2, heads, 12, 8), r(2, heads, 6, 4), r(2, heads, 6, 4),
+                           r(2, heads, 6, 4), 3, 4)
+    g4 = md.deform_gather_rows(r(heads, 12, 8), idx, 4)
+    dg.deform_bwd_glue_q(g4, r(heads * 6, 8), r(heads * 24, 4), 4)
+    contrib, _ = dg.deform_bwd_glue(g4, r(heads * 6, 8), r(heads * 24, 4), 4)
+    md.deform_scatter_dv(contrib, idx, 12, 4)
     for fn in (wb.window_attention_block, fa.flash_attention_rowbias_proj,
                mb.block_tail, mu.masks_upscale, ta.t2i_stream, ta.i2t_block_step,
                wb.window_block_backward, mb.block_tail_backward, fa.flash_attention_fwd,
-               fa.flash_attention_bwd, ts.tap_scatter):
+               fa.flash_attention_bwd, ts.tap_scatter, md.ms_deform_level_fwd,
+               md.deform_gather_rows, dg.deform_bwd_glue_q, dg.deform_bwd_glue,
+               md.deform_scatter_dv):
         assert fn.launches == 0, fn.__name__
 
 

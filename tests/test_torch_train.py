@@ -91,32 +91,39 @@ def test_encoder_gradients_reach_every_parameter_and_match_jax(models):
         _grad_close(p.grad, ref["image_encoder." + name], name)
 
 
-def _targets(seed=5):
+def _targets(seed=5, b=1):
+    """b images of T binary gt masks; each image's valid targets differ."""
     rs = np.random.RandomState(seed)
-    labels = rs.randint(0, N_CLASSES, (1, T)).astype(np.int32)
-    masks = (rs.rand(1, T, 64, 64) > 0.6).astype(np.float32)
-    valid = np.array([[True, True, False]])
+    labels = rs.randint(0, N_CLASSES, (b, T)).astype(np.int32)
+    masks = (rs.rand(b, T, 64, 64) > 0.6).astype(np.float32)
+    valid = np.array([[True, True, False], [True, False, True]][:b])
     return labels, masks, valid
 
 
-def _draws(rng, n_layers=10):
-    """The uniform draws of JAX's collect_costs / loss_masks, by the port's
-    names (layer{i}/match, /over, /rand)."""
+def _draws(rng, n_layers=10, b=1):
+    """The uniform draws of JAX's collect_costs / loss_masks for b images,
+    by the port's names (layer{i}/match, /over, /rand)."""
     out = {}
     n_uncertain = int(0.75 * POINTS)
     for i in range(n_layers):
         rng, r_match, r_pts = jax.random.split(rng, 3)
         r1, r2 = jax.random.split(r_pts)
-        out[f"layer{i}/match"] = jax.random.uniform(r_match, (1, POINTS, 2))
-        out[f"layer{i}/over"] = jax.random.uniform(r1, (T, 3 * POINTS, 2))
-        out[f"layer{i}/rand"] = jax.random.uniform(r2, (T, POINTS - n_uncertain, 2))
+        out[f"layer{i}/match"] = jax.random.uniform(r_match, (b, POINTS, 2))
+        out[f"layer{i}/over"] = jax.random.uniform(r1, (b * T, 3 * POINTS, 2))
+        out[f"layer{i}/rand"] = jax.random.uniform(r2, (b * T, POINTS - n_uncertain, 2))
     return {k: _t(v) for k, v in out.items()}
 
 
 def test_train_step_matches_jax(models):
+    step_matches_jax(models, b=1)
+
+
+def step_matches_jax(models, b: int):
+    """One ``make_train_step`` step on b images against JAX's: each loss
+    term, every gradient, every parameter after the update."""
     jm, params, tm, cfg = models
-    images, text = inputs()
-    labels, masks, valid = _targets()
+    images, text = inputs(b=b)
+    labels, masks, valid = _targets(b=b)
     rng = jax.random.PRNGKey(1)
 
     # The JAX side: make_train_step's loss_fn and update (train_step.py:338-356).
@@ -157,7 +164,7 @@ def test_train_step_matches_jax(models):
     targets = SegTargets(labels=torch.from_numpy(labels), masks=_t(masks),
                          valid=torch.from_numpy(valid))
     try:
-        state, metrics = train_step(state, _t(images), _t(text), targets, _draws(rng))
+        state, metrics = train_step(state, _t(images), _t(text), targets, _draws(rng, b=b))
         after = {k: v.clone() for k, v in tm.state_dict().items()}
     finally:
         tm.load_state_dict(before)  # the module-scoped model stays as bridged

@@ -75,9 +75,9 @@ def tiny_models():
     return jm, params, tm, cfg
 
 
-def inputs(seed: int = 1):
+def inputs(seed: int = 1, b: int = 1):
     rs = np.random.RandomState(seed)
-    images = rs.rand(1, 64, 64, 3).astype(np.float32) * 255
+    images = rs.rand(b, 64, 64, 3).astype(np.float32) * 255
     text = rs.randn(N_CLASSES + 1, 32).astype(np.float32)
     return images, text / np.linalg.norm(text, axis=-1, keepdims=True)
 
