@@ -10,13 +10,16 @@ Phases (any failure raises, so the exit code is non-zero):
    nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the path that runs it (ViT-B, 1024^2, bf16; the deformable core B7 and
-   its backward glue B8 at the res3 level of the batch-2 train step). Every
+   its backward glue B8 at the res3 level of the batch-2 train step; the
+   one-hot level B15 at the res5 level of the hybrid eval). Every
    output's relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
    rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
    a reduction that misses its last 16 rows, a tap at the wrong row, the
-   zero-padding validity dropped): each must move some output by more than
-   its bound, and each output's bound must catch some fault. B8's two entry
+   zero-padding validity dropped, a slot read from the next slot's columns,
+   a point dropped, an index one cell off, weights rounded per point
+   instead of per cell): each must move some output by more than its
+   bound, and each output's bound must catch some fault. B8's two entry
    points must agree exactly. Times from CUDA events after a warm-up; for
    B11, B12 and B7's gather and scatter also the PyTorch call that computes
    the same function (timed only, never a path). Then the global-block grad
@@ -47,7 +50,21 @@ Phases (any failure raises, so the exit code is non-zero):
    too: its ratios, and every path's ratio per layer's loss scalar, are
    printed, not gated. Step times after one warm-up step, and each path's
    peak device memory.
-6. prints the kernel table as one JSON line, the nvidia-smi line, and
+6. eval: ``SysLearner.evaluate_seg`` (the same full-width config, bf16,
+   batch 1) on EVAL_IMAGES seeded 1024^2 images with synthetic gt, with the
+   134 COCO panoptic class embeddings (80 HashWord-tokenized templates a
+   class through the 12-layer text tower), through the kernels with
+   ``msdeform_impl='auto'`` (bench's config) and ``'hybrid'`` (B15 on
+   res5), the plain versions in bf16 with each impl, and in fp32. Each
+   kernel path's mask_cls and upsampled mask_pred, over the images, must be
+   no further from fp32 than SLICE_FACTOR times its own impl's plain bf16
+   path's. Launches per image checked; evaluate_seg times (host clock,
+   synchronised, images after the first), text embedding, encode and
+   SimpleFPN times, peak memory. Then each kernel path runs the seg eval
+   pipeline (semantic, panoptic and instance heads into the mIoU, PQ and
+   AP evaluators) over the images, its launches counted, the host times of
+   the post-processing and the metrics printed.
+7. prints the kernel table as one JSON line, the nvidia-smi line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -89,6 +106,9 @@ KERNEL_BOUNDS = {
     "deform_bwd_glue_q": {"contrib": 0.0, "dots": 5e-7},
     "deform_bwd_glue": {"contrib": 0.0, "dots": 5e-7},
     "deform_scatter_dv": {"dv": 5e-8},
+    # B15: the same exact products summed in fp32 in another order, one
+    # rounding to bf16: outputs differ by at most one bf16 unit, rarely.
+    "onehot_deform_level_forward": {"out": 3e-5},
 }
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
@@ -120,6 +140,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "deform_scatter_dv": ("msdeform.cu", MSDEFORM + ":637"),  # dv4 scatter + fold (:669)
     "deform_bwd_glue_q": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:71"),
     "deform_bwd_glue": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:111"),
+    "onehot_deform_level_forward": ("onehot_gather.cu", PALLAS + "onehot_gather.py:57"),
 }
 # Checked and timed, on no path: JAX's row-layout glue, which its flat
 # backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default).
@@ -194,6 +215,7 @@ def kernels():
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
     from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.cuda import onehot_gather as og
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
     from iuvl_tpu_torch.ops.cuda import window_block as wb
@@ -224,6 +246,8 @@ def kernels():
         "deform_bwd_glue": ((dg.deform_bwd_glue,), dg.deform_bwd_glue, dg.deform_bwd_glue_plain,
                             ("contrib", "dots")),
         "deform_scatter_dv": one(md.deform_scatter_dv, md.deform_scatter_dv_plain, "dv"),
+        "onehot_deform_level_forward": one(og.onehot_deform_level_forward,
+                                           og.onehot_deform_level_forward_plain),
     }
 
 
@@ -336,6 +360,27 @@ def _out_cols_swapped(plain, j):
     return _planted(fault)
 
 
+def _onehot_per_point(args):
+    """B15's plain version with each point's weight rounded to bf16 on its
+    own, before the sum over the points that hit the same cell."""
+    v4, idx, wslot, _ = args
+    bh, _, d4 = v4.shape
+    d = d4 // 4
+    table, w = v4.float(), wslot.to(v4.dtype).float()
+    heads = torch.arange(bh, device=v4.device)[:, None, None]
+    out = torch.zeros((bh, idx.shape[1], d), device=v4.device)
+    for s in range(4):
+        rows = table[:, :, s * d:(s + 1) * d][heads, idx.long()]  # (BH, Lq, P, d)
+        out += (w[:, :, s, :, None] * rows).sum(2)
+    return (out.to(v4.dtype),)
+
+
+def _drop_last_point(a):
+    t = a[2].clone()
+    t[..., -1] = 0
+    return a[:2] + (t,) + a[3:]
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
@@ -344,7 +389,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
     from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
     from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda.mask_upscale import flat_deconv
-    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot, wide_map
     from iuvl_tpu_torch.ops.point_sample import _tap_weights
     from iuvl_tpu_torch.ops.rel_pos_attention import (augment_qk_rel_pos, rel_pos_features,
                                                       rel_pos_tables)
@@ -408,6 +453,21 @@ def kernel_cases(rs: np.random.RandomState, dev):
     scatter_dv = (dg.deform_bwd_glue_plain(*glue)[0], idx, side * side, side)
     glue_faults = {"dots slots 0/1 swapped": _out_cols_swapped(dg.deform_bwd_glue_plain, 1),
                    "contrib to the wrong slot (wa slots 0/1 swapped)": _swap(2, 1, 1)}
+    # B15 at the res5 level (32^2) of the hybrid eval: the same heads, queries
+    # and points, sampling around the reference points; the kernel's inputs
+    # as the hybrid level makes them (the wide map, the clipped top-left
+    # cells, the slot weights times the attention weight).
+    side5 = 32
+    jitter5 = torch.from_numpy(rs.randn(nh, lq, pts, 2).astype(np.float32) * 2.5).to(dev)
+    xy5 = ref[None, :, None, :] * side5 - 0.5 + jitter5
+    idx5, wslot5 = wide_idx_wslot(side5, side5, xy5[..., 0], xy5[..., 1])
+    aw5 = torch.from_numpy(rs.rand(nh, lq, pts).astype(np.float32) / 12).to(dev)
+    v5 = t(1, nh, side5 * side5, d)
+    onehot = (wide_map(v5, side5).reshape(nh, side5 * side5, 4 * d), idx5.contiguous(),
+              (wslot5 * aw5[..., None]).transpose(-1, -2).contiguous(), pts)
+    same = idx5[..., :, None] == idx5[..., None, :]
+    log(f"kernel onehot_deform_level_forward: {int(torch.tril(same, -1).any(-1).any(-1).sum())} "
+        f"of {nh * lq} rows have points that share a cell")
     return [
         ("window_attention_block", win,
          {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
@@ -454,6 +514,12 @@ def kernel_cases(rs: np.random.RandomState, dev):
         ("deform_scatter_dv", scatter_dv,
          {"misses the last 16 rows": _tile_missed(0, 0, 16),
           "slot 2 at offset w - 1": _wrong_wrap(md.deform_scatter_dv_plain)}, 10),
+        ("onehot_deform_level_forward", onehot,
+         {"slot s read from slot s+1's columns": lambda a: (torch.roll(a[0], -d, dims=-1),)
+          + a[1:],
+          "the last point dropped": _drop_last_point,
+          "idx one cell off": _shift(1, 1, side5 * side5 - 1),
+          "weights rounded per point, not per cell": _planted(_onehot_per_point)}, 20),
     ]
 
 
@@ -503,6 +569,15 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         return 0, nbytes, F32_FLOPS
     elif name == "deform_scatter_dv":  # an fp32 add per element of contrib
         return args[0].numel(), nbytes, F32_FLOPS
+    elif name == "onehot_deform_level_forward":
+        # A multiply-add per channel for each slot and distinct cell of a row
+        # whose merged weight is not 0 after rounding (what these inputs need).
+        v4, idx, wslot, _ = args
+        same = idx[..., :, None] == idx[..., None, :]  # (BH, Lq, P, P)
+        first = ~torch.tril(same, -1).any(-1)
+        merged = torch.einsum("bqpj,bqsj->bqsp", same.float(), wslot).to(v4.dtype)
+        hits = int((first[:, :, None, :] & (merged != 0)).sum())
+        return 2 * hits * (v4.shape[-1] // 4), nbytes, F32_FLOPS
     else:  # B8: per element of g4 a multiply-add (dots) and a multiply (contrib)
         return 3 * args[0].numel(), nbytes, F32_FLOPS
     return flops, nbytes, BF16_FLOPS
@@ -527,6 +602,19 @@ def library_call(name: str, args):
         idx = (base.long() + torch.arange(n, device=base.device)[:, None] * span).reshape(-1)
         flat = rows.reshape(-1, 4)
         return lambda: torch.zeros((n * span, 4), device=rows.device).index_add_(0, idx, flat)
+    if name == "onehot_deform_level_forward":
+        # embedding_bag over the wide map's (cell, slot) rows, 4P rows a
+        # query, each weighted: the same sums, the weights rounded to bf16
+        # per point instead of per cell.
+        v4, idx, wslot, p = args
+        bh, cells, d4 = v4.shape
+        table = v4.reshape(bh * cells * 4, d4 // 4)
+        heads = torch.arange(bh, device=idx.device).view(bh, 1, 1, 1)
+        slots = torch.arange(4, device=idx.device).view(1, 1, 4, 1)
+        rows = ((heads * cells + idx.long()[:, :, None]) * 4 + slots).reshape(-1, 4 * p)
+        wts = wslot.reshape(-1, 4 * p).to(v4.dtype)
+        return lambda: torch.nn.functional.embedding_bag(rows, table, per_sample_weights=wts,
+                                                         mode="sum")
     if name in ("deform_gather_rows", "deform_scatter_dv"):
         # The JAX formulation's calls on a prebuilt (nh * hw, 4d) wide map, its
         # build and the fold not timed: index_select for the gather,
@@ -1085,6 +1173,181 @@ def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
         raise RuntimeError("train loss gate failed: " + "; ".join(failed))
 
 
+EVAL_IMAGES = 3
+EVAL_CONFIG = dict(TRAIN_CONFIG)
+# Launches of each kernel wrapper per evaluated image: the ViT's blocks (B2
+# for the global blocks: no autograd), and with 'hybrid' B15 on res5 in each
+# of the 6 deformable layers.
+PER_IMAGE = {"auto": {"window_attention_block": 8, "flash_attention_rowbias_proj": 4,
+                      "block_tail": 12}}
+PER_IMAGE["hybrid"] = {**PER_IMAGE["auto"], "onehot_deform_level_forward": 6}
+# path -> (attn_impl, msdeform_impl, dtype), in the order they run; each
+# kernel path is gated against the plain bf16 path of its own impl.
+EVAL_PATHS = {"plain_fp32": ("plain", "auto", "float32"),
+              "plain_bf16": ("plain", "auto", "bfloat16"),
+              "plain_bf16_hybrid": ("plain", "hybrid", "bfloat16"),
+              "kernels_auto": ("auto", "auto", "bfloat16"),
+              "kernels_hybrid": ("auto", "hybrid", "bfloat16")}
+EVAL_GATES = {"kernels_auto": "plain_bf16", "kernels_hybrid": "plain_bf16_hybrid"}
+
+
+def synced(fn):
+    """(fn(), host seconds) around work that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_launches(where: str, counts: dict, want: dict, times: int = 1) -> None:
+    for name, got in counts.items():
+        if got != times * want.get(name, 0):
+            raise RuntimeError(f"{where}: {name} launched {got} times, expected "
+                               f"{times * want.get(name, 0)}")
+
+
+def eval_phase(dev) -> dict:
+    """The seg eval at full width on EVAL_IMAGES images through every path
+    of EVAL_PATHS (one set of seeded weights), gated as the module's
+    docstring says; then the eval pipeline on each kernel path. Returns the
+    kernel paths' launch totals from their pipeline runs."""
+    from iuvl_tpu_torch.data.class_names import get_class_names
+    from iuvl_tpu_torch.models.sam import image_encoder as ie
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.pipeline import class_text_embeddings, evaluate_seg_batches
+
+    cfg = SysLearnerConfig(**EVAL_CONFIG)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 30)
+    models, weights = {}, None
+    for path, (attn, msdeform, dtype) in EVAL_PATHS.items():
+        pcfg = dataclasses.replace(cfg, attn_impl=attn, msdeform_impl=msdeform, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev,
+                                        generator=gen if weights is None else None).eval()
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    log(f"eval: {len(models)} x SysLearner built in {time.perf_counter() - t0:.1f} s")
+    names = get_class_names("coco_panoptic")
+    text, text_s = {}, {}
+    with torch.no_grad():
+        for path, m in models.items():
+            text[path], text_s[path] = synced(lambda: class_text_embeddings(m, names))
+    log(f"eval: class embeddings {tuple(text['kernels_auto'].shape)} ({len(names)} classes x 80 "
+        f"templates) ms: " + ", ".join(f"{p} {s * 1e3:.1f}" for p, s in text_s.items())
+        + f"; bf16 vs fp32 rel_l2 {rel_l2(text['kernels_auto'], text['plain_fp32']):.3e}")
+    for path in ("kernels_hybrid", "plain_bf16", "plain_bf16_hybrid"):
+        if not torch.equal(text[path], text["kernels_auto"]):
+            raise RuntimeError(f"eval: {path}'s class embeddings differ from kernels_auto's")
+    rs = np.random.RandomState(SEED + 31)
+    batches = []
+    for _ in range(EVAL_IMAGES):
+        image, targets = make_batch(rs, 1, cfg.img_size, torch.device("cpu"))
+        batches.append({"image": image.numpy(), "masks": targets.masks.numpy(),
+                        "labels": targets.labels.numpy(), "valid": targets.valid.numpy()})
+    sq = {path: {"cls": 0.0, "pred": 0.0} for path in models if path != "plain_fp32"}
+    ref_sq = {"cls": 0.0, "pred": 0.0}
+    times = {path: [] for path in models}
+    peak = {path: 0 for path in models}
+    want_shape = (1, cfg.num_queries, len(names))
+    with torch.no_grad():
+        for i, batch in enumerate(batches):
+            image = torch.from_numpy(batch["image"]).to(dev)
+            ref = None
+            per_image = {}
+            for path, m in models.items():
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                (cls, pred), secs = synced(lambda: m.evaluate_seg(image, text[path]))
+                times[path].append(secs)
+                peak[path] = max(peak[path], torch.cuda.max_memory_allocated())
+                impl = EVAL_PATHS[path][1]
+                check_launches(f"eval image {i} {path}", launches(),
+                               PER_IMAGE[impl] if path.startswith("kernels") else {})
+                if (tuple(cls.shape) != want_shape
+                        or tuple(pred.shape) != (1, cfg.num_queries, *image.shape[1:3])
+                        or not bool(torch.isfinite(cls).all() & torch.isfinite(pred).all())):
+                    raise RuntimeError(f"eval image {i} {path}: mask_cls {tuple(cls.shape)}, "
+                                       f"mask_pred {tuple(pred.shape)} or not finite")
+                if ref is None:
+                    ref = {"cls": cls.float(), "pred": pred.float()}
+                    ref_n = {k: float(v.square().sum()) for k, v in ref.items()}
+                    for k, v in ref_n.items():
+                        ref_sq[k] += v
+                    continue
+                for key, got in (("cls", cls), ("pred", pred)):
+                    d2 = float((got.float() - ref[key]).square().sum())
+                    sq[path][key] += d2
+                    per_image[f"{path} {key}"] = (d2 / ref_n[key]) ** 0.5
+                del cls, pred
+            log(f"eval image {i}: rel_l2 to fp32 " + ", ".join(
+                f"{k} {v:.3e}" for k, v in per_image.items()))
+            del ref
+    dist = {path: {k: (v / ref_sq[k]) ** 0.5 for k, v in d.items()} for path, d in sq.items()}
+    failed = []
+    for path, yard in EVAL_GATES.items():
+        for key, label in (("cls", "mask_cls"), ("pred", "mask_pred")):
+            e, y = dist[path][key], dist[yard][key]
+            other = dist["plain_bf16"][key]
+            log(f"eval {label} over {EVAL_IMAGES} images: rel L2 to fp32 {path} {e:.3e}, {yard} "
+                f"{y:.3e}; ratio {e / y:.3f} (bound {SLICE_FACTOR}); ratio to plain_bf16 "
+                f"{e / other:.3f} (not gated)")
+            if not e <= SLICE_FACTOR * y:
+                failed.append(f"{path} {label}: {e:.3e} > {SLICE_FACTOR} x {y:.3e}")
+    for path, ts in times.items():
+        mean = float(np.mean(ts[1:]))
+        log(f"eval {path}: evaluate_seg ms {[round(t_ * 1e3, 1) for t_ in ts]}; mean of images "
+            f"1..{EVAL_IMAGES - 1} {mean * 1e3:.1f} ms, {1 / mean:.3f} img/s; peak memory "
+            f"allocated during a call {peak[path] / 2**30:.2f} GiB")
+    if failed:
+        raise RuntimeError("eval gate failed: " + "; ".join(failed))
+
+    # The encode and its SimpleFPN on the kernel path (CUDA events), and the
+    # SimpleFPN with its GroupNorms skipped: what group_norm_f32 costs.
+    enc = models["kernels_auto"].image_encoder
+    with torch.no_grad():
+        x = models["kernels_auto"].normalize(torch.from_numpy(batches[0]["image"]).to(dev))
+        encode_ms = cuda_ms(lambda: enc(x, return_fpn=True, return_embedding=False), 5)
+        seen = {}
+        hook = enc.neck.register_forward_pre_hook(lambda _, a: seen.setdefault("vit", a[0]))
+        enc(x, return_fpn=True, return_embedding=False)
+        hook.remove()
+        fpn_ms = cuda_ms(lambda: enc.neck(seen["vit"]), 10)
+        with _patched(ie, "_group_norm", lambda y, gn: y.float()):
+            fpn_no_gn_ms = cuda_ms(lambda: enc.neck(seen["vit"]), 10)
+        del seen
+    log(f"eval kernels_auto: encode (ViT + SimpleFPN) {encode_ms:.3f} ms, SimpleFPN "
+        f"{fpn_ms:.3f} ms, SimpleFPN without its 10 GroupNorms {fpn_no_gn_ms:.3f} ms "
+        f"(CUDA events)")
+
+    totals = {}
+    for path in EVAL_GATES:
+        timings = {}
+        reset_launches()
+        metrics = evaluate_seg_batches(models[path], text[path], batches, "coco_panoptic",
+                                       timings=timings)
+        counts = launches()
+        check_launches(f"eval pipeline {path}", counts, PER_IMAGE[EVAL_PATHS[path][1]],
+                       EVAL_IMAGES)
+        for name, got in counts.items():
+            totals[name] = totals.get(name, 0) + got
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"eval pipeline {path}: non-finite metrics {metrics}")
+        log(f"eval pipeline {path}: launches {counts}; host ms per image (images 1.."
+            f"{EVAL_IMAGES - 1}) " + ", ".join(
+                f"{stage} {float(np.mean(ts[1:])) * 1e3:.1f}" for stage, ts in timings.items()))
+        log(f"eval pipeline {path}: " + ", ".join(
+            f"{k.split('/')[-1]} {v:.4f}" for k, v in metrics.items()
+            if k.split("/")[-1] in ("mIoU", "pACC", "PQ", "PQ_th", "PQ_st", "AP", "AP50",
+                                    "processed")))
+    del models
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = device_phase()
@@ -1105,6 +1368,9 @@ def main() -> int:
         t0 = time.perf_counter()
         paths.append(train_phase(dev, batch, STEPS, control))
         log(f"train phase, batch {batch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(eval_phase(dev))
+    log(f"eval phase: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = sum(counts.get(row["name"], 0) for counts in paths)
         if not row["launches"] and row["name"] not in OFF_PATH:

@@ -10,15 +10,15 @@ follow the flax tree, with PyTorch's conventions:
 - Dense ``kernel`` (in, out) is ``nn.Linear.weight`` (out, in); 1x1 convs
   (``input_proj*``, ``fpn_lateral``, ``mask_features``) are ``nn.Linear``
   too; the 3x3 ``fpn_output`` is an ``nn.Conv2d``;
-- LayerNorm / GroupNorm ``scale`` is ``weight``;
-- the raw tables (``query_feat``, ``class_embed`` (hidden, dim_proj), ...)
-  keep their flax layout.
+- LayerNorm / GroupNorm / the text tower's TFLayerNorm ``scale`` is
+  ``weight``;
+- the raw tables (``query_feat``, ``class_embed`` (hidden, dim_proj),
+  ``token_embedding``, ``lang_proj`` (width, proj), ...) keep their flax
+  layout.
 
 The SAM part (image encoder with its SimpleFPN, prompt encoder, mask
 decoder) is ``models/sam/convert.py``'s table under the same prefixes.
-Every flax leaf of the slice maps to exactly one port parameter, and back.
-Not bridged: the text tower (:data:`NOT_BRIDGED`), which the port has not
-ported; the seg train step takes the class text embeddings as input.
+Every flax leaf of the model maps to exactly one port parameter, and back.
 """
 
 from __future__ import annotations
@@ -29,9 +29,6 @@ from ..sam import convert as sam_convert
 from ..sam.build import SAM_VARIANTS
 from ..sam.convert import copy, conv, linear, norm
 from .model import SysLearnerConfig
-
-NOT_BRIDGED = ("lang_encoder/lang_encoder/", "lang_encoder/lang_proj")
-
 
 def _dense1x1(e: list, port: str, flax: tuple, bias: bool = True) -> None:
     e.append((f"{port}.weight", flax + ("kernel",), "dense1x1"))
@@ -85,12 +82,30 @@ def predictor_entries(num_layers: int = 9, prefix: str = "predictor.",
     return e
 
 
+def lang_encoder_entries(num_layers: int, prefix: str = "lang_encoder.",
+                         flax: tuple = ("lang_encoder",)) -> list:
+    e: list = []
+    tower, ftower = prefix + "lang_encoder.", flax + ("lang_encoder",)
+    copy(e, tower + "token_embedding", ftower + ("token_embedding",))
+    copy(e, tower + "positional_embedding", ftower + ("positional_embedding",))
+    for i in range(num_layers):
+        p, f = f"{tower}blocks.{i}", ftower + (f"block{i}",)
+        for n in ("ln_1", "ln_2"):
+            norm(e, f"{p}.{n}", f + (n,))
+        for n in ("in_proj", "out_proj", "c_fc", "c_proj"):
+            linear(e, f"{p}.{n}", f + (n,))
+    norm(e, tower + "ln_final", ftower + ("ln_final",))
+    copy(e, prefix + "lang_proj", flax + ("lang_proj",))
+    copy(e, prefix + "logit_scale", flax + ("logit_scale",))
+    return e
+
+
 def entries(cfg: SysLearnerConfig) -> list:
     """The bridge table of ``cfg``'s SysLearner."""
     e = sam_convert.sam_entries(SAM_VARIANTS[cfg.sam_size]["depth"])
     e += pixel_decoder_entries(cfg.pixel_decoder_layers)
     e += predictor_entries()
-    copy(e, "lang_encoder.logit_scale", ("lang_encoder", "logit_scale"))
+    e += lang_encoder_entries(cfg.text_layers)
     return e
 
 
@@ -101,8 +116,7 @@ def flax_to_state_dict(params: Mapping, cfg: SysLearnerConfig) -> dict:
 
 
 def state_dict_to_flax(sd: Mapping, cfg: SysLearnerConfig) -> dict:
-    """The port's state_dict -> ``{'params': ...}`` numpy tree of the
-    bridged leaves (everything but :data:`NOT_BRIDGED`)."""
+    """The port's state_dict -> ``{'params': ...}`` numpy tree."""
     return {"params": sam_convert.to_flax(sd, entries(cfg))}
 
 

@@ -9,8 +9,8 @@ projection. NHWC throughout. Rounding points follow the flax modules'
 sampling offsets and attention weights, GroupNorm and LayerNorm in fp32.
 The deformable core is ``ops/msdeform.py``: ``msdeform_impl`` picks its route
 as JAX's ``impl`` does (``auto``: the flat core with the B7 and B8 kernels at
-batch > 1, the plain ``wide`` core at batch 1), ``attn_impl='plain'`` the
-kernels' plain versions.
+batch > 1, the plain ``wide`` core at batch 1; ``hybrid``: B15 on the levels
+of at most 1536 cells), ``attn_impl='plain'`` the kernels' plain versions.
 
 Parameter names mirror the flax tree (``models/xdecoder/convert.py``);
 1x1 convs are ``nn.Linear`` (out, in).

@@ -1,7 +1,7 @@
 """Multi-scale deformable attention core, counterpart of
 ``iuvl_tpu/ops/msdeform.py:ms_deform_attn_core``.
 
-Two routes, chosen by ``impl`` as in JAX (``auto``: ``flat`` at batch > 1,
+Three routes, chosen by ``impl`` as in JAX (``auto``: ``flat`` at batch > 1,
 ``wide`` at batch 1):
 - ``flat`` (:func:`ms_deform_attn_flat`): per level the autograd function
   :class:`FlatLevel`, JAX's ``_flat_level`` with its hand-written VJP. Its
@@ -13,6 +13,12 @@ Two routes, chosen by ``impl`` as in JAX (``auto``: ``flat`` at batch > 1,
 - ``wide`` and ``xla``: plain PyTorch with the math of
   ``_bilinear_gather_wide`` (four bilinear taps with zero-padding validity,
   the tap weights in the value's dtype), autograd's backward.
+- ``hybrid``: ``wide``, but a level of at most :data:`ONEHOT_MAX_CELLS`
+  cells (res5 at 1024^2) goes through :class:`OnehotLevel`, JAX's
+  ``_level_contribution_onehot``: the B15 kernel
+  (``ops/cuda/onehot_gather.py``) on the level's wide map, its output in
+  the value's dtype; the backward is autograd of the plain ``wide`` level,
+  as JAX's ``_level_onehot_bwd``.
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ from .cuda.deform_bwd_glue import deform_bwd_glue_plain, deform_bwd_glue_q
 from .cuda.msdeform import (deform_gather_rows, deform_gather_rows_plain, deform_scatter_dv,
                             deform_scatter_dv_plain, ms_deform_level_fwd,
                             ms_deform_level_fwd_plain)
+from .cuda.onehot_gather import (onehot_deform_level_forward,
+                                 onehot_deform_level_forward_plain)
 
-IMPLS = ("auto", "flat", "wide", "xla")
+IMPLS = ("auto", "flat", "hybrid", "wide", "xla")
+ONEHOT_MAX_CELLS = 1536  # the 'hybrid' core's one-hot levels (JAX's onehot_max_cells)
 
 
 def _bilinear_gather(v_flat, h: int, w: int, x, y):
@@ -53,7 +62,58 @@ def _bilinear_gather(v_flat, h: int, w: int, x, y):
     return out
 
 
-def _ms_deform_attn_wide(value, spatial_shapes, sampling_locations, attention_weights):
+def _level_contribution_wide(v_l, h: int, w: int, x, y, aw):
+    """One level's ``(sampled * aw).sum(points)`` through the wide math:
+    (B, nh, Lq, d), fp32 for fp32 weights."""
+    return (_bilinear_gather(v_l, h, w, x, y) * aw[..., None]).sum(dim=3)
+
+
+def wide_map(v: torch.Tensor, w: int) -> torch.Tensor:
+    """``_wide_map``: (B, nh, hw, d) -> (B, nh, hw, 4d), the values beside
+    their rolls by -1, -w and -(w + 1) along hw."""
+    return torch.cat([v, *(torch.roll(v, -off, dims=2) for off in (1, w, w + 1))], dim=-1)
+
+
+class OnehotLevel(torch.autograd.Function):
+    """One small level's contribution, ``_level_contribution_onehot``:
+    v (B, nh, h*w, d); x, y, aw (B, nh, Lq, P) fp32 -> (B, nh, Lq, d) in v's
+    dtype. The forward folds the attention weight into the slot weights in
+    fp32 and runs B15 on the level's wide map (``attn_impl='plain'``: its
+    plain version); the backward is autograd of the plain wide level, its
+    cotangent cast to that level's dtype and the gradients to the inputs'
+    dtypes (JAX's ``_level_onehot_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, v, x, y, aw, h: int, w: int, attn_impl: str):
+        ctx.h, ctx.w = h, w
+        ctx.save_for_backward(v, x, y, aw)
+        b, nh, hw, d = v.shape
+        lq, p = x.shape[2], x.shape[3]
+        idx, wslot = wide_idx_wslot(h, w, x, y)
+        wslot = wslot * aw.float()[..., None]  # (B, nh, Lq, P, 4)
+        fwd = onehot_deform_level_forward if attn_impl == "auto" else \
+            onehot_deform_level_forward_plain
+        out = fwd(wide_map(v, w).reshape(b * nh, hw, 4 * d),
+                  idx.reshape(b * nh, lq, p).contiguous(),
+                  wslot.transpose(-1, -2).reshape(b * nh, lq, 4, p).contiguous(), p)
+        return out.view(b, nh, lq, d)
+
+    @staticmethod
+    def backward(ctx, gout):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            out = _level_contribution_wide(ins[0], ctx.h, ctx.w, *ins[1:])
+            grads = torch.autograd.grad(out, ins, gout.to(out.dtype))
+        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None, None, None)
+
+
+def _ms_deform_attn_wide(value, spatial_shapes, sampling_locations, attention_weights,
+                         onehot_max_cells: int = 0, attn_impl: str = "auto"):
+    """The ``wide`` core; with ``onehot_max_cells`` the ``hybrid`` one. The
+    levels add up in level order (res5 first), from the first level's
+    contribution in its own dtype, as JAX adds them to zeros of the
+    value's dtype."""
     b, s, nh, d = value.shape
     lq = sampling_locations.shape[1]
     v = value.permute(0, 2, 1, 3)
@@ -62,9 +122,12 @@ def _ms_deform_attn_wide(value, spatial_shapes, sampling_locations, attention_we
         v_l = v[:, :, start:start + hl * wl]
         start += hl * wl
         loc = sampling_locations[:, :, :, lvl].permute(0, 2, 1, 3, 4)  # (B, nh, Lq, P, 2)
-        sampled = _bilinear_gather(v_l, hl, wl, loc[..., 0] * wl - 0.5, loc[..., 1] * hl - 0.5)
+        x, y = loc[..., 0] * wl - 0.5, loc[..., 1] * hl - 0.5
         w_l = attention_weights[:, :, :, lvl].permute(0, 2, 1, 3)
-        contrib = (sampled * w_l[..., None]).sum(dim=3)
+        if 0 < hl * wl <= onehot_max_cells:
+            contrib = OnehotLevel.apply(v_l, x, y, w_l, hl, wl, attn_impl)
+        else:
+            contrib = _level_contribution_wide(v_l, hl, wl, x, y, w_l)
         out = contrib if out is None else out + contrib
     return out.permute(0, 2, 1, 3).reshape(b, lq, nh * d)
 
@@ -169,9 +232,11 @@ def ms_deform_attn_core(value, spatial_shapes: Sequence[tuple[int, int]], sampli
     """value (B, S, heads, d), levels concatenated along S;
     sampling_locations (B, Lq, heads, L, P, 2) in [0, 1] (x, y);
     attention_weights (B, Lq, heads, L, P), softmaxed. Returns
-    (B, Lq, heads * d), fp32 as in JAX. ``impl`` as JAX's (``auto``:
+    (B, Lq, heads * d), fp32 as in JAX (in the value's dtype where every
+    level is a ``hybrid`` one-hot level). ``impl`` as JAX's (``auto``:
     ``flat`` at batch > 1, else ``wide``); ``attn_impl`` picks the kernels
-    (``'auto'``) or their plain versions (``'plain'``) on the flat route."""
+    (``'auto'``) or their plain versions (``'plain'``) on the flat and
+    hybrid routes."""
     if impl not in IMPLS:
         raise ValueError(f"msdeform impl {impl!r} not in {IMPLS}")
     if impl == "auto":
@@ -181,4 +246,5 @@ def ms_deform_attn_core(value, spatial_shapes: Sequence[tuple[int, int]], sampli
                                    attention_weights, attn_impl)
     assert sum(h * w for h, w in spatial_shapes) == value.shape[1], (spatial_shapes,
                                                                       value.shape)
-    return _ms_deform_attn_wide(value, spatial_shapes, sampling_locations, attention_weights)
+    return _ms_deform_attn_wide(value, spatial_shapes, sampling_locations, attention_weights,
+                                ONEHOT_MAX_CELLS if impl == "hybrid" else 0, attn_impl)

@@ -1,0 +1,143 @@
+"""The seg evaluation, PyTorch port of two parts of ``iuvl_tpu/pipeline.py``:
+``class_text_embeddings`` (the class-name embeddings with the prompt
+ensemble) and the seg-mode body of ``_evaluate_dataset`` (``evaluate_seg``,
+then semantic inference into the mIoU evaluator, the panoptic merge into
+the PQ evaluator and instance inference into the AP evaluator).
+
+It works over in-memory batches; the dataset layer (``build_dataset``, the
+loaders) and the other eval modes are not ported yet. The model's outputs
+stay where the model runs: semantic argmax and instance top-k run there,
+and only the argmax map, the kept instance masks and the panoptic merge's
+inputs come to the host.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .data.class_names import COCO_THING_IDS
+from .data.prompts import clean_class_name, get_prompt_templates
+from .data.tokenizer import build_tokenizer
+from .evaluation import InstanceAPEvaluator, PanopticEvaluator, SemSegEvaluator
+from .inference.postprocess import instance_inference, panoptic_merge, semantic_inference
+
+IGNORE = 255  # the gt label of pixels no mask covers (detectron2's ignore label)
+OBJECT_MASK_THRESHOLD = 0.8  # the panoptic merge's class-score cut (step1.yaml TEST)
+
+
+@torch.no_grad()
+def class_text_embeddings(model, names: list[str], tokenizer=None) -> torch.Tensor:
+    """(K, dim) fp32 eval class embeddings on the model's device: per class
+    the text tower's unit embeddings of its name in every prompt template,
+    averaged and normalised to unit length."""
+    tokenizer = tokenizer or build_tokenizer()
+    dev = next(model.parameters()).device
+    out = []
+    for cls in names:
+        cname = clean_class_name(cls)
+        texts = [t.format(cname) for t in get_prompt_templates()]
+        ids = tokenizer(texts, max_length=model.cfg.contxt_len)["input_ids"]
+        mean = model.encode_text_embeddings(torch.from_numpy(ids).to(dev)).mean(0)
+        out.append(mean / (torch.linalg.vector_norm(mean) + 1e-7))
+    return torch.stack(out)
+
+
+def gt_from_batch(batch: dict, b: int, out_hw: tuple[int, int]):
+    """Image ``b``'s instance masks -> (semantic map with IGNORE where no
+    mask, the valid masks upsampled to ``out_hw`` (bool), their labels)."""
+    gt = np.full(out_hw, IGNORE, np.int64)
+    scale = out_hw[0] // batch["masks"].shape[2]
+    masks, labels = [], []
+    for k in range(batch["masks"].shape[1]):
+        if batch["valid"][b, k]:
+            m = batch["masks"][b, k].repeat(scale, 0).repeat(scale, 1) > 0.5
+            gt[m] = batch["labels"][b, k]
+            masks.append(m)
+            labels.append(int(batch["labels"][b, k]))
+    if not masks:
+        return gt, np.zeros((0, *out_hw), bool), np.zeros(0, np.int64)
+    return gt, np.stack(masks), np.asarray(labels)
+
+
+def gt_panoptic(gt_masks, gt_labels):
+    """Instance masks -> (panoptic id map, segments), later masks on top."""
+    if len(gt_masks) == 0:
+        return np.zeros((1, 1), np.int32), []
+    pan = np.zeros(gt_masks.shape[1:], np.int32)
+    segs = []
+    for i, (m, lab) in enumerate(zip(gt_masks, gt_labels)):
+        pan[m] = i + 1
+        segs.append({"id": i + 1, "category_id": int(lab)})
+    return pan, segs
+
+
+class _Clock:
+    """Host seconds per stage, the card synchronised at each stage's ends
+    (only when ``into`` is given)."""
+
+    def __init__(self, into: dict | None, device: torch.device):
+        self.into, self.sync = into, device.type == "cuda"
+
+    def __call__(self, stage: str, fn):
+        if self.into is None:
+            return fn()
+        if self.sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if self.sync:
+            torch.cuda.synchronize()
+        self.into.setdefault(stage, []).append(time.perf_counter() - t0)
+        return out
+
+
+@torch.no_grad()
+def evaluate_seg_batches(model, text_emb: torch.Tensor, batches: Iterable[dict],
+                         name: str = "synthetic_seg", timings: dict | None = None) -> dict:
+    """The seg eval of JAX's ``_evaluate_dataset`` for a panoptic dataset
+    (semantic, panoptic and instance heads) over ``batches``, dicts of
+    numpy arrays: ``image`` (B, H, W, 3) raw RGB, ``masks`` (B, T, h, w)
+    with H a multiple of h, ``labels`` and ``valid`` (B, T). ``text_emb``
+    (K + 1, dim) on the model's device. Things: COCO's for a COCO name,
+    else every class. Returns the evaluators' metrics keyed
+    ``<name>/<metric>``; with ``timings`` each stage's host seconds per
+    image are appended to it (``evaluate_seg`` per batch)."""
+    num_classes = text_emb.shape[0] - 1
+    thing_ids = COCO_THING_IDS if "coco" in name else set(range(num_classes))
+    dev = text_emb.device
+    clock = _Clock(timings, dev)
+    sem_eval = SemSegEvaluator(num_classes=num_classes, ignore_label=IGNORE)
+    pan_eval = PanopticEvaluator(thing_ids=thing_ids)
+    inst_eval = InstanceAPEvaluator(num_classes=num_classes)
+    thing_mask = torch.tensor([i in thing_ids for i in range(num_classes)], device=dev)
+    processed = 0
+    for batch in batches:
+        images = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(dev)
+        mask_cls, mask_pred = clock("evaluate_seg", lambda: model.evaluate_seg(images, text_emb))
+        for b in range(images.shape[0]):
+            gt_sem, gt_masks, gt_labels = gt_from_batch(batch, b, tuple(mask_pred.shape[2:]))
+            processed += 1
+            pred = clock("semantic", lambda: semantic_inference(
+                mask_cls[b], mask_pred[b]).argmax(0).cpu().numpy())
+            sem_eval.process(pred, gt_sem)
+            pan_seg, segs = clock("panoptic", lambda: panoptic_merge(
+                mask_cls[b].float().cpu().numpy(), mask_pred[b].float().cpu().numpy(),
+                thing_ids=thing_ids, object_mask_threshold=OBJECT_MASK_THRESHOLD))
+            pan_eval.process(pan_seg, segs, *gt_panoptic(gt_masks, gt_labels))
+
+            def instances():
+                inst = instance_inference(mask_cls[b], mask_pred[b], topk=100,
+                                          thing_mask=thing_mask)
+                keep = inst["valid"] & (inst["scores"] > 0)
+                return [inst[k][keep].cpu().numpy()
+                        for k in ("pred_masks", "scores", "pred_classes")]
+            inst_eval.process(*clock("instance", instances), gt_masks, gt_labels)
+    out = {f"{name}/{k}": v for k, v in sem_eval.evaluate().items()}
+    out[f"{name}/processed"] = processed
+    for ev in (pan_eval, inst_eval):
+        out.update({f"{name}/{k}": v for k, v in ev.evaluate().items()})
+    return out

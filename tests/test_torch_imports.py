@@ -26,6 +26,12 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.ops.msdeform, iuvl_tpu_torch.ops.point_sample\n"
         "import iuvl_tpu_torch.ops.position_embedding, iuvl_tpu_torch.ops.cuda.tap_scatter\n"
         "import iuvl_tpu_torch.ops.cuda.msdeform, iuvl_tpu_torch.ops.cuda.deform_bwd_glue\n"
+        "import iuvl_tpu_torch.ops.cuda.onehot_gather, iuvl_tpu_torch.pipeline\n"
+        "import iuvl_tpu_torch.data.tokenizer, iuvl_tpu_torch.data.class_names\n"
+        "import iuvl_tpu_torch.data.prompts, iuvl_tpu_torch.inference.postprocess\n"
+        "import iuvl_tpu_torch.evaluation.semseg, iuvl_tpu_torch.evaluation.panoptic\n"
+        "import iuvl_tpu_torch.evaluation.instance\n"
+        "import iuvl_tpu_torch.models.xdecoder.lang_encoder\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
@@ -75,6 +81,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
     from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+    from iuvl_tpu_torch.ops.cuda import onehot_gather as og
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
     from iuvl_tpu_torch.ops.cuda import window_block as wb
@@ -108,12 +115,13 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     dg.deform_bwd_glue_q(g4, r(heads * 6, 8), r(heads * 24, 4), 4)
     contrib, _ = dg.deform_bwd_glue(g4, r(heads * 6, 8), r(heads * 24, 4), 4)
     md.deform_scatter_dv(contrib, idx, 12, 4)
+    og.onehot_deform_level_forward(r(heads, 12, 4 * 8), idx, r(heads, 6, 4, 4), 4)
     for fn in (wb.window_attention_block, fa.flash_attention_rowbias_proj,
                mb.block_tail, mu.masks_upscale, ta.t2i_stream, ta.i2t_block_step,
                wb.window_block_backward, mb.block_tail_backward, fa.flash_attention_fwd,
                fa.flash_attention_bwd, ts.tap_scatter, md.ms_deform_level_fwd,
                md.deform_gather_rows, dg.deform_bwd_glue_q, dg.deform_bwd_glue,
-               md.deform_scatter_dv):
+               md.deform_scatter_dv, og.onehot_deform_level_forward):
         assert fn.launches == 0, fn.__name__
 
 
