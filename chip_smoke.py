@@ -1,5 +1,5 @@
-"""Drive the port's SAM serving path and its seg train step on one CUDA
-card, and check them.
+"""Drive the port's SAM serving paths, automatic mask generation, its seg
+train step and its seg eval on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -11,15 +11,17 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the path that runs it (ViT-B, 1024^2, bf16; the deformable core B7 and
    its backward glue B8 at the res3 level of the batch-2 train step; the
-   one-hot level B15 at the res5 level of the hybrid eval). Every
-   output's relative L2 error must stay within its own bound
+   one-hot level B15 at the res5 level of the hybrid eval; the whole-chunk
+   decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
+   slots). Every output's relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
    rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
    a reduction that misses its last 16 rows, a tap at the wrong row, the
    zero-padding validity dropped, a slot read from the next slot's columns,
    a point dropped, an index one cell off, weights rounded per point
-   instead of per cell): each must move some output by more than its
-   bound, and each output's bound must catch some fault. B8's two entry
+   instead of per cell, the slot mask dropped, the final attention reading
+   keys1, a softmax merge missing a split): each must move some output by
+   more than its bound, and each output's bound must catch some fault. B8's two entry
    points must agree exactly. Times from CUDA events after a warm-up; for
    B11, B12 and B7's gather and scatter also the PyTorch call that computes
    the same function (timed only, never a path). Then the global-block grad
@@ -31,7 +33,18 @@ Phases (any failure raises, so the exit code is non-zero):
    checked; the same requests go through the plain versions in bf16 and in
    fp32. The kernel path's masks must be no further from the fp32 masks
    than SLICE_FACTOR times the plain bf16 path's distance, in relative L2
-   of the logits and in 1 - mean per-mask IoU of ``logits > 0``.
+   of the logits and in 1 - mean per-mask IoU of ``logits > 0``. The same
+   requests go through the whole-chunk decode (``twoway_impl='chunk'``:
+   B16 once a chunk, B4-B6 never) and its plain version in bf16 and fp32,
+   gated the same way; masks/s of both decode designs are printed.
+   AMG: ``generate_masks`` on one seeded 1024^2 image (32 x 32 points,
+   batches of 64, one crop layer, COCO RLE) with the chunk model, with the
+   default IoU and stability cuts and with both cuts off (NMS and the RLE
+   codec over all 2048 masks); launches per image checked (5 encodes, B16
+   32), the records checked well-formed, host times printed; one batch of
+   64 grid prompts also goes through chunk plain bf16 and fp32 (each path
+   encoding the image), its masks and upscaled embedding gated the same
+   way.
 5. train: the SysLearner seg train step (ViT-B + SimpleFPN, 6-layer
    deformable pixel decoder, 9-layer unified decoder, 101 queries; bf16;
    seeded random weights) for STEPS steps of 1024^2 images, 134 x 512
@@ -109,6 +122,10 @@ KERNEL_BOUNDS = {
     # B15: the same exact products summed in fp32 in another order, one
     # rounding to bf16: outputs differ by at most one bf16 unit, rarely.
     "onehot_deform_level_forward": {"out": 3e-5},
+    # B16: the whole decode tail in bf16, every rounding point of the plain
+    # version but the t2i softmax's (unnormalised, per 32-key tile) and the
+    # order of the sums; tokens on the valid slots.
+    "decode_tail": {"tokens": 3.5e-3, "masks": 1.5e-2},
 }
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
@@ -141,6 +158,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "deform_bwd_glue_q": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:71"),
     "deform_bwd_glue": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:111"),
     "onehot_deform_level_forward": ("onehot_gather.cu", PALLAS + "onehot_gather.py:57"),
+    "decode_tail": ("decode_chunk.cu", PALLAS + "decode_chunk.py:511"),
 }
 # Checked and timed, on no path: JAX's row-layout glue, which its flat
 # backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default).
@@ -207,9 +225,19 @@ def flash_fwd_bwd_plain(q, k, v, do):
     return (o, lse, *fa.flash_attention_bwd_plain(q, k, v, o, lse, do))
 
 
+def decode_tail_valid(*args):
+    """B16's wrapper with the tokens cut to the valid slots (the pad slots'
+    rows are computed but never read)."""
+    from iuvl_tpu_torch.ops.cuda import decode_chunk as dc
+
+    tok, masks = dc.decode_tail(*args)
+    return tok[:, :args[-1]], masks
+
+
 def kernels():
     """kernel name -> (wrappers whose ``launches`` count it, its call, its
     plain version, output names)."""
+    from iuvl_tpu_torch.ops.cuda import decode_chunk as dc
     from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
     from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
@@ -248,6 +276,8 @@ def kernels():
         "deform_scatter_dv": one(md.deform_scatter_dv, md.deform_scatter_dv_plain, "dv"),
         "onehot_deform_level_forward": one(og.onehot_deform_level_forward,
                                            og.onehot_deform_level_forward_plain),
+        "decode_tail": ((dc.decode_tail,), decode_tail_valid, lambda *a: _tail_plain(a),
+                        ("tokens", "masks")),
     }
 
 
@@ -381,6 +411,73 @@ def _drop_last_point(a):
     return a[:2] + (t,) + a[3:]
 
 
+def _tail_plain(args, t_valid=None):
+    """B16's plain version, its slot mask at ``t_valid`` slots."""
+    from iuvl_tpu_torch.ops.cuda import decode_chunk as dc
+
+    tok, masks, _ = dc.decode_tail_plain(*args[:-1], t_valid or args[-1])
+    return tok[:, :args[-1]], masks
+
+
+def _t2i_patched(t2i):
+    """B16's plain version with its token -> image attention replaced by
+    ``t2i(sound, calls, q, keys, pe_wk, w, heads)``."""
+    from iuvl_tpu_torch.ops.cuda import decode_chunk as dc
+
+    def fault(args):
+        sound, calls = dc._t2i, []
+        with _patched(dc, "_t2i", lambda *a: t2i(sound, calls, *a)):
+            return _tail_plain(args)
+    return _planted(fault)
+
+
+def _final_reads_keys1(sound, calls, q, keys, *rest):
+    calls.append(keys)
+    return sound(q, calls[0], *rest)
+
+
+def _merge_misses_last_split(sound, calls, q, keys, pe_wk, *rest):
+    rows = keys.shape[1] // 8  # the kernel merges 8 partials of N / 8 rows
+    return sound(q, keys[:, :-rows], pe_wk[:-rows], *rest)
+
+
+def _i2t1_k_heads_swapped(a):
+    w = dict(a[4])
+    site = dict(w["i2t1"])
+    for k in ("kw", "kb"):
+        site[k] = site[k].clone()
+        site[k][:16], site[k][16:32] = a[4]["i2t1"][k][16:32], a[4]["i2t1"][k][:16]
+    w["i2t1"] = site
+    return a[:4] + (w,) + a[5:]
+
+
+def decode_tail_case(rs: np.random.RandomState, dev):
+    """B16's arguments at the chunk serving shape: CHUNK prompts of 7 tokens
+    (5 output tokens, the point and the pad point) in 16 slots over the
+    ViT-B 64^2 embedding; the decoder's weights as build_sam draws them,
+    its LayerNorms' scales and biases perturbed."""
+    from iuvl_tpu_torch.models.sam.build import init_random_
+    from iuvl_tpu_torch.models.sam.mask_decoder import MaskDecoder
+
+    dec = MaskDecoder(dtype=torch.bfloat16, twoway_impl="chunk")
+    init_random_(dec, torch.Generator().manual_seed(SEED + 5))
+    with torch.no_grad():
+        for mod in dec.modules():
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.add_(torch.from_numpy(rs.randn(256).astype(np.float32) * 0.1))
+                mod.bias.copy_(torch.from_numpy(rs.randn(256).astype(np.float32) * BIAS_STD))
+    dec = dec.to(dev)
+    tv = 7
+    tok = torch.zeros(2, CHUNK, 16, 256)
+    tok[:, :, :tv] = torch.from_numpy(rs.randn(2, CHUNK, tv, 256).astype(np.float32))
+    tok[1] *= 0.5
+    image = torch.from_numpy(rs.randn(2, 1, 64 * 64, 256).astype(np.float32))
+    image[1] *= 0.5
+    bf = torch.bfloat16
+    return (tok[0].to(dev, bf), tok[1].to(dev, bf), image[0].to(dev, bf), image[1].to(dev, bf),
+            dec.tail_weights(), 8, tv)
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
@@ -469,6 +566,12 @@ def kernel_cases(rs: np.random.RandomState, dev):
     log(f"kernel onehot_deform_level_forward: {int(torch.tril(same, -1).any(-1).any(-1).sum())} "
         f"of {nh * lq} rows have points that share a cell")
     return [
+        ("decode_tail", decode_tail_case(rs, dev),
+         {"slot mask dropped": _planted(lambda a: _tail_plain(a, t_valid=16)),
+          "heads 0/1 swapped in i2t1's token-side k": _i2t1_k_heads_swapped,
+          "the final attention reads keys1": _t2i_patched(_final_reads_keys1),
+          "a t2i merge misses its last split (N/8 rows)": _t2i_patched(_merge_misses_last_split)},
+         5),
         ("window_attention_block", win,
          {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
           "rel_pos_w dropped": _zero(6), "heads 0/1 swapped in wo": _swap(3, 1, d)}, 10),
@@ -523,6 +626,29 @@ def kernel_cases(rs: np.random.RandomState, dev):
     ]
 
 
+def _fp32(a):
+    """a with each floating-point tensor in it (in dicts and tuples too) in fp32."""
+    if torch.is_tensor(a):
+        return a.float() if a.is_floating_point() else a
+    if isinstance(a, dict):
+        return {k: _fp32(v) for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_fp32(v) for v in a)
+    return a
+
+
+def _tensors(a):
+    """Every tensor in a (nested dicts, tuples, lists)."""
+    if torch.is_tensor(a):
+        yield a
+    elif isinstance(a, dict):
+        for v in a.values():
+            yield from _tensors(v)
+    elif isinstance(a, (tuple, list)):
+        for v in a:
+            yield from _tensors(v)
+
+
 def work(name: str, args, outs) -> tuple[float, float, str]:
     """(flops, bytes, flops' rate) of one call: the least work of the
     function on these inputs, each product it needs done once, and the
@@ -530,8 +656,28 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
     written once. A backward recomputes what its arguments do not hold:
     B9 and B10 are handed no activations, B11 is handed o and lse, so its
     backward needs s once (p from lse), dp, dq, dk and dv."""
-    nbytes = sum(a.numel() * a.element_size() for a in (*args, *outs) if torch.is_tensor(a))
-    if name == "window_attention_block":
+    nbytes = sum(a.numel() * a.element_size() for a in _tensors((args, outs)))
+    if name == "decode_tail":
+        # Per prompt: the seven N x C x I keys-side projections (i2t0's
+        # out-projection, t2i1's k and v, i2t1's q and out-projection, the
+        # final attention's k and v), the deconvs, the contraction, and the
+        # four attentions' two products each at the valid slots; the token
+        # side (block 1's self-attention, t2i1's q and out-projection, the
+        # MLP, i2t1's k and v, the final q and out-projection, i2t0's k and v)
+        # and the hypernetwork. Once a call: the shared q-projection of
+        # keys0 and key_pe and the three PE projections.
+        t, _, keys0, _, w, _, tv = args
+        b, c, n = t.shape[0], t.shape[2], keys0.shape[1]
+        i, mlp = w["i2t0"]["qw"].shape[0], w["mlp1"][0].shape[0]
+        c4, c8, m = w["up"][1].shape[0], w["up"][5].shape[0], w["hyper"][0][0].shape[0]
+        rows = n * (7 * c * i + c * 4 * c4 + 4 * c4 * 4 * c8 + 16 * c8 * m + 8 * tv * i)
+        tokens = tv * (4 * c * c + 2 * tv * c + 6 * c * i + 2 * c * mlp + 3 * c * i) \
+            + m * (2 * c * c + c * c8)
+        flops = 2 * b * (rows + tokens) + 2 * 5 * n * c * i
+        nbytes = sum(a.numel() * a.element_size() for a in _tensors((args[:2], outs))) \
+            + keys0.numel() * keys0.element_size() * 2 \
+            + sum(a.numel() * a.element_size() for a in _tensors(w))
+    elif name == "window_attention_block":
         nw, n, c = args[0].shape
         flops = nw * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c
                       + 4 * n * c * args[5].shape[0])
@@ -657,8 +803,7 @@ def kernel_phase(dev) -> list[dict]:
         max_abs = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
         # Both bf16 results against the plain version in fp32 on the same
         # (bf16-valued) inputs: how far bf16 alone moves the result.
-        ref32 = as_tuple(plain(*[a.float() if torch.is_tensor(a) and a.is_floating_point()
-                                 else a for a in args]))
+        ref32 = as_tuple(plain(*[_fp32(a) for a in args]))
         log(f"kernel {name}: vs fp32 plain: kernel rel_l2 "
             + ", ".join(f"{o_n} {rel_l2(o, r):.3e}" for o, r, o_n in zip(out, ref32, names))
             + "; bf16 plain rel_l2 "
@@ -794,26 +939,213 @@ def serving_phase(dev) -> dict:
         plain[dtype] = build_sam("vit_b", dtype=dtype, attn_impl="plain", twoway_impl="plain",
                                  device=dev).eval()
         plain[dtype].load_state_dict(model.state_dict())
+    # The whole-chunk decode (B16) on the same weights: kernels, plain bf16, plain fp32.
+    chunk = {}
+    for path, (attn, twoway, dtype) in CHUNK_PATHS.items():
+        chunk[path] = build_sam("vit_b", dtype=dtype, attn_impl=attn, twoway_impl=twoway,
+                                device=dev).eval()
+        chunk[path].load_state_dict(model.state_dict())
     rs = np.random.RandomState(SEED + 1)
     totals = {k: 0 for k in per_request}
-    timing = {"kernels": [], "plain": []}
+    timing = {"kernels": [], "plain": [], "chunk": [], "chunk_plain": []}
     with torch.inference_mode():
         for r in range(REQUESTS):
-            request(r, model, plain, rs, dev, per_request, totals, timing)
+            image, points, labels = request(r, model, plain, rs, dev, per_request, totals,
+                                            timing)
+            chunk_request(r, chunk, image, points, labels, totals, timing)
     for path, runs in timing.items():  # steady state: requests after the first
         enc = float(np.mean([e for e, _ in runs[1:]]))
         dec = float(np.mean([np.mean(d) for _, d in runs[1:]]))
         per_image = enc + dec * (N_PROMPTS // CHUNK)
         log(f"serving {path} (mean of requests 1..{REQUESTS - 1}): encode {enc * 1e3:.2f} ms, "
             f"{dec * 1e3:.2f} ms per {CHUNK}-prompt chunk, {N_PROMPTS / per_image:.1f} masks/s")
-    del model, plain
+    del model, plain, chunk
+    torch.cuda.empty_cache()
+    return totals
+
+
+# path -> (attn_impl, twoway_impl, dtype) of the whole-chunk decode's paths
+CHUNK_PATHS = {"chunk": ("auto", "chunk", "bfloat16"),
+               "chunk_plain_bf16": ("plain", "chunk_plain", "bfloat16"),
+               "chunk_plain_fp32": ("plain", "chunk_plain", "float32")}
+# Launches per request on the chunk path: the encode, then B16 once a chunk.
+PER_REQUEST_CHUNK = {"window_attention_block": 8, "flash_attention_rowbias_proj": 4,
+                     "block_tail": 12, "decode_tail": N_PROMPTS // CHUNK}
+
+
+def chunk_request(r, chunk, image, points, labels, totals, timing):
+    """Serve request r through the whole-chunk decode's paths; launches
+    checked on the kernel path, whose masks are gated against fp32 as the
+    per-op path's are, with chunk plain bf16 as the yardstick."""
+    reset_launches()
+    masks_k, enc_k, dec_k = serve(chunk["chunk"], image, points, labels)
+    counts = launches()
+    check_launches(f"request {r} chunk", counts, PER_REQUEST_CHUNK)
+    for name, got in counts.items():
+        totals[name] = totals.get(name, 0) + got
+    masks_p, enc_p, dec_p = serve(chunk["chunk_plain_bf16"], image, points, labels)
+    masks_32 = serve(chunk["chunk_plain_fp32"], image, points, labels)[0]
+    want_shape = (N_PROMPTS, 4, 256, 256)
+    if tuple(masks_k.shape) != want_shape or not bool(torch.isfinite(masks_k).all()):
+        raise RuntimeError(f"request {r} chunk: masks {tuple(masks_k.shape)} not "
+                           f"{want_shape} or not finite")
+    for path, enc, dec in (("chunk", enc_k, dec_k), ("chunk_plain", enc_p, dec_p)):
+        timing[path].append((enc, dec))
+        log(f"request {r} {path}: encode {enc * 1e3:.2f} ms, decode chunks "
+            f"{[round(s_ * 1e3, 2) for s_ in dec]} ms, "
+            f"{N_PROMPTS / (enc + sum(dec)):.1f} masks/s")
+    chunk_masks_gate(f"request {r} chunk", masks_k, masks_p, masks_32,
+                     f"launches {({k: v for k, v in counts.items() if v})}; ")
+
+
+def chunk_masks_gate(where: str, masks_k, masks_p, masks_32, note: str = "") -> None:
+    """The chunk kernel path's mask logits against chunk plain fp32's: rel
+    L2 and 1 - mean IoU each within SLICE_FACTOR x chunk plain bf16's."""
+    err_k, err_p = rel_l2(masks_k, masks_32), rel_l2(masks_p, masks_32)
+    iou_k, n_masks = mask_iou(masks_k, masks_32)
+    iou_p = mask_iou(masks_p, masks_32)[0]
+    log(f"{where}: {note}vs chunk plain fp32: rel_l2 kernels "
+        f"{err_k:.3e} plain bf16 {err_p:.3e}, mean IoU kernels {iou_k:.5f} plain bf16 "
+        f"{iou_p:.5f} over {n_masks} non-empty masks; kernels vs chunk plain bf16 IoU "
+        f"{mask_iou(masks_k, masks_p)[0]:.5f}")
+    if not err_k <= SLICE_FACTOR * err_p:
+        raise RuntimeError(f"{where}: mask rel L2 to fp32 {err_k} over "
+                           f"{SLICE_FACTOR} x the chunk plain bf16 path's {err_p}")
+    if not 1 - iou_k <= SLICE_FACTOR * (1 - iou_p):
+        raise RuntimeError(f"{where}: 1 - IoU to fp32 {1 - iou_k} over "
+                           f"{SLICE_FACTOR} x the chunk plain bf16 path's {1 - iou_p}")
+
+
+AMG_CROPS = 5  # crop_n_layers=1: the full image and 4 crops, an encode each
+# Launches per AMG image: 5 encodes; B16 once a batch of 64 prompts, 16
+# batches for the 32 x 32 grid of the full image and 4 for each crop's 16 x 16.
+PER_AMG_IMAGE = {"window_attention_block": 8 * AMG_CROPS,
+                 "flash_attention_rowbias_proj": 4 * AMG_CROPS, "block_tail": 12 * AMG_CROPS,
+                 "decode_tail": 16 + 4 * 4}
+RECORD_KEYS = {"segmentation", "area", "bbox", "predicted_iou", "point_coords",
+               "stability_score", "crop_box"}
+
+
+def check_records(where: str, out: dict, side: int) -> None:
+    """The records are finite and well-formed: each COCO string decodes to
+    a mask of its record's area, boxes inside the mask frame."""
+    from iuvl_tpu_torch.inference.amg import area_from_rle, coco_decode_rle, rle_to_mask
+
+    k = len(out["records"])
+    if out["masks"].shape != (k, side, side) or len(out["scores"]) != k or len(out["rles"]) != k:
+        raise RuntimeError(f"{where}: masks {out['masks'].shape}, {len(out['scores'])} scores, "
+                           f"{len(out['rles'])} rles for {k} records")
+    for i, rec in enumerate(out["records"]):
+        counts = coco_decode_rle(rec["segmentation"])
+        nums = [*rec["bbox"], rec["predicted_iou"], rec["stability_score"],
+                *rec["point_coords"][0], *rec["crop_box"]]
+        if (set(rec) != RECORD_KEYS or not isinstance(rec["segmentation"]["counts"], str)
+                or area_from_rle(counts) != rec["area"] or rec["area"] != out["masks"][i].sum()
+                or not np.array_equal(rle_to_mask(counts), out["masks"][i])
+                or not all(np.isfinite(nums))
+                or not all(0 <= v <= side for v in rec["bbox"])):
+            raise RuntimeError(f"{where}: record {i} malformed: {rec}")
+
+
+def amg_batch_gate(model, image: np.ndarray, batch: int, dev) -> None:
+    """The AMG's first batch of grid prompts (``batch`` points of the 32 x
+    32 grid over the full image) through ``model`` (chunk kernels) and
+    chunk plain bf16 and fp32 on its weights, each path encoding the image
+    itself, with ``return_upscaled=True``: the masks gated as the serving
+    requests' are, and the upscaled embedding (from keys2, B16's
+    workspace) by the same rule in rel L2."""
+    from iuvl_tpu_torch.inference.amg import build_point_grid
+    from iuvl_tpu_torch.models.sam import build_sam
+
+    paths = {"chunk": model}
+    for path, (attn, twoway, dtype) in CHUNK_PATHS.items():
+        if path != "chunk":
+            paths[path] = build_sam("vit_b", dtype=dtype, attn_impl=attn, twoway_impl=twoway,
+                                    device=dev).eval()
+            paths[path].load_state_dict(model.state_dict())
+    img = torch.from_numpy(image).to(dev)
+    points = torch.from_numpy(build_point_grid(32)[:batch, None] * 1024).float().to(dev)
+    labels = torch.ones(batch, 1, dtype=torch.int32, device=dev)
+    outs = {}
+    with torch.inference_mode():
+        for path, m in paths.items():
+            emb, _ = m.encode_image(m.normalize(img), return_fpn=False)
+            outs[path] = m.decode_from_embedding(emb, points, labels, return_upscaled=True)
+    k, p, f = (outs[path] for path in CHUNK_PATHS)
+    up = "upscaled_embedding"
+    if k[up].shape != (batch, 256, 256, 32) or not bool(torch.isfinite(k[up]).all()):
+        raise RuntimeError(f"amg batch: upscaled embedding {tuple(k[up].shape)} not "
+                           f"{(batch, 256, 256, 32)} or not finite")
+    chunk_masks_gate(f"amg batch of {batch}", k["masks"], p["masks"], f["masks"])
+    err_k, err_p = rel_l2(k[up], f[up]), rel_l2(p[up], f[up])
+    log(f"amg batch of {batch}: upscaled embedding vs chunk plain fp32: rel_l2 kernels "
+        f"{err_k:.3e} plain bf16 {err_p:.3e}")
+    if not err_k <= SLICE_FACTOR * err_p:
+        raise RuntimeError(f"amg batch of {batch}: upscaled embedding rel L2 to fp32 {err_k} "
+                           f"over {SLICE_FACTOR} x the chunk plain bf16 path's {err_p}")
+    del paths, outs
+    torch.cuda.empty_cache()
+
+
+def amg_phase(dev) -> dict:
+    """``generate_masks`` on one seeded 1024^2 image with the ViT-B chunk
+    model (32 x 32 points, batches of 64, one crop layer, COCO RLE): with
+    the default IoU and stability cuts, then with both cuts off, so that
+    NMS and the RLE codec see all 2048 masks. Launches checked per image;
+    host-clock times. First, one batch of its prompts is held against the
+    plain versions (``amg_batch_gate``). Returns the launch totals."""
+    from iuvl_tpu_torch.inference import amg
+    from iuvl_tpu_torch.models.sam import sam_model_registry
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    model = sam_model_registry["vit_b"](dtype="bfloat16", twoway_impl="chunk", device=dev,
+                                        generator=gen).eval()
+    image = (np.random.RandomState(SEED + 41).rand(1, 1024, 1024, 3) * 255).astype(np.float32)
+    kw = dict(points_per_side=32, batch=64, crop_n_layers=1, output_mode="coco_rle")
+    amg_batch_gate(model, image, kw["batch"], dev)
+    totals: dict = {}
+    nms = {}
+    sound_nms = amg.mask_nms
+
+    def timed_nms(masks, scores, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = sound_nms(masks, scores, *a, **k)
+        torch.cuda.synchronize()
+        nms.update(n=len(masks), kept=len(kept), s=time.perf_counter() - t0)
+        return kept
+
+    runs = (("default cuts", {}, 2),
+            ("cuts off", dict(pred_iou_thresh=float("-inf"), stability_thresh=-1.0), 1))
+    with _patched(amg, "mask_nms", timed_nms):
+        for label, cuts, times in runs:
+            secs = []
+            for _ in range(times):
+                nms.clear()
+                reset_launches()
+                out, s_ = synced(lambda: amg.generate_masks(model, image, **kw, **cuts))
+                secs.append(s_)
+                counts = launches()
+                check_launches(f"amg {label}", counts, PER_AMG_IMAGE)
+                for name, got in counts.items():
+                    totals[name] = totals.get(name, 0) + got
+            if label == "cuts off" and nms.get("n") != 1024 + 4 * 256:
+                raise RuntimeError(f"amg cuts off: NMS saw {nms.get('n')} masks, not 2048")
+            check_records(f"amg {label}", out, 256)
+            log(f"amg {label}: {len(out['records'])} masks after the IoU, stability and NMS "
+                f"filters; host ms per image {[round(x * 1e3, 1) for x in secs]}; NMS "
+                + (f"{nms['n']} -> {nms['kept']} masks in {nms['s'] * 1e3:.1f} ms" if nms
+                   else "not reached (no mask passed the cuts)")
+                + f"; launches {({k: v for k, v in counts.items() if v})}")
+    del model
     torch.cuda.empty_cache()
     return totals
 
 
 def request(r, model, plain, rs, dev, per_request, totals, timing):
     """Serve request r through the kernels (checking the launch counts) and
-    through the plain paths, and hold the masks against the fp32 ones."""
+    through the plain paths, and hold the masks against the fp32 ones.
+    Returns the request (image, points, labels)."""
     image = torch.from_numpy(rs.rand(1, 1024, 1024, 3).astype(np.float32) * 255).to(dev)
     points = torch.from_numpy(rs.rand(N_PROMPTS, 1, 2).astype(np.float32) * 1024).to(dev)
     labels = torch.ones(N_PROMPTS, 1, dtype=torch.int32, device=dev)
@@ -852,6 +1184,7 @@ def request(r, model, plain, rs, dev, per_request, totals, timing):
     if not 1 - iou_k <= SLICE_FACTOR * (1 - iou_p):
         raise RuntimeError(f"request {r}: 1 - IoU to fp32 {1 - iou_k} over "
                            f"{SLICE_FACTOR} x the plain bf16 path's {1 - iou_p}")
+    return image, points, labels
 
 
 # Launches of each kernel wrapper per train step of the kernel path. At
@@ -1363,7 +1696,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serving = serving_phase(dev)
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
-    paths = [serving]
+    t0 = time.perf_counter()
+    paths = [serving, amg_phase(dev)]
+    log(f"amg phase: {time.perf_counter() - t0:.1f} s")
     for batch, control in ((1, True), (2, False)):
         t0 = time.perf_counter()
         paths.append(train_phase(dev, batch, STEPS, control))

@@ -21,19 +21,23 @@ from .prompt_encoder import PromptEncoder
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 
-TWOWAY_IMPLS = ("auto", "plain")
+TWOWAY_IMPLS = ("auto", "plain", "chunk", "chunk_plain")
 _NOT_PORTED = (
     "{field}={value!r} is not a choice of the port, which takes {allowed}: 'auto' "
-    "runs the CUDA kernels, 'plain' their plain versions. Kernels not ported yet "
-    "(B16 decode_tail for twoway_impl='chunk', among others) are listed in "
-    "ROADMAP.md Queue B.")
+    "runs the CUDA kernels, 'plain' their plain versions; for twoway_impl, 'chunk' "
+    "the whole-chunk decode kernel (B16) and 'chunk_plain' its plain version. "
+    "Kernels not ported yet (B2b for attn_impl='rowbias', B14 for 'pallas_rp', B13 "
+    "for 'window') are listed in ROADMAP.md Queue B.")
 
 
 @dataclasses.dataclass(frozen=True)
 class SamConfig:
     """``attn_impl`` / ``twoway_impl``: ``'auto'`` runs the CUDA kernels on
     CUDA tensors (their plain versions on the CPU); ``'plain'`` runs the
-    plain PyTorch versions everywhere (the reference on the card)."""
+    plain PyTorch versions everywhere (the reference on the card).
+    ``twoway_impl='chunk'`` decodes through the whole-chunk kernel (B16;
+    a shared batch-1 image embedding), ``'chunk_plain'`` through its plain
+    version (JAX's ``'chunk_xla'``)."""
 
     embed_dim: int = 768
     depth: int = 12

@@ -13,6 +13,10 @@ The mask output goes through the fused upscale + hypernetwork kernel (B6).
 
 ``twoway_impl='auto'`` runs the kernels on CUDA tensors (their plain
 versions on CPU tensors); ``'plain'`` runs the plain versions everywhere.
+``'chunk'`` is JAX's whole-chunk decode: block 0's token side in plain
+PyTorch, everything after it in one ``decode_tail`` call (B16), which
+needs a batch-1 image embedding; ``'chunk_plain'`` runs B16's plain
+version everywhere (JAX's ``'chunk_xla'``).
 Returns both output conventions: ``masks`` (B, M, 4H, 4W) and
 ``iou_pred`` (B, M), and the unified-head inputs ``upscaled_embedding``
 (B, 4H, 4W, C/8) and ``hyper_in`` (B, M, C/8).
@@ -21,9 +25,11 @@ Returns both output conventions: ``masks`` (B, M, 4H, 4W) and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.common import conv_transpose_nhwc, gelu, layer_norm_f32, linear, prepared
+from ...ops.cuda.decode_chunk import decode_tail, decode_tail_plain, unflatten_masks_ge
 from ...ops.cuda.mask_upscale import (flat_deconv, masks_upscale, masks_upscale_plain,
                                       unflatten_masks)
 from ...ops.cuda.twoway_attention import (i2t_block_step, i2t_block_step_plain,
@@ -65,10 +71,15 @@ class Attention(nn.Module):
         h = self.num_heads
         split = lambda t: t.reshape(t.shape[0], t.shape[1], h, -1).transpose(1, 2)  # noqa: E731
         qh, kh, vh = split(qp), split(kp), split(vp)  # (b, h, n, d), b may be 1
+        bq, _, nq, d = qh.shape
+        shared = kh.shape[0] == 1 < bq  # one image's keys: the prompts' queries as rows of one product
+        if shared:
+            qh = qh.transpose(0, 1).reshape(1, h, bq * nq, d)
         attn = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-        attn = torch.softmax(attn / (qh.shape[-1] ** 0.5), dim=-1).to(vh.dtype)
+        attn = torch.softmax(attn / (d ** 0.5), dim=-1).to(vh.dtype)
         out = torch.matmul(attn, vh)
-        bq, _, nq, _ = out.shape
+        if shared:
+            out = out.reshape(h, bq, nq, d).transpose(0, 1)
         out = out.transpose(1, 2).reshape(bq, nq, -1)
         return linear(out, self.out_proj.weight, self.out_proj.bias, dt)
 
@@ -135,19 +146,28 @@ class TwoWayAttentionBlock(nn.Module):
         self.cross_attn_image_to_token = Attention(
             embedding_dim, num_heads, attention_downsample_rate, dtype)
 
-    def forward(self, queries, keys, query_pe, key_pe):
+    def front(self, queries, keys, query_pe, key_pe, fused: bool = True):
+        """The token side of the block: self-attention, token -> image
+        attention (through B4 when ``fused``, else the plain ``Attention``,
+        as JAX's ``fused=False`` block) and the MLP, each with its norm."""
         if self.skip_first_layer_pe:
             queries = self.self_attn(queries, queries, queries)
         else:
             queries = queries + self.self_attn(queries, queries, queries,
                                                q_pe=query_pe, k_pe=query_pe)
         queries = _ln(queries, self.norm1)
-        queries = queries + self.cross_attn_token_to_image.token_to_image(
-            queries, query_pe, keys, key_pe, self.impl)
+        t2i = self.cross_attn_token_to_image
+        if fused:
+            queries = queries + t2i.token_to_image(queries, query_pe, keys, key_pe, self.impl)
+        else:
+            queries = queries + t2i(queries, keys, keys, q_pe=query_pe, k_pe=key_pe)
         queries = _ln(queries, self.norm2)
         y = torch.relu(linear(queries, self.mlp.lin1.weight, self.mlp.lin1.bias, self.dtype))
         y = linear(y, self.mlp.lin2.weight, self.mlp.lin2.bias, self.dtype)
-        queries = _ln(queries + y, self.norm3)
+        return _ln(queries + y, self.norm3)
+
+    def forward(self, queries, keys, query_pe, key_pe):
+        queries = self.front(queries, keys, query_pe, key_pe)
         keys = self.cross_attn_image_to_token.image_to_token(
             keys, key_pe, queries, query_pe, self.norm4, self.impl)
         return queries, keys
@@ -166,6 +186,19 @@ class TwoWayTransformer(nn.Module):
         self.final_attn_token_to_image = Attention(
             embedding_dim, num_heads, attention_downsample_rate, dtype)
         self.norm_final_attn = nn.LayerNorm(embedding_dim, eps=1e-5)
+
+    def chunk_front(self, image_embedding, image_pe, point_embedding):
+        """JAX's ``chunk_front``: only block 0's token side (plain PyTorch,
+        no B4), which never writes into the shared keys; ``decode_tail``
+        takes over from block 0's image -> token step. image_embedding and
+        image_pe (1, H, W, C). Returns (queries (B, T, C) fp32, keys and
+        key_pe (1, HW, C) in the embedding's dtype)."""
+        _, h, w, c = image_embedding.shape
+        keys = image_embedding.reshape(1, h * w, c)
+        key_pe = image_pe[:1].reshape(1, h * w, c).to(keys.dtype)
+        queries = self.layers[0].front(point_embedding, keys, point_embedding, key_pe,
+                                       fused=False)
+        return queries, keys, key_pe
 
     def forward(self, image_embedding, image_pe, point_embedding):
         """image_embedding (1 or B, H, W, C); image_pe (1 or B, H, W, C);
@@ -256,6 +289,8 @@ class MaskDecoder(nn.Module):
         if image_pe.dim() == 3:
             image_pe = image_pe[None]
         _, hgrid, wgrid, _ = src.shape
+        if self.twoway_impl in ("chunk", "chunk_plain"):
+            return self._chunk_decode(src.to(dt), image_pe, tokens, return_upscaled)
         hs, keys = self.transformer(src.to(dt), image_pe, tokens)
         m = self.num_mask_tokens
         hyper_in = torch.stack(
@@ -270,4 +305,70 @@ class MaskDecoder(nn.Module):
         }
         if return_upscaled:
             out["upscaled_embedding"] = self.upscaled_embedding(keys, hgrid, wgrid)
+        return out
+
+    def tail_weights(self) -> dict:
+        """The weights ``decode_tail`` reads, in its layout (made once per
+        weight state): block 0's image -> token attention (its k and v
+        projections also in fp32, as JAX's chunk branch reads them) and
+        norm4, all of block 1, the final attention and its norm, the
+        hypernetwork MLPs stacked, the upscale stack."""
+        tr, dt = self.transformer, self.dtype
+        l0, l1 = tr.layers
+
+        def make():
+            attn = {"i2t0": l0.cross_attn_image_to_token.weights(),
+                    "self1": l1.self_attn.weights(),
+                    "t2i1": l1.cross_attn_token_to_image.weights(),
+                    "i2t1": l1.cross_attn_image_to_token.weights(),
+                    "final": tr.final_attn_token_to_image.weights()}
+            i2t0 = l0.cross_attn_image_to_token
+            i2t0_kv = tuple(x.float() for x in (i2t0.k_proj.weight, i2t0.k_proj.bias,
+                                                 i2t0.v_proj.weight, i2t0.v_proj.bias))
+            mlp1 = (l1.mlp.lin1.weight.to(dt), l1.mlp.lin1.bias.to(dt),
+                    l1.mlp.lin2.weight.to(dt), l1.mlp.lin2.bias.to(dt))
+            norms = {name: (norm.weight.float(), norm.bias.float()) for name, norm in (
+                ("ln40", l0.norm4), ("ln11", l1.norm1), ("ln21", l1.norm2), ("ln31", l1.norm3),
+                ("ln41", l1.norm4), ("lnf", tr.norm_final_attn))}
+            mlps = self.output_hypernetworks_mlps
+            hyper = [(torch.stack([mlp.layers[j].weight for mlp in mlps]).to(dt),
+                      torch.stack([mlp.layers[j].bias for mlp in mlps]).to(dt))
+                     for j in range(len(mlps[0].layers))]
+            return {**attn, "i2t0_kv": i2t0_kv, "mlp1": mlp1, **norms, "hyper": tuple(hyper),
+                    "up": self.upscale_weights()}
+        return prepared(self, "tail", make, *self.parameters())
+
+    def _chunk_decode(self, src, image_pe, tokens, return_upscaled: bool):
+        """JAX's chunk branch: block 0's token side here, the rest of the
+        two-way transformer, the hypernetwork and the upscale in
+        ``decode_tail`` (B16 for ``'chunk'`` on CUDA tensors, its plain
+        version on the CPU and for ``'chunk_plain'``); the tokens padded to
+        16 slots. ``hyper_in`` and ``iou_pred`` come from the output tokens
+        as in the per-op path."""
+        if src.shape[0] != 1:
+            raise ValueError(
+                "chunk decode is the one-encode/many-decode serving path and needs a shared "
+                f"batch-1 image embedding; got {tuple(src.shape)}")
+        _, hgrid, wgrid, _ = src.shape
+        q0, keys0, key_pe = self.transformer.chunk_front(src, image_pe, tokens)
+        t_valid = q0.shape[1]
+        pad = (0, 0, 0, -(-t_valid // 16) * 16 - t_valid)
+        q0p = F.pad(q0.to(self.dtype), pad)
+        tpep = F.pad(tokens, pad)
+        heads = self.transformer.final_attn_token_to_image.num_heads
+        W = self.tail_weights()
+        if self.twoway_impl == "chunk":
+            res = decode_tail(q0p, tpep, keys0, key_pe, W, heads, t_valid,
+                              return_keys2=return_upscaled)
+        else:
+            res = decode_tail_plain(q0p, tpep, keys0, key_pe, W, heads, t_valid)
+        tout, flat = res[:2]
+        out = {
+            "masks": unflatten_masks_ge(flat, hgrid, wgrid, self.num_mask_tokens),
+            "iou_pred": self.iou_prediction_head(tout[:, 0]),
+            "hyper_in": torch.stack([mlp(tout[:, 1 + i]) for i, mlp in
+                                     enumerate(self.output_hypernetworks_mlps)], dim=1),
+        }
+        if return_upscaled:
+            out["upscaled_embedding"] = self.upscaled_embedding(res[2], hgrid, wgrid)
         return out

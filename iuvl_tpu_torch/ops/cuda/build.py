@@ -57,6 +57,7 @@ SIGNATURES = {
     "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),
+    "iuvl_decode_tail": (P,) + (I,) * 4 + (P,),
 }
 
 

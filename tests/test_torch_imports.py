@@ -32,6 +32,8 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.evaluation.semseg, iuvl_tpu_torch.evaluation.panoptic\n"
         "import iuvl_tpu_torch.evaluation.instance\n"
         "import iuvl_tpu_torch.models.xdecoder.lang_encoder\n"
+        "import iuvl_tpu_torch.ops.cuda.decode_chunk, iuvl_tpu_torch.inference.amg\n"
+        "import iuvl_tpu_torch.data.transforms\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
@@ -148,12 +150,22 @@ def test_builders_default_to_the_card(builder, monkeypatch):
 
 @pytest.mark.parametrize("field, value", [("attn_impl", "pallas"), ("attn_impl", "block"),
                                           ("twoway_impl", "pallas"),
-                                          ("twoway_impl", "chunk")])
+                                          ("attn_impl", "rowbias")])
 def test_unported_impls_raise(field, value):
     from iuvl_tpu_torch.models.sam import SamConfig
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B"):
         SamConfig(**{field: value})
+
+
+@pytest.mark.parametrize("twoway_impl", ["chunk", "chunk_plain"])
+def test_chunk_decode_configs_are_accepted(twoway_impl):
+    from iuvl_tpu_torch.models.sam import SamConfig, build_sam
+
+    assert SamConfig(twoway_impl=twoway_impl).twoway_impl == twoway_impl
+    sam = build_sam("vit_b", embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                    img_size=64, twoway_impl=twoway_impl, device="cpu")
+    assert sam.mask_decoder.twoway_impl == twoway_impl
 
 
 def test_prepared_layouts_follow_weight_changes():
