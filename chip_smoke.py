@@ -13,7 +13,9 @@ Phases (any failure raises, so the exit code is non-zero):
    its backward glue B8 at the res3 level of the batch-2 train step; the
    one-hot level B15 at the res5 level of the hybrid eval; the whole-chunk
    decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
-   slots). Every output's relative L2 error must stay within its own bound
+   slots; B2b and B14, forward and backward, at the windowed shape (300
+   (window, head) pairs of N 196) and the global one (12 heads of N 4096),
+   each shape a row of its own). Every output's relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
    rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
    a reduction that misses its last 16 rows, a tap at the wrong row, the
@@ -23,8 +25,8 @@ Phases (any failure raises, so the exit code is non-zero):
    keys1, a softmax merge missing a split): each must move some output by
    more than its bound, and each output's bound must catch some fault. B8's two entry
    points must agree exactly. Times from CUDA events after a warm-up; for
-   B11, B12 and B7's gather and scatter also the PyTorch call that computes
-   the same function (timed only, never a path). Then the global-block grad
+   B11, B12, B2b, B14 and B7's gather and scatter also the PyTorch call that
+   computes the same function (timed only, never a path). Then the global-block grad
    switch: the training route (B11 + projection) against the serving route
    (B2) on the same inputs.
 4. serving: SAM ViT-B bf16 with seeded random weights answers REQUESTS
@@ -44,7 +46,16 @@ Phases (any failure raises, so the exit code is non-zero):
    32), the records checked well-formed, host times printed; one batch of
    64 grid prompts also goes through chunk plain bf16 and fp32 (each path
    encoding the image), its masks and upscaled embedding gated the same
-   way.
+   way. One more request of CHUNK prompts of 20 points each (26 tokens)
+   goes through the per-op decode (B4, B5 at T 26) and the whole-chunk
+   decode (B16 at 32 slots), each gated against its plain paths. Then the
+   same REQUESTS requests through attn_impl 'rowbias' and 'pallas_rp'
+   (JAX's unfused encoder route: B2b / B14 in all 12 blocks, no B1-B3),
+   gated against the plain paths.
+   Shapes: the encoder at ViT-H 1024^2, ViT-B 512^2 and ViT-B 800^2 (depth
+   cut to one windowed and one global block) through 'auto', the serving
+   encode and the training route's backward gated against plain bf16 and
+   fp32, launches checked (every block on a kernel).
 5. train: the SysLearner seg train step (ViT-B + SimpleFPN, 6-layer
    deformable pixel decoder, 9-layer unified decoder, 101 queries; bf16;
    seeded random weights) for STEPS steps of 1024^2 images, 134 x 512
@@ -62,7 +73,11 @@ Phases (any failure raises, so the exit code is non-zero):
    (plain bf16 and fp32 on slightly perturbed weights) takes the first step
    too: its ratios, and every path's ratio per layer's loss scalar, are
    printed, not gated. Step times after one warm-up step, and each path's
-   peak device memory.
+   peak device memory. Then the same at batch 1 under attn_impl 'rowbias'
+   and 'pallas_rp' and at batch 2 under 'rowbias' (B2b / B14 forward and
+   backward in every block, the plain tail; no control pair), each gated
+   on its gradient groups and its loss terms pooled over GATE_BATCHES
+   batches; their one-batch loss ratios are printed, not gated.
 6. eval: ``SysLearner.evaluate_seg`` (the same full-width config, bf16,
    batch 1) on EVAL_IMAGES seeded 1024^2 images with synthetic gt, with the
    134 COCO panoptic class embeddings (80 HashWord-tokenized templates a
@@ -126,6 +141,13 @@ KERNEL_BOUNDS = {
     # version but the t2i softmax's (unnormalised, per 32-key tile) and the
     # order of the sums; tokens on the valid slots.
     "decode_tail": {"tokens": 3.5e-3, "masks": 1.5e-2},
+    # B2b / B14: the online softmax rounds the unnormalised p per 64-key
+    # tile (as B11 does); the backward sums dq and the bias cotangents with
+    # fp32 atomics in no fixed order.
+    "flash_rowbias_fwd": {"o": 1e-2, "lse": 1e-5},
+    "flash_relpos_fwd": {"o": 1e-2, "lse": 1e-5},
+    "flash_rowbias_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
+    "flash_relpos_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
 }
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
@@ -159,6 +181,12 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "deform_bwd_glue": ("deform_bwd_glue.cu", PALLAS + "deform_bwd_glue.py:111"),
     "onehot_deform_level_forward": ("onehot_gather.cu", PALLAS + "onehot_gather.py:57"),
     "decode_tail": ("decode_chunk.cu", PALLAS + "decode_chunk.py:511"),
+    # B2b (flash_attention_rowbias, :1171) and B14 (flash_attention_relpos, :677):
+    # their forward and backward functions.
+    "flash_rowbias_fwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:1012"),
+    "flash_rowbias_bwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:1074"),
+    "flash_relpos_fwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:601"),
+    "flash_relpos_bwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:694"),
 }
 # Checked and timed, on no path: JAX's row-layout glue, which its flat
 # backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default).
@@ -234,6 +262,99 @@ def decode_tail_valid(*args):
     return tok[:, :args[-1]], masks
 
 
+RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
+
+
+def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
+    """B14's forward plain version with the wrapper's argument order."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_rowbias_fwd_plain(q, k, v, relh, relw, relw.shape[-1], eh, ew)
+
+
+def relpos_bwd_plain(q, k, v, relh, relw, eh, ew, o, lse, do):
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_rowbias_bwd_plain(q, k, v, relh, relw, o, lse, do, relw.shape[-1], eh, ew)
+
+
+def _rb_tail_unmasked(a):
+    """B2b's / B14's forward with the keys past N in the last 64-key tile
+    left unmasked (zero rows scoring 0 with no bias, as an unmasked padded
+    tile would): (o, lse) of the plain version."""
+    from iuvl_tpu_torch.ops.rel_pos_attention import rowbias_scores
+
+    q, k, v, relh, relw = a[:5]
+    eh, ew = (a[5], a[6]) if len(a) == 7 else (None, None)
+    s = rowbias_scores(q, k, relh, relw, relw.shape[-1], eh, ew)
+    pad = -s.shape[-1] % 64
+    s = torch.cat([s, s.new_zeros(*s.shape[:-1], pad)], -1)
+    p = torch.softmax(s, -1)[..., :k.shape[-2]].to(v.dtype)
+    return p @ v, torch.logsumexp(s, -1)
+
+
+def _rb_last_row_missed(a):
+    """The backward with drelh missing the last key row of the grid: every
+    output of the plain version, drelh's last column zero."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    out = list(fa.flash_rowbias_bwd_plain(*a) if len(a) == 9 else relpos_bwd_plain(*a))
+    out[3] = out[3].clone()
+    out[3][..., -1] = 0
+    return tuple(out)
+
+
+def _rb_wrong_lse(a):
+    """The backward given lse + 0.05."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    i = 6 if len(a) == 9 else 8  # lse's place in B2b's / B14's arguments
+    b = a[:i] + (a[i] + 0.05,) + a[i + 1:]
+    return fa.flash_rowbias_bwd_plain(*b) if len(a) == 9 else relpos_bwd_plain(*b)
+
+
+def rowbias_cases(t, rs, dev):
+    """B2b's and B14's cases, forward and backward, at the windowed shape
+    (25 windows x 12 heads of N 196, h = w = 14, d 64) and the global one
+    (12 heads of N 4096, h = w = 64), as the blocks under 'rowbias' /
+    'pallas_rp' hand them: q pre-scaled, relh / relw from rel_pos_features,
+    the one-hot expanders in bf16; the backward at the plain forward's o
+    and lse with a random cotangent."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+    from iuvl_tpu_torch.ops.rel_pos_attention import (onehot_expanders, rel_pos_features,
+                                                      rel_pos_tables)
+
+    cases = []
+    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 3)):
+        n, d = side * side, 64
+        q, k, v, do = (t(1, bh, n, d) for _ in range(4))
+        rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD), t(2 * side - 1, d, std=BIAS_STD),
+                                (side, side))
+        relh, relw = rel_pos_features(q, rh, rw)
+        qs = q * d ** -0.5
+        eh, ew = onehot_expanders((side, side), torch.bfloat16, dev)
+        o, lse = fa.flash_rowbias_fwd_plain(qs, k, v, relh, relw, side)
+        fwd_faults = {"relh dropped": _zero(3), "relw dropped": _zero(4),
+                      "heads 0/1 swapped in v": _swap(2, 1, 1)}
+        if n % 64:
+            fwd_faults["the masked tail tile left unmasked"] = _planted(_rb_tail_unmasked)
+        bwd_faults = {"wrong lse (+0.05)": _planted(_rb_wrong_lse),
+                      "drelh misses the last grid row": _planted(_rb_last_row_missed),
+                      "heads 0/1 swapped in do": _swap(7, 1, 1)}
+        rel_bwd_faults = {"wrong lse (+0.05)": _planted(_rb_wrong_lse),
+                          "drelh misses the last grid row": _planted(_rb_last_row_missed),
+                          "heads 0/1 swapped in do": _swap(9, 1, 1)}
+        cases += [
+            (f"flash_rowbias_fwd@{tag}", (qs, k, v, relh, relw, side), fwd_faults, iters),
+            (f"flash_rowbias_bwd@{tag}", (qs, k, v, relh, relw, o, lse, do, side), bwd_faults,
+             iters),
+            (f"flash_relpos_fwd@{tag}", (qs, k, v, relh, relw, eh, ew),
+             {**fwd_faults, "eh dropped": _zero(5)}, iters),
+            (f"flash_relpos_bwd@{tag}", (qs, k, v, relh, relw, eh, ew, o, lse, do),
+             rel_bwd_faults, iters)]
+    return cases
+
+
 def kernels():
     """kernel name -> (wrappers whose ``launches`` count it, its call, its
     plain version, output names)."""
@@ -278,6 +399,14 @@ def kernels():
                                            og.onehot_deform_level_forward_plain),
         "decode_tail": ((dc.decode_tail,), decode_tail_valid, lambda *a: _tail_plain(a),
                         ("tokens", "masks")),
+        "flash_rowbias_fwd": ((fa.flash_rowbias_fwd,), fa.flash_rowbias_fwd,
+                              fa.flash_rowbias_fwd_plain, ("o", "lse")),
+        "flash_rowbias_bwd": ((fa.flash_rowbias_bwd,), fa.flash_rowbias_bwd,
+                              fa.flash_rowbias_bwd_plain, RB_GRADS),
+        "flash_relpos_fwd": ((fa.flash_relpos_fwd,), fa.flash_relpos_fwd, relpos_fwd_plain,
+                             ("o", "lse")),
+        "flash_relpos_bwd": ((fa.flash_relpos_bwd,), fa.flash_relpos_bwd, relpos_bwd_plain,
+                             RB_GRADS),
     }
 
 
@@ -623,7 +752,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
           "the last point dropped": _drop_last_point,
           "idx one cell off": _shift(1, 1, side5 * side5 - 1),
           "weights rounded per point, not per cell": _planted(_onehot_per_point)}, 20),
-    ]
+    ] + rowbias_cases(t, rs, dev)
 
 
 def _fp32(a):
@@ -707,6 +836,16 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         b, h, n, dqk = args[0].shape
         dv = args[2].shape[-1]
         flops = b * h * 2 * n * n * ((dqk + dv) + (3 * dqk + 2 * dv))
+    elif name.startswith(("flash_rowbias", "flash_relpos")):
+        # Forward: q k^T and p v, 4 N^2 d a head; backward: s once from the
+        # lse, dp, dq, dk, dv, 10 N^2 d. B14's expander products add 2 N^2
+        # (h + w) to s (and as much again for the bias cotangents).
+        b, h, n, d = args[0].shape
+        hw = args[3].shape[-1] + args[4].shape[-1]
+        fwd = name.endswith("_fwd")
+        flops = b * h * n * n * (4 * d if fwd else 10 * d)
+        if name.startswith("flash_relpos"):
+            flops += b * h * n * n * hw * (2 if fwd else 4)
     elif name == "tap_scatter":  # 4 fp32 adds a row
         return 4 * args[0].numel(), nbytes, F32_FLOPS
     elif name == "ms_deform_level_fwd":  # a multiply-add per tap and channel (fp32)
@@ -741,6 +880,28 @@ def library_call(name: str, args):
             q.grad = k.grad = v.grad = None
             with torch.enable_grad():
                 torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0).backward(do)
+        return call
+    if name.startswith(("flash_rowbias", "flash_relpos")):
+        # SDPA on the materialised (BH, N, N) bias: forward, or forward +
+        # backward with the wrapper's cotangent.
+        relpos = name.startswith("flash_relpos")
+        q, k, v, relh, relw = args[:5]
+        if relpos:
+            bias = relh.float() @ args[5].float() + relw.float() @ args[6].float()
+        else:
+            w, n = relw.shape[-1], k.shape[-2]
+            bias = relh.float().repeat_interleave(w, -1) + relw.float().repeat(1, 1, 1, n // w)
+        bias = bias.to(q.dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if name.endswith("_fwd"):
+            return lambda: sdpa(q, k, v, attn_mask=bias, scale=1.0)
+        do = args[9 if relpos else 7]
+        q, k, v = (a.detach().requires_grad_() for a in (q, k, v))
+
+        def call():
+            q.grad = k.grad = v.grad = None
+            with torch.enable_grad():
+                sdpa(q, k, v, attn_mask=bias, scale=1.0).backward(do)
         return call
     if name == "tap_scatter":
         base, rows, span = args
@@ -787,8 +948,9 @@ def kernel_phase(dev) -> list[dict]:
     table = kernels()
     glue_outs = {}
     for name, args, faults, iters in kernel_cases(np.random.RandomState(SEED), dev):
-        _, kern, plain, names = table[name]
-        bounds = KERNEL_BOUNDS[name]
+        base, _, shape = name.partition("@")  # a kernel checked at two shapes: name@shape
+        _, kern, plain, names = table[base]
+        bounds = KERNEL_BOUNDS[base]
         out = as_tuple(kern(*args))
         torch.cuda.synchronize()
         if name.startswith("deform_bwd_glue"):
@@ -830,9 +992,10 @@ def kernel_phase(dev) -> list[dict]:
             for f, es in fault_errs.items()))
         ms = cuda_ms(lambda: kern(*args), iters)
         plain_ms = cuda_ms(lambda: plain(*args), iters)
-        lib = library_call(name, args)
+        lib = library_call(base, args)
         library_ms = cuda_ms(lib, iters) if lib is not None else None
-        flops, nbytes, rate = work(name, args, out)
+        del lib
+        flops, nbytes, rate = work(base, args, out)
         t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
         log(f"kernel {name}: rel_l2 " + ", ".join(f"{o_n} {e:.3e} (bound {bounds[o_n]:g})"
                                                   for o_n, e in errs.items())
@@ -850,12 +1013,12 @@ def kernel_phase(dev) -> list[dict]:
                     if not any(es[o_n] > bounds[o_n] for es in fault_errs.values())]
         if untested:
             failed.append(f"{name}: no planted fault reads above the bound of {untested}")
-        source, replaces = SOURCES[name]
-        rows.append(dict(name=name, route="cuda", source="iuvl_tpu_torch/csrc/" + source,
+        source, replaces = SOURCES[base]
+        rows.append(dict(name=base, route="cuda", source="iuvl_tpu_torch/csrc/" + source,
                          replaces=replaces, max_abs_err=max_abs, ms=ms,
                          plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         library_ms=library_ms))
+                         library_ms=library_ms, **({"shape": shape} if shape else {})))
     same = all(torch.equal(a, b) for a, b in zip(glue_outs["deform_bwd_glue_q"],
                                                  glue_outs["deform_bwd_glue"]))
     log(f"kernel deform_bwd_glue_q and deform_bwd_glue on the same inputs: identical {same}")
@@ -908,7 +1071,7 @@ def serve(model, image, points, labels):
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     masks, decode_s = [], []
-    for i in range(0, N_PROMPTS, CHUNK):
+    for i in range(0, points.shape[0], CHUNK):
         t0 = time.perf_counter()
         out = model.decode_from_embedding(emb, points[i:i + CHUNK], labels[i:i + CHUNK],
                                           return_upscaled=False)
@@ -953,15 +1116,72 @@ def serving_phase(dev) -> dict:
             image, points, labels = request(r, model, plain, rs, dev, per_request, totals,
                                             timing)
             chunk_request(r, chunk, image, points, labels, totals, timing)
+        many_tokens_request(model, plain, chunk, rs, dev, totals)
+    del chunk
+    torch.cuda.empty_cache()
+    # JAX's unfused encoder route with every block's attention in B2b / B14
+    # (the same weights), the per-op decode; gated against the plain paths,
+    # whose rounding points are those of this route.
+    for impl, fwd in IMPL_FWD.items():
+        unfused = build_sam("vit_b", dtype="bfloat16", attn_impl=impl, device=dev).eval()
+        unfused.load_state_dict(model.state_dict())
+        want = {**DECODE_PER_REQUEST, fwd: 12}
+        rs_i = np.random.RandomState(SEED + 1)
+        timing[impl], timing[f"plain ({impl} requests)"] = [], []
+        with torch.inference_mode():
+            for r in range(REQUESTS):
+                request(r, unfused, plain, rs_i, dev, want, totals, timing, label=impl)
+        del unfused
     for path, runs in timing.items():  # steady state: requests after the first
         enc = float(np.mean([e for e, _ in runs[1:]]))
         dec = float(np.mean([np.mean(d) for _, d in runs[1:]]))
         per_image = enc + dec * (N_PROMPTS // CHUNK)
         log(f"serving {path} (mean of requests 1..{REQUESTS - 1}): encode {enc * 1e3:.2f} ms, "
             f"{dec * 1e3:.2f} ms per {CHUNK}-prompt chunk, {N_PROMPTS / per_image:.1f} masks/s")
-    del model, plain, chunk
+    del model, plain
     torch.cuda.empty_cache()
     return totals
+
+
+# The per-op decode's launches a request (B6 once a chunk, B4 three times,
+# B5 twice), and the forward kernel of each unfused impl (one a block).
+DECODE_PER_REQUEST = {"masks_upscale": N_PROMPTS // CHUNK, "t2i_stream": 3 * N_PROMPTS // CHUNK,
+                      "i2t_block_step": 2 * N_PROMPTS // CHUNK}
+IMPL_FWD = {"rowbias": "flash_rowbias_fwd", "pallas_rp": "flash_relpos_fwd"}
+IMPL_BWD = {"rowbias": "flash_rowbias_bwd", "pallas_rp": "flash_relpos_bwd"}
+ENCODE_PER_REQUEST = {"window_attention_block": 8, "flash_attention_rowbias_proj": 4,
+                      "block_tail": 12}
+MANY_POINTS = 20  # a click loop's prompt: 20 points + the pad point + 5 output tokens = 26
+
+
+def many_tokens_request(model, plain, chunk, rs, dev, totals) -> None:
+    """One request of CHUNK prompts of MANY_POINTS points each (26 tokens)
+    through the per-op decode ('auto': B4 and B5 at T 26) and through the
+    whole-chunk decode ('chunk': B16 at Tp 32), each gated against its own
+    plain bf16 path's distance from fp32."""
+    image = torch.from_numpy(rs.rand(1, 1024, 1024, 3).astype(np.float32) * 255).to(dev)
+    points = torch.from_numpy(rs.rand(CHUNK, MANY_POINTS, 2).astype(np.float32) * 1024).to(dev)
+    labels = torch.from_numpy(rs.randint(0, 2, (CHUNK, MANY_POINTS)).astype(np.int32)).to(dev)
+    for name, kern, ref_bf16, ref_32, want in (
+            ("auto", model, plain["bfloat16"], plain["float32"],
+             {**ENCODE_PER_REQUEST, "masks_upscale": 1, "t2i_stream": 3, "i2t_block_step": 2}),
+            ("chunk", chunk["chunk"], chunk["chunk_plain_bf16"], chunk["chunk_plain_fp32"],
+             {**ENCODE_PER_REQUEST, "decode_tail": 1})):
+        reset_launches()
+        masks_k, enc, dec = serve(kern, image, points, labels)
+        counts = launches()
+        check_launches(f"{MANY_POINTS}-point request {name}", counts, want)
+        for k, got in counts.items():
+            totals[k] = totals.get(k, 0) + got
+        if tuple(masks_k.shape) != (CHUNK, 4, 256, 256) or not bool(torch.isfinite(masks_k).all()):
+            raise RuntimeError(f"{MANY_POINTS}-point request {name}: masks "
+                               f"{tuple(masks_k.shape)} or not finite")
+        masks_p = serve(ref_bf16, image, points, labels)[0]
+        masks_32 = serve(ref_32, image, points, labels)[0]
+        chunk_masks_gate(f"{MANY_POINTS}-point request {name} ({3 + MANY_POINTS + 3} tokens)",
+                         masks_k, masks_p, masks_32,
+                         f"decode {dec[0] * 1e3:.2f} ms for {CHUNK} prompts; ",
+                         ref="chunk plain" if name == "chunk" else "plain")
 
 
 # path -> (attn_impl, twoway_impl, dtype) of the whole-chunk decode's paths
@@ -998,22 +1218,24 @@ def chunk_request(r, chunk, image, points, labels, totals, timing):
                      f"launches {({k: v for k, v in counts.items() if v})}; ")
 
 
-def chunk_masks_gate(where: str, masks_k, masks_p, masks_32, note: str = "") -> None:
-    """The chunk kernel path's mask logits against chunk plain fp32's: rel
-    L2 and 1 - mean IoU each within SLICE_FACTOR x chunk plain bf16's."""
+def chunk_masks_gate(where: str, masks_k, masks_p, masks_32, note: str = "",
+                     ref: str = "chunk plain") -> None:
+    """A kernel path's mask logits against its ``ref`` fp32 path's (the
+    chunk plain path's by default): rel L2 and 1 - mean IoU each within
+    SLICE_FACTOR x the ``ref`` bf16 path's."""
     err_k, err_p = rel_l2(masks_k, masks_32), rel_l2(masks_p, masks_32)
     iou_k, n_masks = mask_iou(masks_k, masks_32)
     iou_p = mask_iou(masks_p, masks_32)[0]
-    log(f"{where}: {note}vs chunk plain fp32: rel_l2 kernels "
+    log(f"{where}: {note}vs {ref} fp32: rel_l2 kernels "
         f"{err_k:.3e} plain bf16 {err_p:.3e}, mean IoU kernels {iou_k:.5f} plain bf16 "
-        f"{iou_p:.5f} over {n_masks} non-empty masks; kernels vs chunk plain bf16 IoU "
+        f"{iou_p:.5f} over {n_masks} non-empty masks; kernels vs {ref} bf16 IoU "
         f"{mask_iou(masks_k, masks_p)[0]:.5f}")
     if not err_k <= SLICE_FACTOR * err_p:
         raise RuntimeError(f"{where}: mask rel L2 to fp32 {err_k} over "
-                           f"{SLICE_FACTOR} x the chunk plain bf16 path's {err_p}")
+                           f"{SLICE_FACTOR} x the {ref} bf16 path's {err_p}")
     if not 1 - iou_k <= SLICE_FACTOR * (1 - iou_p):
         raise RuntimeError(f"{where}: 1 - IoU to fp32 {1 - iou_k} over "
-                           f"{SLICE_FACTOR} x the chunk plain bf16 path's {1 - iou_p}")
+                           f"{SLICE_FACTOR} x the {ref} bf16 path's {1 - iou_p}")
 
 
 AMG_CROPS = 5  # crop_n_layers=1: the full image and 4 crops, an encode each
@@ -1142,9 +1364,11 @@ def amg_phase(dev) -> dict:
     return totals
 
 
-def request(r, model, plain, rs, dev, per_request, totals, timing):
+def request(r, model, plain, rs, dev, per_request, totals, timing, label="kernels"):
     """Serve request r through the kernels (checking the launch counts) and
     through the plain paths, and hold the masks against the fp32 ones.
+    ``label`` names the kernel path in the log and in ``timing`` (its plain
+    bf16 run goes under "plain", or under "plain (<label> requests)").
     Returns the request (image, points, labels)."""
     image = torch.from_numpy(rs.rand(1, 1024, 1024, 3).astype(np.float32) * 255).to(dev)
     points = torch.from_numpy(rs.rand(N_PROMPTS, 1, 2).astype(np.float32) * 1024).to(dev)
@@ -1156,8 +1380,7 @@ def request(r, model, plain, rs, dev, per_request, totals, timing):
         want = per_request.get(name, 0)
         if got != want:
             raise RuntimeError(f"request {r}: {name} launched {got} times, expected {want}")
-        if name in totals:
-            totals[name] += got
+        totals[name] = totals.get(name, 0) + got
     masks_p, enc_p, dec_p = serve(plain["bfloat16"], image, points, labels)
     masks_32 = serve(plain["float32"], image, points, labels)[0]
     want_shape = (N_PROMPTS, 4, 256, 256)
@@ -1169,11 +1392,13 @@ def request(r, model, plain, rs, dev, per_request, totals, timing):
     iou_p = mask_iou(masks_p, masks_32)[0]
     iou_kp = mask_iou(masks_k, masks_p)[0]
     pos = [float((m > 0).float().mean()) for m in (masks_k, masks_p, masks_32)]
-    log(f"request {r}: launches {counts}; vs fp32 plain: rel_l2 kernels {err_k:.3e} "
+    log(f"request {r} {label}: launches {({k: v for k, v in counts.items() if v})}; "
+        f"vs fp32 plain: rel_l2 kernels {err_k:.3e} "
         f"plain bf16 {err_p:.3e}, mean IoU kernels {iou_k:.5f} plain bf16 {iou_p:.5f} "
         f"over {n_masks} non-empty masks; kernels vs plain bf16 IoU {iou_kp:.5f}; "
         f"positive share kernels {pos[0]:.4f} plain {pos[1]:.4f} fp32 {pos[2]:.4f}")
-    for path, enc, dec in (("kernels", enc_k, dec_k), ("plain", enc_p, dec_p)):
+    plain_label = "plain" if label == "kernels" else f"plain ({label} requests)"
+    for path, enc, dec in ((label, enc_k, dec_k), (plain_label, enc_p, dec_p)):
         timing[path].append((enc, dec))
         log(f"request {r} {path}: encode {enc * 1e3:.2f} ms, decode chunks "
             f"{[round(s * 1e3, 2) for s in dec]} ms, "
@@ -1195,6 +1420,17 @@ PER_STEP = {1: {"window_attention_block": 8, "block_tail": 12, "window_block_bac
                 "block_tail_backward": 12, "flash_attention": 8, "tap_scatter": 10}}
 PER_STEP[2] = {**PER_STEP[1], "ms_deform_level_fwd": 18, "deform_gather_rows": 36,
                "deform_bwd_glue_q": 36, "deform_scatter_dv": 36}
+DEFORM_STEP = {k: v for k, v in PER_STEP[2].items() if k not in PER_STEP[1]}
+
+
+def per_step(impl: str, batch: int) -> dict:
+    """Launches per train step: under 'rowbias' / 'pallas_rp' each of the 12
+    blocks runs the impl's forward and backward kernel once, and no B1-B3,
+    B9-B11 (JAX's unfused route); B12, and at batch 2 B7 and B8, as 'auto'."""
+    if impl == "auto":
+        return PER_STEP[batch]
+    return {IMPL_FWD[impl]: 12, IMPL_BWD[impl]: 12, "tap_scatter": 10,
+            **(DEFORM_STEP if batch == 2 else {})}
 GROUPS = ("image_encoder.", "pixel_decoder.", "predictor.")
 
 
@@ -1254,13 +1490,14 @@ def make_batch(rs: np.random.RandomState, batch: int, size: int, dev):
     return image, targets
 
 
-def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
+def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") -> dict:
     """``steps`` train steps on ``batch`` images a step through the kernels,
     the plain bf16 and the plain fp32 paths, and with ``control`` on the
     first step the control pair too (plain bf16 and fp32 on perturbed
     weights). Before the steps, :func:`loss_gate` gates the loss terms on
     the first step's batch and GATE_BATCHES - 1 more at the same weights;
     at batch 1 they are also gated on the first step's batch alone.
+    ``impl`` is the kernel path's attn_impl; the plain paths are 'plain'.
     Returns the kernel path's launch totals."""
     from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion
     from iuvl_tpu_torch.models.xdecoder import convert
@@ -1268,7 +1505,7 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
     from iuvl_tpu_torch.train.optimizer import Optimizer
     from iuvl_tpu_torch.train.train_step import TrainState, make_train_step
 
-    cfg = SysLearnerConfig(**TRAIN_CONFIG)
+    cfg = SysLearnerConfig(**{**TRAIN_CONFIG, "attn_impl": impl})
     size = cfg.img_size
     plain = {"bf16": dataclasses.replace(cfg, attn_impl="plain"),
              "fp32": dataclasses.replace(cfg, attn_impl="plain", dtype="float32")}
@@ -1290,10 +1527,10 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
                                          total_steps=1000))
               for path, m in models.items()}
     n_params = sum(p.numel() for p in models["kernels"].parameters())
-    log(f"train batch {batch}: {len(models)} x SysLearner ({n_params / 1e6:.1f} M parameters "
-        f"each) built in {time.perf_counter() - t0:.1f} s")
+    log(f"train batch {batch} ({impl}): {len(models)} x SysLearner ({n_params / 1e6:.1f} M "
+        f"parameters each) built in {time.perf_counter() - t0:.1f} s")
     crits = {path: SegCriterion(CriterionConfig(num_classes=N_CLASSES),
-                                impl=cfgs[path].attn_impl) for path in models}
+                                impl=cfgs[path].kernels_impl) for path in models}
     step_fns = {path: make_train_step(m, crits[path], match_points=MATCH_POINTS)
                 for path, m in models.items()}
     rs = np.random.RandomState(SEED + 2 + 10 * (batch - 1))
@@ -1308,8 +1545,8 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
     loss_gate(models, crits, text, data[:1] + [
         (*make_batch(gate_rs, batch, size, dev), step_draws(gate_gen, n_layers, batch))
         for _ in range(GATE_BATCHES - 1)])
-    per_step = PER_STEP[batch]
-    totals = {k: 0 for k in per_step}
+    want = per_step(impl, batch)
+    totals = {k: 0 for k in want}
     times = {"kernels": [], "plain_bf16": []}
     peak = {path: 0 for path in models}
     for step, (image, targets, draws) in enumerate(data):
@@ -1331,10 +1568,13 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
             peak[path] = max(peak[path], torch.cuda.max_memory_allocated())
             counts = launches()
             if path == "kernels":
-                check_step_launches(step, counts, totals, per_step)
+                check_step_launches(step, counts, totals, want, impl)
             elif any(counts.values()):
                 raise RuntimeError(f"step {step} {path}: kernels launched {counts}")
-        check_step(step, metrics, grads, gate_losses=batch == 1)
+        # The one-batch loss gate only on the 'auto' batch-1 phase; every phase
+        # gates its gradient groups and (loss_gate) its loss terms pooled over
+        # GATE_BATCHES batches.
+        check_step(step, metrics, grads, gate_losses=batch == 1 and impl == "auto")
         if step == 0 and control:  # the control pair has served its purpose
             for path in ("control_bf16", "control_fp32"):
                 del models[path], states[path], step_fns[path]
@@ -1344,9 +1584,10 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
     resident = torch.cuda.memory_allocated()
     for path, ts in times.items():
         mean = float(np.mean(ts[1:]))
-        log(f"train batch {batch} {path}: step times {[round(s * 1e3, 1) for s in ts]} ms; mean "
+        label = impl if path == "kernels" else path
+        log(f"train batch {batch} {label}: step times {[round(s * 1e3, 1) for s in ts]} ms; mean "
             f"of steps 1..{steps - 1} {mean * 1e3:.1f} ms, {batch / mean:.3f} img/s")
-    log(f"train batch {batch}: peak memory allocated during a step (GiB) "
+    log(f"train batch {batch} ({impl}): peak memory allocated during a step (GiB) "
         + ", ".join(f"{path} {b / 2**30:.2f}" for path, b in peak.items())
         + f"; after the steps {resident / 2**30:.2f} GiB held by the "
         f"{len(models)} models and their optimizer states")
@@ -1355,10 +1596,12 @@ def train_phase(dev, batch: int, steps: int, control: bool) -> dict:
     return totals
 
 
-def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict) -> None:
+def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict,
+                        impl: str = "auto") -> None:
     from iuvl_tpu_torch.ops.cuda import flash_attention as fa
 
-    log(f"train step {step} kernels: launches {counts} (B11 forward "
+    log(f"train step {step} kernels ({impl}): launches "
+        f"{({k: v for k, v in counts.items() if v})} (B11 forward "
         f"{fa.flash_attention_fwd.launches}, backward {fa.flash_attention_bwd.launches})")
     for name, got in counts.items():
         want = per_step.get(name, 0)
@@ -1367,7 +1610,8 @@ def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict) -
                                f"expected {want}")
         if name in totals:
             totals[name] += got
-    if fa.flash_attention_fwd.launches != 4 or fa.flash_attention_bwd.launches != 4:
+    if impl == "auto" and (fa.flash_attention_fwd.launches != 4
+                           or fa.flash_attention_bwd.launches != 4):
         raise RuntimeError(f"train step {step}: B11 forward/backward calls "
                            f"{fa.flash_attention_fwd.launches}/{fa.flash_attention_bwd.launches}"
                            ", expected 4/4")
@@ -1504,6 +1748,100 @@ def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
             failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
     if failed:
         raise RuntimeError("train loss gate failed: " + "; ".join(failed))
+
+
+# The encoder at other widths and grids through attn_impl='auto' (every block
+# on a kernel), depth cut to one windowed and one global block: (label, SAM
+# variant, image side, launches of the serving encode, of the training
+# route's forward + backward). ViT-H: head dim 80 (B1, B9) and C 1280 (B3,
+# B10); its global block fails rowbias_supported (d + w = 144), so serving
+# runs B11's forward at d_qk 208. ViT-B at 512^2: B2 at N 1024, w 32; B11 at
+# d_qk 128 in training. ViT-B at 800^2: N 2500 (B11 at d_qk 164, masked last
+# tiles; B3 and B10 at T 2500), 16 padded windows.
+SHAPE_CASES = (
+    ("vit_h 1024", "vit_h", 1024, {"window_attention_block": 1, "flash_attention": 1,
+                                   "block_tail": 2}),
+    ("vit_b 512", "vit_b", 512, {"window_attention_block": 1,
+                                 "flash_attention_rowbias_proj": 1, "block_tail": 2}),
+    ("vit_b 800", "vit_b", 800, {"window_attention_block": 1, "flash_attention": 1,
+                                 "block_tail": 2}),
+)
+TRAIN_ROUTE = {"window_attention_block": 1, "window_block_backward": 1, "flash_attention": 2,
+               "block_tail": 2, "block_tail_backward": 2}
+SHAPE_PATHS = {"kernels": ("auto", torch.bfloat16), "plain_bf16": ("plain", torch.bfloat16),
+               "plain_fp32": ("plain", torch.float32)}
+
+
+def gate_paths(where: str, vec: dict) -> None:
+    """The kernel path at most SLICE_FACTOR x as far from plain fp32 as
+    plain bf16, in relative L2."""
+    e_k, e_p = rel_l2(vec["kernels"], vec["plain_fp32"]), rel_l2(vec["plain_bf16"],
+                                                                 vec["plain_fp32"])
+    log(f"{where}: rel L2 to plain fp32 kernels {e_k:.3e} plain bf16 {e_p:.3e}; ratio "
+        f"{e_k / e_p:.3f}")
+    if not e_k <= SLICE_FACTOR * e_p:
+        raise RuntimeError(f"{where}: rel L2 to fp32 {e_k} over {SLICE_FACTOR} x the plain "
+                           f"bf16 path's {e_p}")
+
+
+def shape_phase(dev) -> dict:
+    """SHAPE_CASES: each encoder on one seeded image through the kernels,
+    plain bf16 and plain fp32 (the same weights): the serving encode (the
+    SAM embedding gated), then the training route, forward and backward of
+    a fixed random projection of the embedding (every parameter's gradient,
+    gated as one vector). Launches checked on the kernel path."""
+    from iuvl_tpu_torch.models.sam.build import SAM_VARIANTS, init_random_
+    from iuvl_tpu_torch.models.sam.image_encoder import ImageEncoderViT
+
+    totals = {}
+    for label, variant, side, serve_want in SHAPE_CASES:
+        cfg = SAM_VARIANTS[variant]
+        kw = dict(img_size=side, embed_dim=cfg["embed_dim"], depth=2,
+                  num_heads=cfg["num_heads"], global_attn_indexes=(1,))
+        base = init_random_(ImageEncoderViT(**kw), torch.Generator().manual_seed(SEED + 30))
+        encs = {}
+        for path, (impl, dtype) in SHAPE_PATHS.items():
+            encs[path] = ImageEncoderViT(**kw, dtype=dtype, attn_impl=impl)
+            encs[path].load_state_dict(base.state_dict())
+            encs[path].to(dev)
+        del base
+        rs = np.random.RandomState(SEED + 31)
+        x = torch.from_numpy(rs.randn(1, side, side, 3).astype(np.float32)).to(dev)
+        emb, grads, names = {}, {}, None
+        for path, enc in encs.items():
+            reset_launches()
+            with torch.no_grad():
+                emb[path], t_enc = synced(lambda: enc(x, return_fpn=False)[0])
+            counts = launches()
+            if path == "kernels":
+                check_launches(f"{label} encode", counts, serve_want)
+                log(f"{label} encode (kernels): {t_enc * 1e3:.2f} ms (host clock, the first "
+                    f"call), launches {({k: v for k, v in counts.items() if v})}")
+            elif any(counts.values()):
+                raise RuntimeError(f"{label} encode {path}: kernels launched {counts}")
+            for k, got in counts.items():
+                totals[k] = totals.get(k, 0) + got
+        gate_paths(f"{label} encode, SAM embedding {tuple(emb['kernels'].shape)}", emb)
+        proj = torch.from_numpy(rs.randn(*emb["kernels"].shape).astype(np.float32)).to(dev)
+        for path, enc in encs.items():
+            reset_launches()
+            with torch.enable_grad():
+                (enc(x, return_fpn=False)[0].float() * proj).sum().backward()
+            torch.cuda.synchronize()
+            counts = launches()
+            if path == "kernels":
+                check_launches(f"{label} encoder backward", counts, TRAIN_ROUTE)
+            elif any(counts.values()):
+                raise RuntimeError(f"{label} backward {path}: kernels launched {counts}")
+            for k, got in counts.items():
+                totals[k] = totals.get(k, 0) + got
+            names = names or [n for n, p in enc.named_parameters() if p.grad is not None]
+            grads[path] = torch.cat([dict(enc.named_parameters())[n].grad.float().flatten()
+                                     for n in names])
+        gate_paths(f"{label} encoder backward, gradient of {len(names)} parameters", grads)
+        del encs, emb, grads, proj
+        torch.cuda.empty_cache()
+    return totals
 
 
 EVAL_IMAGES = 3
@@ -1699,10 +2037,14 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = [serving, amg_phase(dev)]
     log(f"amg phase: {time.perf_counter() - t0:.1f} s")
-    for batch, control in ((1, True), (2, False)):
+    t0 = time.perf_counter()
+    paths.append(shape_phase(dev))
+    log(f"shape phase: {time.perf_counter() - t0:.1f} s")
+    for batch, control, impl in ((1, True, "auto"), (2, False, "auto"), (1, False, "rowbias"),
+                                 (1, False, "pallas_rp"), (2, False, "rowbias")):
         t0 = time.perf_counter()
-        paths.append(train_phase(dev, batch, STEPS, control))
-        log(f"train phase, batch {batch}: {time.perf_counter() - t0:.1f} s")
+        paths.append(train_phase(dev, batch, STEPS, control, impl))
+        log(f"train phase, batch {batch}, {impl}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(eval_phase(dev))
     log(f"eval phase: {time.perf_counter() - t0:.1f} s")

@@ -4,15 +4,20 @@
 // 0's image -> token step, all of block 1 (self-attention, token -> image,
 // MLP, image -> token), the final token -> image attention and its norm,
 // the hypernetwork MLPs, the two 2x2/s2 deconvs with their LayerNorm2d and
-// GELUs, and the mask contraction. Writes the (B, 16, 256) bf16 tokens
-// and the (B, N, 64) fp32 mask logits, columns (di, dj, ei, ej, t).
+// GELUs, and the mask contraction. Writes the (B, Tp, 256) bf16 tokens
+// and the (B, N, 64) fp32 mask logits, columns (di, dj, ei, ej, t). Tp, the
+// token slots (t_valid of them real), is a template parameter, 16 (a
+// one-point prompt's 7 tokens) or 32 (up to 32 tokens: the interactive
+// click loop's 26); past 32 the token passes' rows (the MLP hidden of
+// Tp x 2048) no longer fit a block's shared memory. The t2i partials keep
+// the online-softmax state of each 16-row token tile in registers.
 //
 // The TPU kernel kept a prompt's 2 MB keys row (N 4096 x C 256 bf16) in
 // VMEM and ran the whole chain for one prompt per grid step, with
 // block-diagonal selector matrices so that every head product was a dense
 // 2-D matmul for the MXU. An SM has 228 KB of shared memory, so that design
 // does not carry over. What carries over is the function's structure:
-// given the prompt's 16 token rows, every keys-side step is local to an
+// given the prompt's token rows, every keys-side step is local to an
 // image row, and only two steps reduce over the N rows (t2i1 and the final
 // t2i); the hypernetwork needs the tokens after the second. So B16 is one
 // C entry that launches six kernels in a fixed order on the stream:
@@ -69,7 +74,7 @@
 namespace iuvl {
 namespace {
 
-constexpr int kC = 256, kI = 128, kH = 8, kHd = 16, kHs = 32, kT = 16, kM = 4;
+constexpr int kC = 256, kI = 128, kH = 8, kHd = 16, kHs = 32, kM = 4;
 constexpr int kC4 = 64, kC8 = 32, kMlp = 2048;
 constexpr int kSplits = 8;      // row blocks a prompt in the two attention row passes
 constexpr int kRT = 32;         // rows a tile there
@@ -89,7 +94,7 @@ struct Attn {
 
 enum { LN40, LN11, LN21, LN31, LN41, LNF };
 
-struct TailArgs {
+struct TailArgs {  // T: the token slots, Tp
   // t, tpe (B, T, C); keys0 (N, C); qp0, pewq1, pewk1, pewkf (N, I); kbd0, vbd0 (B, T, I)
   const bf16 *t, *tpe, *keys0, *qp0, *pewq1, *pewk1, *pewkf, *kbd0, *vbd0;
   const bf16 *i0_wo, *i0_bo;
@@ -152,6 +157,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, s
 }
 
 // dst = bf16(a + b) over kT rows of kC (shared, stride kLdC).
+template <int kT>
 __device__ __forceinline__ void add_rows(bf16* dst, const bf16* a, const bf16* b) {
   for (int i = threadIdx.x; i < kT * kC / 8; i += kThreads) {
     const int off = (i / (kC / 8)) * kLdC + (i % (kC / 8)) * 8;
@@ -163,33 +169,41 @@ __device__ __forceinline__ void add_rows(bf16* dst, const bf16* a, const bf16* b
   }
 }
 
-// 16 token rows A (shared, stride lda, depth k) times W^T, W (nout, k) in
-// nn.Linear layout in device memory. A warp per 16-column tile of the
-// result; each lane gets row er, columns c..c+7 of its tile: epi(er, c, v).
-template <typename Epi>
+// kRows (16 or 32) token rows A (shared, stride lda, depth k) times W^T, W
+// (nout, k) in nn.Linear layout in device memory. A warp per 16-column
+// tile of the result, each weight fragment read once for every row tile;
+// each lane gets row er of each 16-row tile, columns c..c+7: epi(row, c, v).
+template <int kRows, typename Epi>
 __device__ __forceinline__ void tok_gemm(const bf16* A, int lda, int k, const bf16* W, int nout,
                                          float* st, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int er = lane >> 1, ec = (lane & 1) * 8;
   for (int ct = warp; ct < nout / 16; ct += kWarps) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
+    FragC acc[kRows / 16];
+#pragma unroll
+    for (int rt = 0; rt < kRows / 16; ++rt) wmma::fill_fragment(acc[rt], 0.f);
     const bf16* w = W + static_cast<size_t>(ct) * 16 * k;
 #pragma unroll 4
     for (int kk = 0; kk < k; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, A + kk, lda);
       FragBc fb;  // B[k][n] = W[ct*16 + n][kk + k]
       wmma::load_matrix_sync(fb, w + kk, k);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = st[er * 16 + ec + j];
-    __syncwarp();
-    epi(er, ct * 16 + ec, v);
+      for (int rt = 0; rt < kRows / 16; ++rt) {
+        FragA fa;
+        wmma::load_matrix_sync(fa, A + rt * 16 * lda + kk, lda);
+        wmma::mma_sync(acc[rt], fa, fb, acc[rt]);
+      }
+    }
+#pragma unroll
+    for (int rt = 0; rt < kRows / 16; ++rt) {
+      wmma::store_matrix_sync(st, acc[rt], 16, wmma::mem_row_major);
+      __syncwarp();
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = st[er * 16 + ec + j];
+      __syncwarp();
+      epi(rt * 16 + er, ct * 16 + ec, v);
+    }
   }
 }
 
@@ -227,35 +241,41 @@ __device__ void ln_rows(const bf16* src, bf16* dst, int ld, int rows, const floa
 
 // Merge a prompt's kSplits softmax partials (part: (kSplits, H, T, kPart))
 // into the head-merged attention output (T, I), rounded to bf16, into dst
-// (shared, stride kLdI). Thread: (head, token) pair tid / 2, half tid % 2
-// of the 16 outputs.
+// (shared, stride kLdI). Thread: (head, token) pairs tid / 2 + 128 j, half
+// tid % 2 of the 16 outputs.
+template <int kT>
 __device__ void merge_partials(const float* part, bf16* dst) {
-  const int pair = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int h = pair / kT, t = pair % kT;
-  const float* p = part + static_cast<size_t>(pair) * kPart;
-  constexpr int stride = kH * kT * kPart;
-  float mx = kNegInf;
+  const int half = threadIdx.x & 1;
+  for (int pair = threadIdx.x >> 1; pair < kH * kT; pair += kThreads / 2) {
+    const int h = pair / kT, t = pair % kT;
+    const float* p = part + static_cast<size_t>(pair) * kPart;
+    constexpr int stride = kH * kT * kPart;
+    float mx = kNegInf;
 #pragma unroll
-  for (int j = 0; j < kSplits; ++j) mx = fmaxf(mx, p[j * stride]);
-  float l = 0.f, o[8] = {};
+    for (int j = 0; j < kSplits; ++j) mx = fmaxf(mx, p[j * stride]);
+    float l = 0.f, o[8] = {};
 #pragma unroll
-  for (int j = 0; j < kSplits; ++j) {
-    const float* q = p + j * stride;
-    const float e = expf(q[0] - mx);
-    l += q[1] * e;
+    for (int j = 0; j < kSplits; ++j) {
+      const float* q = p + j * stride;
+      const float e = expf(q[0] - mx);
+      l += q[1] * e;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] += q[2 + half * 8 + k] * e;
+      for (int k = 0; k < 8; ++k) o[k] += q[2 + half * 8 + k] * e;
+    }
+    const float lf = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] /= lf;
+    store8(dst + t * kLdI + h * kHd + half * 8, o);
   }
-  const float lf = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) o[k] /= lf;
-  store8(dst + t * kLdI + h * kHd + half * 8, o);
 }
 
 // -------------------------------------------------------------- tok_front --
+template <int kT>
 constexpr size_t kFrontSmem = 7 * kT * kLdC * sizeof(bf16) + kWarps * 256 * sizeof(float);
 
+template <int kT>
 __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
+  static_assert(kT * kH <= kThreads, "a thread per (slot, head) in the self-attention");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT = reinterpret_cast<bf16*>(smem);  // t
   bf16* sE = sT + kT * kLdC;                 // tpe
@@ -271,14 +291,14 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  add_rows(sU, sT, sE);
+  add_rows<kT>(sU, sT, sE);
   __syncthreads();
   const Attn& w = a.self1;
-  tok_gemm(sU, kLdC, kC, w.wq, kC, st,
+  tok_gemm<kT>(sU, kLdC, kC, w.wq, kC, st,
            [&](int r, int c, const float* v) { store_biased(sQ + r * kLdC + c, v, w.bq + c); });
-  tok_gemm(sU, kLdC, kC, w.wk, kC, st,
+  tok_gemm<kT>(sU, kLdC, kC, w.wk, kC, st,
            [&](int r, int c, const float* v) { store_biased(sK + r * kLdC + c, v, w.bk + c); });
-  tok_gemm(sT, kLdC, kC, w.wv, kC, st,
+  tok_gemm<kT>(sT, kLdC, kC, w.wv, kC, st,
            [&](int r, int c, const float* v) { store_biased(sV + r * kLdC + c, v, w.bv + c); });
   __syncthreads();
   if (tid < kT * kH) {  // (query, head): attention over the valid slots, into sQ
@@ -329,17 +349,17 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
     for (int u = 0; u < kHs / 8; ++u) store8(sQ + q * kLdC + h * kHs + u * 8, o + u * 8);
   }
   __syncthreads();
-  tok_gemm(sQ, kLdC, kC, w.wo, kC, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sQ, kLdC, kC, w.wo, kC, st, [&](int r, int c, const float* v) {
     store_residual(sY + r * kLdC + c, sT + r * kLdC + c, v, w.bo + c);
   });
   __syncthreads();
   ln_rows(sY, sY, kLdC, kT, a.ln[LN11][0], a.ln[LN11][1],
           a.tstate + static_cast<size_t>(b) * kT * kC);
   __syncthreads();
-  add_rows(sU, sY, sE);
+  add_rows<kT>(sU, sY, sE);
   __syncthreads();
   bf16* q1 = a.q_ws + static_cast<size_t>(b) * kT * kI;
-  tok_gemm(sU, kLdC, kC, a.t2i1.wq, kI, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sU, kLdC, kC, a.t2i1.wq, kI, st, [&](int r, int c, const float* v) {
     const uint4 bv = load8(a.t2i1.bq + c);
     float o[8];
 #pragma unroll
@@ -349,9 +369,11 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
 }
 
 // ---------------------------------------------------------------- tok_mid --
+template <int kT>
 constexpr size_t kMidSmem = (4 * kT * kLdC + kT * kLdI + kT * kLdM) * sizeof(bf16) +
                             kWarps * 256 * sizeof(float);
 
+template <int kT>
 __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT1 = reinterpret_cast<bf16*>(smem);  // t1
@@ -365,16 +387,16 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
   stage_rows(sT1, kLdC, a.tstate + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
   stage_rows(sE, kLdC, a.tpe + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
   cp_async_commit();
-  merge_partials(a.part + static_cast<size_t>(b) * kSplits * kH * kT * kPart, sA);
+  merge_partials<kT>(a.part + static_cast<size_t>(b) * kSplits * kH * kT * kPart, sA);
   cp_async_wait<0>();
   __syncthreads();
-  tok_gemm(sA, kLdI, kI, a.t2i1.wo, kC, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sA, kLdI, kI, a.t2i1.wo, kC, st, [&](int r, int c, const float* v) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.t2i1.bo + c);
   });
   __syncthreads();
   ln_rows(sY, sT1, kLdC, kT, a.ln[LN21][0], a.ln[LN21][1], nullptr);
   __syncthreads();
-  tok_gemm(sT1, kLdC, kC, a.m_w1, kMlp, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sT1, kLdC, kC, a.m_w1, kMlp, st, [&](int r, int c, const float* v) {
     const uint4 bv = load8(a.m_b1 + c);
     float o[8];
 #pragma unroll
@@ -382,24 +404,24 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
     store8(sH + r * kLdM + c, o);
   });
   __syncthreads();
-  tok_gemm(sH, kLdM, kMlp, a.m_w2, kC, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sH, kLdM, kMlp, a.m_w2, kC, st, [&](int r, int c, const float* v) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.m_b2 + c);
   });
   __syncthreads();
   ln_rows(sY, sT1, kLdC, kT, a.ln[LN31][0], a.ln[LN31][1],
           a.tstate + static_cast<size_t>(b) * kT * kC);
   __syncthreads();
-  add_rows(sU, sT1, sE);
+  add_rows<kT>(sU, sT1, sE);
   __syncthreads();
   bf16* kv = a.kv_ws + static_cast<size_t>(b) * 2 * kT * kI;
-  tok_gemm(sU, kLdC, kC, a.i2t1.wk, kI, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sU, kLdC, kC, a.i2t1.wk, kI, st, [&](int r, int c, const float* v) {
     store_biased(kv + r * kI + c, v, a.i2t1.bk + c);
   });
-  tok_gemm(sT1, kLdC, kC, a.i2t1.wv, kI, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sT1, kLdC, kC, a.i2t1.wv, kI, st, [&](int r, int c, const float* v) {
     store_biased(kv + (kT + r) * kI + c, v, a.i2t1.bv + c);
   });
   bf16* qf = a.q_ws + static_cast<size_t>(b) * kT * kI;
-  tok_gemm(sU, kLdC, kC, a.fin.wq, kI, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sU, kLdC, kC, a.fin.wq, kI, st, [&](int r, int c, const float* v) {
     const uint4 bv = load8(a.fin.bq + c);
     float o[8];
 #pragma unroll
@@ -409,6 +431,7 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
 }
 
 // --------------------------------------------------------------- tok_tail --
+template <int kT>
 constexpr size_t kTailSmem = (2 * kT * kLdC + kT * kLdI) * sizeof(bf16) +
                              (2 * kM * kC + kWarps * 256) * sizeof(float);
 
@@ -432,6 +455,7 @@ __device__ void hyper_layer(const float* x, const bf16* W, const bf16* bias, int
   }
 }
 
+template <int kT>
 __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT1 = reinterpret_cast<bf16*>(smem);
@@ -443,10 +467,10 @@ __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
   const int b = blockIdx.x;
   stage_rows(sT1, kLdC, a.tstate + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
   cp_async_commit();
-  merge_partials(a.part + static_cast<size_t>(b) * kSplits * kH * kT * kPart, sA);
+  merge_partials<kT>(a.part + static_cast<size_t>(b) * kSplits * kH * kT * kPart, sA);
   cp_async_wait<0>();
   __syncthreads();
-  tok_gemm(sA, kLdI, kI, a.fin.wo, kC, st, [&](int r, int c, const float* v) {
+  tok_gemm<kT>(sA, kLdI, kI, a.fin.wo, kC, st, [&](int r, int c, const float* v) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.fin.bo + c);
   });
   __syncthreads();
@@ -466,6 +490,7 @@ __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
 }
 
 // --------------------------------------------------------------- row_pass --
+template <int kT>
 constexpr size_t kRowSmem =
     (2 * kRT * kLdC + 4 * kRT * kLdI + kT * kLdI + 2 * kT * kI) * sizeof(bf16) +
     kWarps * kT * kLdS * sizeof(float) + kWarps * kT * kLdP * sizeof(bf16);
@@ -473,7 +498,7 @@ constexpr size_t kRowSmem =
 // kFirst: block 0's image -> token step over the shared keys0 (queries from
 // the qp0 table), then t2i1's partials. Otherwise: i2t1 over keys1 (the
 // q-projection here), then the final attention's partials.
-template <bool kFirst>
+template <int kT, bool kFirst>
 __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sX = reinterpret_cast<bf16*>(smem);  // input rows
@@ -512,8 +537,16 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
   // warp's products cover its column tiles in both 16-row halves of the
   // tile, so each weight fragment is read from L2 once a tile.
   const int er = lane >> 1, ec = (lane & 1) * 8;
-  const int row = lane >> 1, half = lane & 1;  // t2i: token row, half of the keys
-  float m = kNegInf, l = 0.f, acc[8] = {};
+  const int row = lane >> 1, half = lane & 1;  // t2i: token row of a tile, half of the keys
+  constexpr int kTT = kT / 16;                 // 16-row token tiles
+  float m[kTT], l[kTT], acc[kTT][8];
+#pragma unroll
+  for (int tt = 0; tt < kTT; ++tt) {
+    m[tt] = kNegInf;
+    l[tt] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[tt][j] = 0.f;
+  }
   float* S = sS + warp * kT * kLdS;  // also the warp's 16x16 staging tile
   bf16* P = sP + warp * kT * kLdP;
   auto staged = [&](const FragC& f, float v[8]) {
@@ -687,9 +720,10 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
     }
     __syncthreads();
 
-    {  // the t2i online softmax of head `warp`: 16 token rows x 32 keys
-      FragA qa;
-      wmma::load_matrix_sync(qa, sQt + warp * kHd, kLdI);
+#pragma unroll
+    for (int tt = 0; tt < kTT; ++tt) {  // the t2i online softmax of head `warp`:
+      FragA qa;                         // token tile tt's 16 rows x 32 keys
+      wmma::load_matrix_sync(qa, sQt + tt * 16 * kLdI + warp * kHd, kLdI);
 #pragma unroll
       for (int u = 0; u < kRT / 16; ++u) {
         FragC sc;
@@ -707,8 +741,8 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
         mc = fmaxf(mc, s[j]);
       }
       mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);
+      const float m_new = fmaxf(m[tt], mc);
+      const float alpha = expf(m[tt] - m_new);
       float ps = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -717,8 +751,8 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
         P[row * kLdP + half * 16 + j] = to_bf(p);
       }
       ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      l = alpha * l + ps;
-      m = m_new;
+      l[tt] = alpha * l[tt] + ps;
+      m[tt] = m_new;
       __syncwarp();
       FragC oc;
       wmma::fill_fragment(oc, 0.f);
@@ -733,19 +767,23 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
       wmma::store_matrix_sync(S, oc, 16, wmma::mem_row_major);
       __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] * alpha + S[row * 16 + half * 8 + j];
+      for (int j = 0; j < 8; ++j) acc[tt][j] = acc[tt][j] * alpha + S[row * 16 + half * 8 + j];
+      __syncwarp();  // S and P are read before the next token tile writes them
     }
     __syncthreads();  // every tile buffer is free
   }
 
-  float* out = a.part + ((((static_cast<size_t>(b) * kSplits + split) * kH + warp) * kT + row) *
-                         kPart);
-  if (half == 0) {
-    out[0] = m;
-    out[1] = l;
-  }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) out[2 + half * 8 + j] = acc[j];
+  for (int tt = 0; tt < kTT; ++tt) {
+    float* out = a.part + ((((static_cast<size_t>(b) * kSplits + split) * kH + warp) * kT +
+                            tt * 16 + row) * kPart);
+    if (half == 0) {
+      out[0] = m[tt];
+      out[1] = l[tt];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[2 + half * 8 + j] = acc[tt][j];
+  }
 }
 
 // ---------------------------------------------------------------- upscale --
@@ -904,13 +942,31 @@ __global__ void __launch_bounds__(kThreads, 2) upscale_kernel(TailArgs a) {
 
 using namespace iuvl;
 
+namespace {
+
+template <int kT>
+int launch_tail(const TailArgs& a, int batch, int n, void* stream) {
+  int err = launch_kernel(tok_front_kernel<kT>, dim3(batch), kFrontSmem<kT>, stream, a);
+  if (!err)
+    err = launch_kernel(row_pass_kernel<kT, true>, dim3(kSplits, batch), kRowSmem<kT>, stream, a);
+  if (!err) err = launch_kernel(tok_mid_kernel<kT>, dim3(batch), kMidSmem<kT>, stream, a);
+  if (!err)
+    err = launch_kernel(row_pass_kernel<kT, false>, dim3(kSplits, batch), kRowSmem<kT>, stream, a);
+  if (!err) err = launch_kernel(tok_tail_kernel<kT>, dim3(batch), kTailSmem<kT>, stream, a);
+  if (!err) err = launch_kernel(upscale_kernel, dim3(n / kUpRows, batch), kUpSmem, stream, a);
+  return err;
+}
+
+}  // namespace
+
 // p: kOperands pointers in the order of iuvl_tpu_torch/ops/cuda/decode_chunk.py
 // `_operands` (inputs, precomputes, weights), then tokens_out, masks and
-// the six workspace buffers. N % 256 == 0, 1 <= t_valid <= 16.
-extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int n, int t_valid,
-                                void* stream) {
-  if (count != kOperands + 8 || t_valid < 1 || t_valid > kT || n % (kSplits * kRT) ||
-      n % kUpRows || batch < 1)
+// the six workspace buffers. tp (the token slots) 16 or 32, 1 <= t_valid <=
+// tp, N % 256 == 0.
+extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int n, int tp,
+                                int t_valid, void* stream) {
+  if (count != kOperands + 8 || (tp != 16 && tp != 32) || t_valid < 1 || t_valid > tp ||
+      n % (kSplits * kRT) || n % kUpRows || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a;
   int i = 0;
@@ -944,11 +1000,5 @@ extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int 
   a.hyper = static_cast<bf16*>(out());
   a.n = n;
   a.t_valid = t_valid;
-  int err = launch_kernel(tok_front_kernel, dim3(batch), kFrontSmem, stream, a);
-  if (!err) err = launch_kernel(row_pass_kernel<true>, dim3(kSplits, batch), kRowSmem, stream, a);
-  if (!err) err = launch_kernel(tok_mid_kernel, dim3(batch), kMidSmem, stream, a);
-  if (!err) err = launch_kernel(row_pass_kernel<false>, dim3(kSplits, batch), kRowSmem, stream, a);
-  if (!err) err = launch_kernel(tok_tail_kernel, dim3(batch), kTailSmem, stream, a);
-  if (!err) err = launch_kernel(upscale_kernel, dim3(n / kUpRows, batch), kUpSmem, stream, a);
-  return err;
+  return tp == 16 ? launch_tail<16>(a, batch, n, stream) : launch_tail<32>(a, batch, n, stream);
 }

@@ -21,6 +21,9 @@
 // every shared-memory operand are padded by 16 bytes so that the fragment
 // loads do not conflict on banks.
 //
+// T need not be a multiple of 32 (2500 tokens at ViT-B 800^2): the last
+// block's rows past T are zero in shared memory and are not written.
+//
 // Rounding points follow _tail_xla: residual add in bf16; LN in fp32 with
 // the fast variance max(E[x^2]-E[x]^2, 0); h rounded to bf16 before +b1;
 // tanh GELU on the bf16 value; the MLP output rounded before +b2.
@@ -57,7 +60,7 @@ __global__ void __launch_bounds__(kThreads) block_tail_kernel(
     const float* __restrict__ scale, const float* __restrict__ bias,
     const bf16* __restrict__ w1, const bf16* __restrict__ b1,
     const bf16* __restrict__ w2t, const bf16* __restrict__ b2,
-    bf16* __restrict__ out, int hidden, float eps) {
+    bf16* __restrict__ out, int T, int hidden, float eps) {
   constexpr int C = NT * 128;
   using L = TailSmem<C>;
   constexpr int kT1 = C / kK1;          // W1 tiles per chunk
@@ -70,6 +73,7 @@ __global__ void __launch_bounds__(kThreads) block_tail_kernel(
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t base = static_cast<size_t>(blockIdx.x) * kRows * C;
+  const int rows = min(kRows, T - static_cast<int>(blockIdx.x) * kRows);  // valid rows
   const int total = (hidden / kChunk) * kTiles;
 
   // Tile s: chunk j = s / kTiles; part p < kT1 is W1[j*128 + n][p*kK1 + k]
@@ -101,7 +105,8 @@ __global__ void __launch_bounds__(kThreads) block_tail_kernel(
   for (int s = 0; s < L::kStages - 1; ++s) prefetch(s);
 
   for (int i = tid; i < kRows * C; i += kThreads)
-    ys[(i / C) * L::kLdY + i % C] = to_bf(to_f(x[base + i]) + to_f(a[base + i]));
+    ys[(i / C) * L::kLdY + i % C] =
+        i / C < rows ? to_bf(to_f(x[base + i]) + to_f(a[base + i])) : to_bf(0.f);
   __syncthreads();
   for (int r = warp; r < kRows; r += kWarps) {  // ys: x1 -> LN(x1), in place
     bf16* row = ys + r * L::kLdY;
@@ -186,6 +191,7 @@ __global__ void __launch_bounds__(kThreads) block_tail_kernel(
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int r = rt * 16 + e / 16, c = (warp * NT + t) * 16 + e % 16;
+        if (r >= rows) continue;
         const size_t g = base + r * C + c;
         const float x1 = round_bf(to_f(x[g]) + to_f(a[g]));
         const float m = round_bf(round_bf(st[e]) + to_f(b2[c]));
@@ -199,13 +205,13 @@ __global__ void __launch_bounds__(kThreads) block_tail_kernel(
 template <int NT>
 int launch_tail(dim3 grid, void* stream, const void* x, const void* a, const void* scale,
                 const void* bias, const void* w1, const void* b1, const void* w2t,
-                const void* b2, void* out, int H, float eps) {
+                const void* b2, void* out, int T, int H, float eps) {
   return launch_kernel(block_tail_kernel<NT>, grid, TailSmem<NT * 128>::kBytes, stream,
                        static_cast<const bf16*>(x), static_cast<const bf16*>(a),
                        static_cast<const float*>(scale), static_cast<const float*>(bias),
                        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
                        static_cast<const bf16*>(w2t), static_cast<const bf16*>(b2),
-                       static_cast<bf16*>(out), H, eps);
+                       static_cast<bf16*>(out), T, H, eps);
 }
 
 }  // namespace
@@ -215,17 +221,17 @@ using namespace iuvl;
 
 // x, a, out: (T, C) bf16; scale, bias: (C) fp32; w1: (H, C) bf16; b1: (H)
 // bf16; w2t: (H, C) bf16, the second weight transposed; b2: (C) bf16.
-// T % 32 == 0, C in {768, 1024, 1280}, H % 128 == 0.
+// Any T, C in {768, 1024, 1280}, H % 128 == 0.
 extern "C" int iuvl_block_tail(const void* x, const void* a, const void* scale,
                                const void* bias, const void* w1, const void* b1,
                                const void* w2t, const void* b2, void* out, int T, int C,
                                int H, float eps, void* stream) {
-  if (T % kRows || H % kChunk) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(T / kRows);
+  if (T < 1 || H % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + kRows - 1) / kRows);
   switch (C) {
-    case 768: return launch_tail<6>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, H, eps);
-    case 1024: return launch_tail<8>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, H, eps);
-    case 1280: return launch_tail<10>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, H, eps);
+    case 768: return launch_tail<6>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, T, H, eps);
+    case 1024: return launch_tail<8>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, T, H, eps);
+    case 1280: return launch_tail<10>(grid, stream, x, a, scale, bias, w1, b1, w2t, b2, out, T, H, eps);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,12 +12,22 @@
 //   tokens per head, out-projection, residual and the block's LayerNorm.
 //   Reads keys once and writes the updated keys once.
 //
-// Bound on the card, SAM's decoder (C 256, I 128, 8 heads of 16, T <= 16
-// tokens), a chunk of B = 256 prompts over N = 4096 image tokens: each
+// Bound on the card, SAM's decoder (C 256, I 128, 8 heads of 16, T tokens:
+// 7 for a one-point prompt), a chunk of B = 256 prompts over N = 4096
+// image tokens: each
 // kernel does 2*B*N*C*I*2 = 137 GFLOP of projections on the tensor cores
 // against 537 MB (t2i: one read) or 1.07 GB (i2t: read + write) of keys;
-// the attention itself (T <= 16 tokens) is 1/16 of that. So both are
+// the attention itself (T = 7 tokens) is 1/16 of that. So both are
 // tensor-core bound at the projections once the keys stream.
+//
+// Any T >= 1 (a click loop's 20 points make 26 tokens): t2i keeps the
+// online-softmax state of up to kTT 16-row token tiles in registers and
+// loops over them after each key tile's projection; a prompt of more
+// tiles takes more blocks (grid.y), each projecting the keys again. i2t
+// keeps up to 16 tokens' k, v in shared memory and does the softmax over
+// them in one pass; past 16 tokens it reads k and v from device memory
+// (L1-resident, a few KB a prompt) in 16-token tiles, first the max and
+// sum, then the probabilities: the softmax masks the tokens past T.
 //
 // The TPU kernels packed the 8 heads block-diagonally ((head, token) rows
 // against 128-wide columns) so that the MXU saw dense 128-lane matmuls.
@@ -52,7 +62,8 @@ namespace {
 constexpr int kC = 256;      // embedding width
 constexpr int kI = 128;      // attention width (C / 2)
 constexpr int kHd = 16;      // head dim (8 heads)
-constexpr int kTok = 16;     // most tokens a prompt may have
+constexpr int kTok = 16;     // tokens a tile (t2i) / held in shared memory (i2t)
+constexpr int kTT = 2;       // t2i: token tiles a block
 constexpr int kLdC = kC + 8; // padded bf16 rows of C columns
 constexpr int kLdI = kI + 8; // padded bf16 rows of I columns
 static_assert(kI / kHd == kWarps, "t2i gives each warp one head");
@@ -74,6 +85,26 @@ __device__ __forceinline__ float at8(const uint4& v, int j) {
   return to_f(reinterpret_cast<const bf16*>(&v)[j]);
 }
 
+// q . k over one 16-wide head, fp32, in the order of the i2t attention.
+__device__ __forceinline__ float dot16(const float* qv, const bf16* k) {
+  const uint4 k0 = load8(k), k1 = load8(k + 8);
+  float dot = 0.f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) dot += qv[d] * at8(k0, d);
+#pragma unroll
+  for (int d = 0; d < 8; ++d) dot += qv[8 + d] * at8(k1, d);
+  return dot;
+}
+
+// o += p v over one 16-wide head.
+__device__ __forceinline__ void add_pv(float* o, float p, const bf16* v) {
+  const uint4 v0 = load8(v), v1 = load8(v + 8);
+#pragma unroll
+  for (int d = 0; d < 8; ++d) o[d] += p * at8(v0, d);
+#pragma unroll
+  for (int d = 0; d < 8; ++d) o[8 + d] += p * at8(v1, d);
+}
+
 // ---------------------------------------------------------------- t2i --
 constexpr int kKT = 32;        // keys per tile
 constexpr int kLdS = kKT + 4;  // fp32 scores
@@ -83,7 +114,7 @@ struct T2iSmem {
   static constexpr size_t kW = 2 * kI * kLdC * sizeof(bf16);  // Wk rows, then Wv rows
   static constexpr size_t kX = kKT * kLdC * sizeof(bf16);     // one key tile
   static constexpr size_t kKV = kKT * kLdI * sizeof(bf16);    // kp or vp of a tile
-  static constexpr size_t kQ = kTok * kLdI * sizeof(bf16);
+  static constexpr size_t kQ = kTT * kTok * kLdI * sizeof(bf16);
   static constexpr size_t kS = kWarps * kTok * kLdS * sizeof(float);
   static constexpr size_t kP = kWarps * kTok * kLdP * sizeof(bf16);
   static constexpr size_t kBytes = kW + 2 * kX + 2 * kKV + kQ + kS + kP;
@@ -99,11 +130,13 @@ __global__ void __launch_bounds__(kThreads) t2i_stream_kernel(
   bf16* sK = sX + 2 * kKT * kLdC;
   bf16* sV = sK + kKT * kLdI;
   bf16* sQ = sV + kKT * kLdI;
-  float* sS = reinterpret_cast<float*>(sQ + kTok * kLdI);
+  float* sS = reinterpret_cast<float*>(sQ + kTT * kTok * kLdI);
   bf16* sP = reinterpret_cast<bf16*>(sS + kWarps * kTok * kLdS);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x;
+  const int tok0 = blockIdx.y * kTT * kTok;  // this block's first token
+  const int ntt = min(kTT, (tokens - tok0 + kTok - 1) / kTok);  // its token tiles
   const bf16* xb = keys + (shared_keys ? size_t{0} : static_cast<size_t>(b) * n * kC);
   const int tiles = n / kKT;
 
@@ -111,17 +144,24 @@ __global__ void __launch_bounds__(kThreads) t2i_stream_kernel(
   stage_rows(sW + kI * kLdC, kLdC, wv, kC, kI, kC);
   stage_rows(sX, kLdC, xb, kC, kKT, kC);
   cp_async_commit();
-  for (int i = tid; i < kTok * kI; i += kThreads) {
-    const int r = i / kI, c = i % kI;
-    sQ[r * kLdI + c] = r < tokens ? q[(static_cast<size_t>(b) * tokens + r) * kI + c] : to_bf(0.f);
+  for (int i = tid; i < kTT * kTok * kI; i += kThreads) {
+    const int r = i / kI, c = i % kI, tok = tok0 + r;
+    sQ[r * kLdI + c] =
+        tok < tokens ? q[(static_cast<size_t>(b) * tokens + tok) * kI + c] : to_bf(0.f);
   }
 
-  // Warp `warp` is head `warp`; lane owns token row `row` of it, keys
-  // [half*16, half*16+16) of each tile and output columns [half*8, half*8+8).
+  // Warp `warp` is head `warp`; lane owns token row `row` of each of the
+  // block's token tiles, keys [half*16, half*16+16) of each key tile and
+  // output columns [half*8, half*8+8).
   const int row = lane >> 1, half = lane & 1;
-  float m = kNegInf, l = 0.f, acc[8];
+  float m[kTT], l[kTT], acc[kTT][8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int tt = 0; tt < kTT; ++tt) {
+    m[tt] = kNegInf;
+    l[tt] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[tt][j] = 0.f;
+  }
   float* S = sS + warp * kTok * kLdS;  // also the warp's 16x16 staging tile
   bf16* P = sP + warp * kTok * kLdP;
   // Projection tiles of this warp: row tile prt, column tiles pct..pct+3 of
@@ -188,62 +228,70 @@ __global__ void __launch_bounds__(kThreads) t2i_stream_kernel(
     }
     __syncthreads();
 
-    // Scores of head `warp`: 16 token rows x 32 keys.
-    FragA qa;
-    wmma::load_matrix_sync(qa, sQ + warp * kHd, kLdI);
 #pragma unroll
-    for (int u = 0; u < kKT / 16; ++u) {
-      FragC sc;
-      wmma::fill_fragment(sc, 0.f);
-      FragBc kb;  // B[k][n] = Kp[u*16 + n][warp*16 + k]
-      wmma::load_matrix_sync(kb, sK + u * 16 * kLdI + warp * kHd, kLdI);
-      wmma::mma_sync(sc, qa, kb, sc);
-      wmma::store_matrix_sync(S + u * 16, sc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    float s[16], mc = kNegInf;
+    for (int tt = 0; tt < kTT; ++tt) {
+      if (tt >= ntt) break;
+      // Scores of head `warp`: token tile tt's 16 rows x 32 keys.
+      FragA qa;
+      wmma::load_matrix_sync(qa, sQ + tt * kTok * kLdI + warp * kHd, kLdI);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      s[j] = S[row * kLdS + half * 16 + j];
-      mc = fmaxf(mc, s[j]);
-    }
-    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-    const float m_new = fmaxf(m, mc);
-    const float alpha = expf(m - m_new);
-    float ps = 0.f;
+      for (int u = 0; u < kKT / 16; ++u) {
+        FragC sc;
+        wmma::fill_fragment(sc, 0.f);
+        FragBc kb;  // B[k][n] = Kp[u*16 + n][warp*16 + k]
+        wmma::load_matrix_sync(kb, sK + u * 16 * kLdI + warp * kHd, kLdI);
+        wmma::mma_sync(sc, qa, kb, sc);
+        wmma::store_matrix_sync(S + u * 16, sc, kLdS, wmma::mem_row_major);
+      }
+      __syncwarp();
+      float s[16], mc = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = expf(s[j] - m_new);
-      ps += p;
-      P[row * kLdP + half * 16 + j] = to_bf(p);
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    l = alpha * l + ps;
-    m = m_new;
-    __syncwarp();
+      for (int j = 0; j < 16; ++j) {
+        s[j] = S[row * kLdS + half * 16 + j];
+        mc = fmaxf(mc, s[j]);
+      }
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      const float m_new = fmaxf(m[tt], mc);
+      const float alpha = expf(m[tt] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p = expf(s[j] - m_new);
+        ps += p;
+        P[row * kLdP + half * 16 + j] = to_bf(p);
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      l[tt] = alpha * l[tt] + ps;
+      m[tt] = m_new;
+      __syncwarp();
 
-    FragC oc;
-    wmma::fill_fragment(oc, 0.f);
+      FragC oc;
+      wmma::fill_fragment(oc, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < kKT; kk += 16) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, P + kk, kLdP);
-      FragBr vb;  // B[k][n] = Vp[kk + k][warp*16 + n]
-      wmma::load_matrix_sync(vb, sV + kk * kLdI + warp * kHd, kLdI);
-      wmma::mma_sync(oc, pa, vb, oc);
+      for (int kk = 0; kk < kKT; kk += 16) {
+        FragA pa;
+        wmma::load_matrix_sync(pa, P + kk, kLdP);
+        FragBr vb;  // B[k][n] = Vp[kk + k][warp*16 + n]
+        wmma::load_matrix_sync(vb, sV + kk * kLdI + warp * kHd, kLdI);
+        wmma::mma_sync(oc, pa, vb, oc);
+      }
+      wmma::store_matrix_sync(S, oc, 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[tt][j] = acc[tt][j] * alpha + S[row * 16 + half * 8 + j];
+      __syncwarp();  // S and P are read before the next token tile writes them
     }
-    wmma::store_matrix_sync(S, oc, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = acc[j] * alpha + S[row * 16 + half * 8 + j];
     __syncthreads();  // sK, sV and the slot of tile kt are free
   }
 
-  if (row < tokens) {
-    const float lf = fmaxf(l, 1e-30f);
-    bf16* o = out + (static_cast<size_t>(b) * tokens + row) * kI + warp * kHd + half * 8;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = to_bf(acc[j] / lf);
+  for (int tt = 0; tt < kTT; ++tt) {
+    const int tok = tok0 + tt * kTok + row;
+    if (tt >= ntt || tok >= tokens) break;
+    const float lf = fmaxf(l[tt], 1e-30f);
+    bf16* o = out + (static_cast<size_t>(b) * tokens + tok) * kI + warp * kHd + half * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = to_bf(acc[tt][j] / lf);
   }
 }
 
@@ -283,7 +331,9 @@ __global__ void __launch_bounds__(kThreads) i2t_block_kernel(
   auto x_rows = [&](int p) {
     return keys + (static_cast<size_t>(shared_keys ? 0 : p) * n + r0) * kC;
   };
+  const bool staged = tokens <= kTok;  // else k, v are read from device memory
   auto stage_kv = [&](int slot, int p) {  // rows past `tokens` stay zero
+    if (!staged) return;
     bf16* d = sKV + slot * 2 * kTok * kI;
     const size_t g = static_cast<size_t>(p) * tokens * kI;
     stage_rows(d, kI, kp + g, kI, tokens, kI);
@@ -373,40 +423,53 @@ __global__ void __launch_bounds__(kThreads) i2t_block_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j) qv[half * 8 + j] = at8(q8, j);
       }
-      float s[kTok], mx = kNegInf;
-#pragma unroll
-      for (int t = 0; t < kTok; ++t) {  // `tokens` is the same for the whole block
-        if (t < tokens) {
-          const uint4 k0 = load8(sKp + t * kI + h * kHd), k1 = load8(sKp + t * kI + h * kHd + 8);
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < 8; ++d) dot += qv[d] * at8(k0, d);
-#pragma unroll
-          for (int d = 0; d < 8; ++d) dot += qv[8 + d] * at8(k1, d);
-          s[t] = dot * scale;
-          mx = fmaxf(mx, s[t]);
-        }
-      }
-      float den = 0.f;
-#pragma unroll
-      for (int t = 0; t < kTok; ++t) {
-        if (t < tokens) {
-          s[t] = expf(s[t] - mx);
-          den += s[t];
-        }
-      }
       float o[kHd];
 #pragma unroll
       for (int d = 0; d < kHd; ++d) o[d] = 0.f;
+      if (staged) {  // one pass over the tokens held in shared memory
+        float s[kTok], mx = kNegInf;
 #pragma unroll
-      for (int t = 0; t < kTok; ++t) {
-        if (t < tokens) {
-          const float pt = round_bf(s[t] / den);
-          const uint4 v0 = load8(sVp + t * kI + h * kHd), v1 = load8(sVp + t * kI + h * kHd + 8);
+        for (int t = 0; t < kTok; ++t) {  // `tokens` is the same for the whole block
+          if (t < tokens) {
+            s[t] = dot16(qv, sKp + t * kI + h * kHd) * scale;
+            mx = fmaxf(mx, s[t]);
+          }
+        }
+        float den = 0.f;
 #pragma unroll
-          for (int d = 0; d < 8; ++d) o[d] += pt * at8(v0, d);
+        for (int t = 0; t < kTok; ++t) {
+          if (t < tokens) {
+            s[t] = expf(s[t] - mx);
+            den += s[t];
+          }
+        }
 #pragma unroll
-          for (int d = 0; d < 8; ++d) o[8 + d] += pt * at8(v1, d);
+        for (int t = 0; t < kTok; ++t)
+          if (t < tokens) add_pv(o, round_bf(s[t] / den), sVp + t * kI + h * kHd);
+      } else {  // 16-token tiles from device memory: the max and sum, then p v
+        const bf16* kg = kp + static_cast<size_t>(p) * tokens * kI + h * kHd;
+        const bf16* vg = vp + static_cast<size_t>(p) * tokens * kI + h * kHd;
+        float mx = kNegInf, den = 0.f;
+        for (int t0 = 0; t0 < tokens; t0 += kTok) {
+          float s[kTok], mt = kNegInf;
+#pragma unroll
+          for (int t = 0; t < kTok; ++t) {
+            s[t] = kNegInf;
+            if (t0 + t < tokens) {
+              s[t] = dot16(qv, kg + static_cast<size_t>(t0 + t) * kI) * scale;
+              mt = fmaxf(mt, s[t]);
+            }
+          }
+          const float m_new = fmaxf(mx, mt);
+          den *= expf(mx - m_new);
+#pragma unroll
+          for (int t = 0; t < kTok; ++t)
+            if (t0 + t < tokens) den += expf(s[t] - m_new);
+          mx = m_new;
+        }
+        for (int t = 0; t < tokens; ++t) {
+          const float st = dot16(qv, kg + static_cast<size_t>(t) * kI) * scale;
+          add_pv(o, round_bf(expf(st - mx) / den), vg + static_cast<size_t>(t) * kI);
         }
       }
 #pragma unroll
@@ -509,13 +572,14 @@ using namespace iuvl;
 
 // q: (B, T, 128) bf16, pre-scaled by 16^-0.5; keys: (Bk, N, 256) bf16 with
 // Bk 1 or B; pe_wk: (N, 128) bf16; wk, wv: (128, 256) bf16 (out, in);
-// bk, bv: (128) bf16; out: (B, T, 128) bf16. T <= 16, N % 32 == 0.
+// bk, bv: (128) bf16; out: (B, T, 128) bf16. Any T >= 1, N % 32 == 0.
 extern "C" int iuvl_t2i_stream(const void* q, const void* keys, const void* pe_wk, const void* wk,
                                const void* bk, const void* wv, const void* bv, void* out,
                                int batch, int keys_batch, int n, int tokens, void* stream) {
-  if (tokens < 1 || tokens > kTok || n % kKT || (keys_batch != 1 && keys_batch != batch))
+  if (tokens < 1 || n % kKT || (keys_batch != 1 && keys_batch != batch))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_kernel(t2i_stream_kernel, dim3(batch), T2iSmem::kBytes, stream,
+  const int blocks_y = (tokens + kTT * kTok - 1) / (kTT * kTok);
+  return launch_kernel(t2i_stream_kernel, dim3(batch, blocks_y), T2iSmem::kBytes, stream,
                        static_cast<const bf16*>(q), static_cast<const bf16*>(keys),
                        static_cast<const bf16*>(pe_wk), static_cast<const bf16*>(wk),
                        static_cast<const bf16*>(bk), static_cast<const bf16*>(wv),
@@ -526,13 +590,13 @@ extern "C" int iuvl_t2i_stream(const void* q, const void* keys, const void* pe_w
 // keys: (Bk, N, 256) bf16 with Bk 1 or B; pe_wq: (N, 128) bf16; kp, vp:
 // (B, T, 128) bf16; wq: (128, 256) and wo: (256, 128) bf16 (out, in); bq:
 // (128) and bo: (256) bf16; ln_w, ln_b: (256) fp32; out: (B, N, 256) bf16.
-// T <= 16, N % 32 == 0.
+// Any T >= 1, N % 32 == 0.
 extern "C" int iuvl_i2t_block_step(const void* keys, const void* pe_wq, const void* kp,
                                    const void* vp, const void* wq, const void* bq, const void* wo,
                                    const void* bo, const void* ln_w, const void* ln_b, void* out,
                                    int batch, int keys_batch, int n, int tokens, float scale,
                                    float eps, void* stream) {
-  if (tokens < 1 || tokens > kTok || n % kRT || (keys_batch != 1 && keys_batch != batch))
+  if (tokens < 1 || n % kRT || (keys_batch != 1 && keys_batch != batch))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n / kRT, (batch + kPP - 1) / kPP);
   return launch_kernel(i2t_block_kernel, grid, I2tSmem::kBytes, stream,

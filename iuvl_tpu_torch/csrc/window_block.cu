@@ -21,6 +21,11 @@
 // loads are coalesced: the first version of both phases spent most of
 // its time on conflicting and scattered loads.
 //
+// The head dim is a template parameter: 64 (ViT-B/L) or 80 (ViT-H, C
+// 1280, 16 heads). The scores are bf16(q d^-1/2) . k, as the plain version
+// scales q in the working dtype; at 64, where d^-1/2 = 1/8 is exact either
+// way, the fp32 scores are scaled instead.
+//
 // Rounding points follow the plain version (the JAX _block_xla math), so
 // that the two differ only in summation order: qkv = bf16(bf16(x @ W) +
 // bf16(b)); relh/relw = bf16(q . R) with an fp32 sum; scores fp32;
@@ -33,7 +38,6 @@ namespace iuvl {
 namespace cg = cooperative_groups;
 namespace {
 
-constexpr int kHd = 64;    // head dim
 constexpr int kWin = 14;   // window side
 constexpr int kN = kWin * kWin;
 constexpr int kRT = (kN + 15) / 16;  // 13 row tiles
@@ -47,6 +51,7 @@ constexpr int kLdS = kNP + 4;     // scores (fp32)
 constexpr int kLdP = kNP + 8;     // probabilities (bf16)
 constexpr int kCluster = 4;          // blocks per window
 
+template <int kHd>  // head dim
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) window_block_kernel(
     const bf16* __restrict__ xw, const bf16* __restrict__ wqkv,
     const float* __restrict__ bqkv, const bf16* __restrict__ wo,
@@ -115,20 +120,29 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) win
   cluster.sync();  // every block's qkv columns are written
 
   // ---- phase B: attention per head ----
-  const float scale = 1.f / sqrtf(static_cast<float>(kHd));  // exact 0.125
+  const float scale = 1.f / sqrtf(static_cast<float>(kHd));  // 64: exact 0.125
   for (int h = rank; h < heads; h += kCluster) {
     const bf16* qh = qkv_w + h * kHd;
     const bf16* kh = qh + C;
     const bf16* vh = qh + 2 * C;
     // relh/relw = bf16(q_i . R): one warp per query row, lanes over the
     // head dim so that every load is coalesced, one warp sum per entry.
+    constexpr int kQL = (kHd + 31) / 32;  // head-dim entries a lane
     for (int i = warp; i < kN; i += kWarps) {
       const bf16* qi = qh + i * C3;
-      const float q0 = to_f(qi[lane]), q1 = to_f(qi[lane + 32]);
+      float qv[kQL];
+#pragma unroll
+      for (int u = 0; u < kQL; ++u) qv[u] = lane + 32 * u < kHd ? to_f(qi[lane + 32 * u]) : 0.f;
       for (int j = 0; j < 2 * kWin; ++j) {
         const float* R = j < kWin ? rh + ((i / kWin) * kWin + j) * kHd
                                   : rw + ((i % kWin) * kWin + (j - kWin)) * kHd;
-        const float s = round_bf(warp_sum(q0 * R[lane] + q1 * R[lane + 32]));
+        // Both 32-wide halves in one expression (its FMA contraction sets
+        // the rounding); a third, partial term at head dim 80.
+        float part = qv[0] * R[lane] + qv[1] * R[lane + 32];
+#pragma unroll
+        for (int u = 2; u < kQL; ++u)
+          if (lane + 32 * u < kHd) part += qv[u] * R[lane + 32 * u];
+        const float s = round_bf(warp_sum(part));
         if (lane == 0) {
           if (j < kWin) relh[i * kWin + j] = s;
           else relw[i * kWin + j - kWin] = s;
@@ -141,8 +155,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) win
     for (int qt = warp; qt < kRT; qt += kWarps) {
       FragA qa[kHd / 16];
 #pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk)
+      for (int kk = 0; kk < kHd / 16; ++kk) {
         wmma::load_matrix_sync(qa[kk], qh + qt * 16 * C3 + kk * 16, C3);
+        if (kHd != 64) {  // bf16(q * scale); at 64 the fp32 scores are scaled below
+#pragma unroll
+          for (int e = 0; e < qa[kk].num_elements; ++e)
+            qa[kk].x[e] = to_bf(to_f(qa[kk].x[e]) * scale);
+        }
+      }
       for (int ct = 0; ct < kRT; ++ct) {
         FragC sc;
         wmma::fill_fragment(sc, 0.f);
@@ -168,7 +188,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) win
           const int c = lane + 32 * m;
           vals[m] = kNegInf;
           if (c < kN) {
-            vals[m] = S[r * kLdS + c] * scale + relh[i * kWin + c / kWin] + relw[i * kWin + c % kWin];
+            vals[m] = S[r * kLdS + c] * (kHd == 64 ? scale : 1.f) + relh[i * kWin + c / kWin] +
+                      relw[i * kWin + c % kWin];
             mx = fmaxf(mx, vals[m]);
           }
         }
@@ -249,19 +270,22 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) win
 using namespace iuvl;
 
 // xw, out: (nW, 196, C) bf16; wqkv: (3C, C) bf16; bqkv: (3C) fp32; wo: (C, C)
-// bf16; bo: (C) fp32; rh, rw: (14, 14, 64) fp32 rel-pos tables; qkv_scratch:
-// (nW, 208, 3C) bf16; o_scratch: (nW, 208, C) bf16. win == 14, head_dim ==
-// 64, C % 128 == 0.
+// bf16; bo: (C) fp32; rh, rw: (14, 14, d) fp32 rel-pos tables; qkv_scratch:
+// (nW, 208, 3C) bf16; o_scratch: (nW, 208, C) bf16. win == 14, head_dim
+// (d) 64 or 80, C % 128 == 0.
 extern "C" int iuvl_window_block(const void* xw, const void* wqkv, const void* bqkv,
                                  const void* wo, const void* bo, const void* rh, const void* rw,
                                  void* qkv_scratch, void* o_scratch, void* out, int n_windows,
                                  int C, int win, int head_dim, void* stream) {
-  if (win != kWin || head_dim != kHd || C % 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (win != kWin || C % 128 || C % head_dim) return static_cast<int>(cudaErrorInvalidValue);
   const size_t phase_a = kNP * kLdX * sizeof(bf16);
   const size_t phase_b = 2 * kNP * kWin * sizeof(float) +
                          kWarps * 16 * (kLdS * sizeof(float) + kLdP * sizeof(bf16));
   const size_t smem = kWarps * 256 * sizeof(float) + (phase_a > phase_b ? phase_a : phase_b);
-  return launch_kernel(window_block_kernel, dim3(n_windows * kCluster), smem, stream,
+  const auto kernel = head_dim == 64 ? window_block_kernel<64>
+                      : head_dim == 80 ? window_block_kernel<80> : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel(kernel, dim3(n_windows * kCluster), smem, stream,
                        static_cast<const bf16*>(xw), static_cast<const bf16*>(wqkv),
                        static_cast<const float*>(bqkv), static_cast<const bf16*>(wo),
                        static_cast<const float*>(bo), static_cast<const float*>(rh),

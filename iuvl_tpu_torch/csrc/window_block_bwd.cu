@@ -26,6 +26,13 @@
 //      table gradients sum the per-(window, head) partials in a fixed
 //      order. Every result is the same on every run.
 //
+// The head dim is a template parameter, 64 (ViT-B/L) or 80 (ViT-H); the
+// scores are bf16(q d^-1/2) . k as in the forward (at 64, where 1/8 is
+// exact either way, the fp32 scores are scaled instead). At 80
+// the per-(window, head) tiles take 146 KB of shared memory, so relh, relw
+// and their cotangents (bf16-rounded values, held exactly in bf16) are kept
+// in bf16 there and in fp32 at 64.
+//
 // Rounding points follow the plain version, window_block_backward_plain
 // (the arithmetic of the TPU kernel on the forward's rounding): qkv =
 // bf16(bf16(x W^T) + bf16(b)); relh, relw = bf16(q . R); scores and
@@ -38,37 +45,48 @@
 namespace iuvl {
 namespace {
 
-constexpr int kHd = 64;
 constexpr int kWin = 14;
 constexpr int kN = kWin * kWin;      // 196 tokens a window
 constexpr int kRT = (kN + 15) / 16;  // 13 row tiles
 constexpr int kNP = kRT * 16;        // 208
-constexpr int kLdT = kHd + 8;        // q, k, v, do rows (bf16)
 constexpr int kLdS = kNP + 4;        // score rows (fp32)
 constexpr int kLdP = kNP + 8;        // p, ds rows (bf16)
-constexpr int kTab = kWin * kWin * kHd;  // one expanded table
-constexpr float kScale = 0.125f;     // 64 ** -0.5
 
-constexpr size_t kSmemTiles = 4 * kNP * kLdT * sizeof(bf16);
-constexpr size_t kSmemRel = 4 * kNP * kWin * sizeof(float);
-constexpr size_t kSmemRow = 2 * 16 * kLdS * sizeof(float) + 2 * 16 * kLdP * sizeof(bf16);
-constexpr size_t kSmemStage = kWarps * 256 * sizeof(float);
-constexpr size_t kSmemAttn = kSmemTiles + kSmemRel + kSmemRow + kSmemStage;
+// kHd: the head dim; Rel: the storage type of relh, relw, drelh, drelw.
+template <int kHd>
+struct WinBwd {
+  using Rel = std::conditional_t<(kHd > 64), bf16, float>;
+  static constexpr int kLdT = kHd + 8;  // q, k, v, do rows (bf16)
+  static constexpr int kTab = kWin * kWin * kHd;  // one expanded table
+  static constexpr size_t kSmemTiles = 4 * kNP * kLdT * sizeof(bf16);
+  static constexpr size_t kSmemRel = 4 * kNP * kWin * sizeof(Rel);
+  static constexpr size_t kSmemRow = 2 * 16 * kLdS * sizeof(float) + 2 * 16 * kLdP * sizeof(bf16);
+  static constexpr size_t kSmemStage = kWarps * 256 * sizeof(float);
+  static constexpr size_t kSmemAttn = kSmemTiles + kSmemRel + kSmemRow + kSmemStage;
+};
 
+__device__ __forceinline__ void set_rel(float& d, float v) { d = v; }
+__device__ __forceinline__ void set_rel(bf16& d, float v) { d = to_bf(v); }
+
+template <int kHd>
 __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dob, const float* __restrict__ rh,
     const float* __restrict__ rw, bf16* __restrict__ obuf, bf16* __restrict__ dqkv,
     bf16* __restrict__ pbuf, bf16* __restrict__ dsbuf, float* __restrict__ drel_part, int C) {
+  using W = WinBwd<kHd>;
+  using Rel = typename W::Rel;
+  constexpr int kLdT = W::kLdT, kTab = W::kTab;
+  const float kScale = 1.f / sqrtf(static_cast<float>(kHd));  // 64: exact 0.125
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kNP * kLdT;
   bf16* Vs = Ks + kNP * kLdT;
   bf16* dOs = Vs + kNP * kLdT;
-  float* relh = reinterpret_cast<float*>(dOs + kNP * kLdT);  // [kNP][kWin]
-  float* relw = relh + kNP * kWin;
-  float* drelh = relw + kNP * kWin;
-  float* drelw = drelh + kNP * kWin;
-  float* S = drelw + kNP * kWin;  // [16][kLdS]: scores, then ds (fp32)
+  Rel* relh = reinterpret_cast<Rel*>(dOs + kNP * kLdT);  // [kNP][kWin]
+  Rel* relw = relh + kNP * kWin;
+  Rel* drelh = relw + kNP * kWin;
+  Rel* drelw = drelh + kNP * kWin;
+  float* S = reinterpret_cast<float*>(drelw + kNP * kWin);  // [16][kLdS]: scores, then ds
   float* dP = S + 16 * kLdS;
   bf16* Pt = reinterpret_cast<bf16*>(dP + 16 * kLdS);  // [16][kLdP]
   bf16* DSt = Pt + 16 * kLdP;
@@ -95,16 +113,26 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
     *reinterpret_cast<uint4*>(dOs + r * kLdT + v) =
         in ? *reinterpret_cast<const uint4*>(dob + (row0 + r) * C + h * kHd + v) : zero;
   }
-  for (int i = tid; i < 4 * kNP * kWin; i += kThreads) relh[i] = 0.f;  // relh .. drelw
+  for (int i = tid; i < 4 * kNP * kWin; i += kThreads) set_rel(relh[i], 0.f);  // relh .. drelw
   __syncthreads();
   // relh/relw = bf16(q_i . R): a warp a query row, lanes over the head dim.
+  constexpr int kQL = (kHd + 31) / 32;  // head-dim entries a lane
   for (int i = warp; i < kN; i += kWarps) {
-    const float q0 = to_f(Qs[i * kLdT + lane]), q1 = to_f(Qs[i * kLdT + lane + 32]);
+    float qv[kQL];
+#pragma unroll
+    for (int u = 0; u < kQL; ++u)
+      qv[u] = lane + 32 * u < kHd ? to_f(Qs[i * kLdT + lane + 32 * u]) : 0.f;
     for (int j = 0; j < 2 * kWin; ++j) {
       const float* R = j < kWin ? rh + ((i / kWin) * kWin + j) * kHd
                                 : rw + ((i % kWin) * kWin + (j - kWin)) * kHd;
-      const float s = round_bf(warp_sum(q0 * R[lane] + q1 * R[lane + 32]));
-      if (lane == 0) (j < kWin ? relh[i * kWin + j] : relw[i * kWin + j - kWin]) = s;
+      // Both 32-wide halves in one expression (its FMA contraction sets the
+      // rounding); a third, partial term at head dim 80.
+      float part = qv[0] * R[lane] + qv[1] * R[lane + 32];
+#pragma unroll
+      for (int u = 2; u < kQL; ++u)
+        if (lane + 32 * u < kHd) part += qv[u] * R[lane + 32 * u];
+      const float s = round_bf(warp_sum(part));
+      if (lane == 0) set_rel(j < kWin ? relh[i * kWin + j] : relw[i * kWin + j - kWin], s);
     }
   }
   __syncthreads();
@@ -120,6 +148,10 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
         FragA fa;
         FragBc fb;  // B[d][key] = K[key][d]
         wmma::load_matrix_sync(fa, Qs + qt * 16 * kLdT + kk, kLdT);
+        if (kHd != 64) {  // bf16(q * scale); at 64 the fp32 scores are scaled below
+#pragma unroll
+          for (int e = 0; e < fa.num_elements; ++e) fa.x[e] = to_bf(to_f(fa.x[e]) * kScale);
+        }
         wmma::load_matrix_sync(fb, Ks + ct * 16 * kLdT + kk, kLdT);
         wmma::mma_sync(sc, fa, fb, sc);
         wmma::load_matrix_sync(fa, dOs + qt * 16 * kLdT + kk, kLdT);
@@ -151,7 +183,8 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
         const int c = lane + 32 * m;
         p[m] = kNegInf;
         if (c < kN) {
-          p[m] = Srow[c] * kScale + relh[i * kWin + c / kWin] + relw[i * kWin + c % kWin];
+          p[m] = Srow[c] * (kHd == 64 ? kScale : 1.f) + as_f(relh[i * kWin + c / kWin]) +
+                 as_f(relw[i * kWin + c % kWin]);
           mx = fmaxf(mx, p[m]);
         }
       }
@@ -190,18 +223,18 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
       if (lane < kWin) {  // drelh[i][a] = sum of ds over key row a
         float t = 0.f;
         for (int c = 0; c < kWin; ++c) t += Srow[lane * kWin + c];
-        drelh[i * kWin + lane] = round_bf(t);
+        set_rel(drelh[i * kWin + lane], round_bf(t));
       } else if (lane < 2 * kWin) {  // drelw[i][b] = sum of ds over key column b
         const int b = lane - kWin;
         float t = 0.f;
         for (int a = 0; a < kWin; ++a) t += Srow[a * kWin + b];
-        drelw[i * kWin + b] = round_bf(t);
+        set_rel(drelw[i * kWin + b], round_bf(t));
       }
     }
     __syncthreads();
-    // ---- o_h = p v (warps 0-3) and dq = scale ds k + rel-pos terms (4-7) ----
-    {
-      const int u = warp & 3;
+    // ---- o_h = p v (warps 0-3) and dq = scale ds k + rel-pos terms (4-7),
+    // a 16-wide column tile u of the head dim at a time ----
+    for (int u = warp & 3; u < kHd / 16; u += 4) {
       const bool is_q = warp >= 4;
       FragC acc;
       wmma::fill_fragment(acc, 0.f);
@@ -226,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
         const float* Rh = rh + (i / kWin) * kWin * kHd + d;
         const float* Rw = rw + (i % kWin) * kWin * kHd + d;
         for (int a = 0; a < kWin; ++a)
-          t += drelh[i * kWin + a] * Rh[a * kHd] + drelw[i * kWin + a] * Rw[a * kHd];
+          t += as_f(drelh[i * kWin + a]) * Rh[a * kHd] + as_f(drelw[i * kWin + a]) * Rw[a * kHd];
         dqkv[(row0 + i) * C3 + h * kHd + d] = to_bf(t);
       }
     }
@@ -235,9 +268,10 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
 
   // ---- dv = p^T do and dk = scale ds^T q over the whole window ----
   using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-  for (int t = warp; t < 2 * kRT * 4; t += kWarps) {
-    const bool is_k = t >= kRT * 4;
-    const int jt = (t % (kRT * 4)) / 4, u = t % 4;
+  constexpr int kUT = kHd / 16;  // column tiles of the head dim
+  for (int t = warp; t < 2 * kRT * kUT; t += kWarps) {
+    const bool is_k = t >= kRT * kUT;
+    const int jt = (t % (kRT * kUT)) / kUT, u = t % kUT;
     FragC acc;
     wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -269,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
     float t = 0.f;
     for (int c = 0; c < kWin; ++c) {
       const int i = is_w ? c * kWin + x : x * kWin + c;
-      t += (is_w ? drelw : drelh)[i * kWin + a] * to_f(Qs[i * kLdT + d]);
+      t += as_f((is_w ? drelw : drelh)[i * kWin + a]) * to_f(Qs[i * kLdT + d]);
     }
     part[o] = t;
   }
@@ -281,12 +315,12 @@ __global__ void __launch_bounds__(kThreads) window_attn_bwd_kernel(
 using namespace iuvl;
 
 // xw, g, dx: (nW * 196, C) bf16 token rows of the windows; wqkv (3C, C) and
-// wo (C, C) bf16 in nn.Linear layout; bqkv (3C) fp32; rh, rw (14, 14, 64)
-// fp32. Scratch (wrapper-allocated): f32buf (nW*196, 3C) fp32; qkv, dqkv
-// (nW*196, 3C) bf16; obuf, dobuf (nW*196, C) bf16; pbuf, dsbuf
-// (nW*heads, 208, 208) bf16; drel_part (nW*heads, 2, 14, 14, 64) fp32.
-// Outputs: dx; dwqkv (3C, C), dbqkv (3C), dwo (C, C), dbo (C) and drhw
-// (2, 14, 14, 64) = (dRh, dRw), all fp32.
+// wo (C, C) bf16 in nn.Linear layout; bqkv (3C) fp32; rh, rw (14, 14, d)
+// fp32 with d (head_dim) 64 or 80. Scratch (wrapper-allocated): f32buf
+// (nW*196, 3C) fp32; qkv, dqkv (nW*196, 3C) bf16; obuf, dobuf (nW*196, C)
+// bf16; pbuf, dsbuf (nW*heads, 208, 208) bf16; drel_part (nW*heads, 2, 14,
+// 14, d) fp32. Outputs: dx; dwqkv (3C, C), dbqkv (3C), dwo (C, C), dbo (C)
+// and drhw (2, 14, 14, d) = (dRh, dRw), all fp32.
 extern "C" int iuvl_window_block_bwd(const void* xw, const void* g, const void* wqkv,
                                      const void* bqkv, const void* wo, const void* rh,
                                      const void* rw, void* f32buf, void* qkv, void* dqkv,
@@ -294,9 +328,10 @@ extern "C" int iuvl_window_block_bwd(const void* xw, const void* g, const void* 
                                      void* drel_part, void* dx, void* dwqkv, void* dbqkv,
                                      void* dwo, void* dbo, void* drhw, int n_windows, int C,
                                      int win, int head_dim, void* stream) {
-  if (win != kWin || head_dim != kHd || C % 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (win != kWin || C % 128 || C % head_dim || (head_dim != 64 && head_dim != 80))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int T = n_windows * kN, C3 = 3 * C, heads = C / kHd;
+  const int T = n_windows * kN, C3 = 3 * C, heads = C / head_dim;
   const bf16* x_ = static_cast<const bf16*>(xw);
   const bf16* g_ = static_cast<const bf16*>(g);
   const bf16* wqkv_ = static_cast<const bf16*>(wqkv);
@@ -311,10 +346,11 @@ extern "C" int iuvl_window_block_bwd(const void* xw, const void* g, const void* 
   IUVL_TRY((gemm_f32<false, true>(g_, static_cast<const bf16*>(wo), f32, T, C, C, s)));
   IUVL_TRY(round_bias(f32, nullptr, dob_, T, C, s));
   // 2. attention backward per (window, head)
+  const auto kernel = head_dim == 64 ? window_attn_bwd_kernel<64> : window_attn_bwd_kernel<80>;
+  const size_t smem = head_dim == 64 ? WinBwd<64>::kSmemAttn : WinBwd<80>::kSmemAttn;
   IUVL_TRY(static_cast<int>(cudaFuncSetAttribute(
-      window_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemAttn))));
-  window_attn_bwd_kernel<<<n_windows * heads, kThreads, kSmemAttn, s>>>(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem))));
+  kernel<<<n_windows * heads, kThreads, smem, s>>>(
       qkv_, dob_, static_cast<const float*>(rh), static_cast<const float*>(rw), obuf_, dqkv_,
       static_cast<bf16*>(pbuf), static_cast<bf16*>(dsbuf), static_cast<float*>(drel_part), C);
   IUVL_TRY(static_cast<int>(cudaGetLastError()));
@@ -326,5 +362,5 @@ extern "C" int iuvl_window_block_bwd(const void* xw, const void* g, const void* 
   IUVL_TRY(colsum(dqkv_, static_cast<float*>(dbqkv), T, C3, s));
   IUVL_TRY(colsum(g_, static_cast<float*>(dbo), T, C, s));
   return sum_parts(static_cast<const float*>(drel_part), static_cast<float*>(drhw),
-                   n_windows * heads, 2 * kTab, s);
+                   n_windows * heads, 2 * kWin * kWin * head_dim, s);
 }

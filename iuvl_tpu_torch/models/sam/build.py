@@ -24,10 +24,11 @@ PIXEL_STD = (58.395, 57.12, 57.375)
 TWOWAY_IMPLS = ("auto", "plain", "chunk", "chunk_plain")
 _NOT_PORTED = (
     "{field}={value!r} is not a choice of the port, which takes {allowed}: 'auto' "
-    "runs the CUDA kernels, 'plain' their plain versions; for twoway_impl, 'chunk' "
-    "the whole-chunk decode kernel (B16) and 'chunk_plain' its plain version. "
-    "Kernels not ported yet (B2b for attn_impl='rowbias', B14 for 'pallas_rp', B13 "
-    "for 'window') are listed in ROADMAP.md Queue B.")
+    "runs the CUDA kernels, 'plain' their plain versions; for attn_impl, 'rowbias' "
+    "and 'pallas_rp' every block's attention through B2b and B14; for twoway_impl, "
+    "'chunk' the whole-chunk decode kernel (B16) and 'chunk_plain' its plain version. "
+    "Kernels not ported yet (B13 for attn_impl='window') are listed in ROADMAP.md "
+    "Queue B.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,10 @@ class SamConfig:
     """``attn_impl`` / ``twoway_impl``: ``'auto'`` runs the CUDA kernels on
     CUDA tensors (their plain versions on the CPU); ``'plain'`` runs the
     plain PyTorch versions everywhere (the reference on the card).
+    ``attn_impl='rowbias'`` / ``'pallas_rp'`` run JAX's unfused encoder
+    route with every block's attention in B2b / B14 (forward and backward;
+    their plain versions on the CPU) and the plain block tail; their
+    rounding points are those of ``'plain'``, which is their reference.
     ``twoway_impl='chunk'`` decodes through the whole-chunk kernel (B16;
     a shared batch-1 image embedding), ``'chunk_plain'`` through its plain
     version (JAX's ``'chunk_xla'``)."""

@@ -16,6 +16,11 @@ both directions:
 - ``dense1x1``: 1x1 Conv kernel (1, 1, in, out)       <-> nn.Linear weight (out, in)
 - ``copy``:   the same array
 - ``rows``:   one (n, C) array <-> n port keys of (1, C) (``point_embeddings``)
+
+The table does not depend on ``attn_impl``: the fused route ('auto',
+'plain') and JAX's unfused one ('rowbias', 'pallas_rp') read the same
+parameters (qkv, proj, rel_pos_h/w, norm2, mlp), as the JAX modules keep one
+tree for every impl.
 """
 
 from __future__ import annotations

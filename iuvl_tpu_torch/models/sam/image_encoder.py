@@ -17,6 +17,15 @@ their plain versions):
   backward) with the projection in PyTorch, and B3 with its backward B10,
   on layouts made from the parameters inside the graph, so that every
   parameter gets its gradient.
+
+``attn_impl='rowbias'`` and ``'pallas_rp'`` take JAX's unfused route in
+every block, as its encoder does under those impls (``use_block`` and
+``use_tail`` need ``'auto'`` or ``'block'``): the qkv projection as a plain
+matmul, the attention through one kernel, B2b (``'rowbias'``) or B14
+(``'pallas_rp'``), forward and backward, then the relayout and the
+projection, and the plain block tail with autograd's backward. They read
+the same parameters as ``'auto'``, so the weight bridge (``convert.py``) is
+the same for every impl.
 """
 
 from __future__ import annotations
@@ -36,7 +45,16 @@ from ...ops.cuda.window_block import (window_attention_block,
 from ...ops.rel_pos_attention import rel_pos_attention_proj, rel_pos_tables
 from ...ops.resize import resize_axis
 
-ATTN_IMPLS = ("auto", "plain")
+# 'auto' / 'plain': the fused kernels B1-B3 (B9-B11 in training) or their
+# plain versions; 'rowbias' / 'pallas_rp': every block's attention through
+# B2b / B14 (ops/rel_pos_attention.py KERNEL_IMPLS).
+ATTN_IMPLS = ("auto", "plain", "rowbias", "pallas_rp")
+
+
+def fused(attn_impl: str) -> bool:
+    """Whether ``attn_impl`` runs the fused block kernels (B1, B2, B3) or
+    their plain versions, rather than JAX's unfused route."""
+    return attn_impl in ("auto", "plain")
 
 
 class LayerNorm2d(nn.Module):
@@ -76,9 +94,10 @@ def window_unpartition(windows: torch.Tensor, window: int, pad_hw, hw):
 
 class Attention(nn.Module):
     """Multi-head attention with decomposed rel-pos bias over an (H, W)
-    token grid. Windowed blocks run the whole body through
-    ``window_attention_block``; global blocks run the qkv projection as a
-    plain matmul (as in JAX) and ``rel_pos_attention_proj``."""
+    token grid. Under the fused impls windowed blocks run the whole body
+    through ``window_attention_block``; global blocks, and every block
+    under 'rowbias' and 'pallas_rp', run the qkv projection as a plain
+    matmul (as in JAX) and ``rel_pos_attention_proj``."""
 
     def __init__(self, dim: int, num_heads: int, input_size: tuple[int, int],
                  windowed: bool, dtype: torch.dtype, attn_impl: str):
@@ -105,17 +124,18 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
+        block = self.windowed and fused(self.attn_impl)
         if needs_grad(x, *self.parameters()):
             wqkv, bqkv, wo, bo = (self.qkv.weight, self.qkv.bias, self.proj.weight,
                                   self.proj.bias)
             rh, rw = rel_pos_tables(self.rel_pos_h, self.rel_pos_w, (h, w))
-            if self.windowed:
+            if block:
                 out = window_attention_block_train(x.reshape(b, h * w, c), wqkv, bqkv, wo, bo,
                                                    rh, rw, self.num_heads, self.attn_impl)
                 return out.reshape(b, h, w, c)
         else:
             wqkv, bqkv, wo, bo, rh, rw = self.weights((h, w))
-            if self.windowed:
+            if block:
                 fn = (window_attention_block if self.attn_impl == "auto"
                       else window_attention_block_plain)
                 out = fn(x.reshape(b, h * w, c), wqkv, bqkv, wo, bo, rh, rw, self.num_heads)
@@ -162,7 +182,14 @@ class Block(nn.Module):
         if self.window_size > 0:
             y = window_unpartition(y, self.window_size, pad_hw, (h, w))
         x2, y2 = x.reshape(-1, c), y.reshape(-1, c)
-        if needs_grad(x, y, *self.norm2.parameters(), *self.mlp.parameters()):
+        grad = needs_grad(x, y, *self.norm2.parameters(), *self.mlp.parameters())
+        if not fused(self.attn_impl):  # JAX's _tail_xla, autograd's backward
+            n2, mlp, dt = self.norm2, self.mlp, self.dtype
+            weights = (n2.weight, n2.bias, mlp.lin1.weight.to(dt), mlp.lin1.bias.to(dt),
+                       mlp.lin2.weight.to(dt).t(), mlp.lin2.bias.to(dt)) if grad \
+                else self.tail_weights()
+            out = block_tail_plain(x2, y2, *weights)
+        elif grad:
             n2, mlp = self.norm2, self.mlp
             out = block_tail_train(x2, y2, n2.weight, n2.bias, mlp.lin1.weight, mlp.lin1.bias,
                                    mlp.lin2.weight, mlp.lin2.bias, self.attn_impl)

@@ -343,8 +343,8 @@ class MaskDecoder(nn.Module):
         two-way transformer, the hypernetwork and the upscale in
         ``decode_tail`` (B16 for ``'chunk'`` on CUDA tensors, its plain
         version on the CPU and for ``'chunk_plain'``); the tokens padded to
-        16 slots. ``hyper_in`` and ``iou_pred`` come from the output tokens
-        as in the per-op path."""
+        a multiple of 16 slots (B16 takes 16 and 32). ``hyper_in`` and
+        ``iou_pred`` come from the output tokens as in the per-op path."""
         if src.shape[0] != 1:
             raise ValueError(
                 "chunk decode is the one-encode/many-decode serving path and needs a shared "

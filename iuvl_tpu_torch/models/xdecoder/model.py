@@ -39,7 +39,10 @@ class SysLearnerConfig:
     """The JAX ``SysLearnerConfig``'s fields that the ported modules read;
     the others raise unless left at their defaults. ``attn_impl``:
     ``'auto'`` runs the CUDA kernels on CUDA tensors (their plain versions
-    on the CPU), ``'plain'`` the plain PyTorch versions everywhere."""
+    on the CPU), ``'plain'`` the plain PyTorch versions everywhere;
+    ``'rowbias'`` and ``'pallas_rp'`` reach the image encoder (every block's
+    attention in B2b / B14, see ``SamConfig``), the other modules run their
+    kernels as under ``'auto'``."""
 
     sam_size: str = "base"
     img_size: int = 1024
@@ -73,6 +76,13 @@ class SysLearnerConfig:
                 f"SysLearnerConfig: {asked} not ported yet (ROADMAP.md lists them)")
 
     @property
+    def kernels_impl(self) -> str:
+        """The impl of the modules outside the image encoder (the pixel
+        decoder's deformable core, the criterion): ``'plain'`` or
+        ``'auto'``; JAX's ``attn_impl`` reaches the encoder only."""
+        return "plain" if self.attn_impl == "plain" else "auto"
+
+    @property
     def num_queries(self) -> int:
         return self.mask_proposals + 1
 
@@ -100,7 +110,7 @@ class SysLearner(nn.Module):
         d = cfg.syslearner_dim
         self.pixel_decoder = DeformablePixelDecoder(
             conv_dim=d, mask_dim=d, num_layers=cfg.pixel_decoder_layers, n_heads=cfg.nheads,
-            dtype=dtype, msdeform_impl=cfg.msdeform_impl, attn_impl=cfg.attn_impl)
+            dtype=dtype, msdeform_impl=cfg.msdeform_impl, attn_impl=cfg.kernels_impl)
         self.predictor = UnifiedDecoder(
             hidden_dim=d, dim_proj=d, num_queries=cfg.num_queries, contxt_len=cfg.contxt_len,
             nheads=cfg.nheads, dim_feedforward=cfg.dim_feedforward, mask_dim=d, dtype=dtype)

@@ -42,7 +42,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "iuvl_block_tail": (P,) * 9 + (I, I, I, F, P),
     "iuvl_window_block": (P,) * 10 + (I, I, I, I, P),
-    "iuvl_rowbias_proj": (P,) * 8 + (I, I, I, I, I, P),
+    "iuvl_rowbias_proj": (P,) * 9 + (I,) * 6 + (P,),
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
     "iuvl_t2i_stream": (P,) * 8 + (I, I, I, I, P),
     "iuvl_i2t_block_step": (P,) * 11 + (I, I, I, I, F, F, P),
@@ -57,7 +57,11 @@ SIGNATURES = {
     "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),
-    "iuvl_decode_tail": (P,) + (I,) * 4 + (P,),
+    "iuvl_decode_tail": (P,) + (I,) * 5 + (P,),
+    "iuvl_rowbias_fwd": (P,) * 7 + (I,) * 5 + (P,),
+    "iuvl_relpos_fwd": (P,) * 9 + (I,) * 5 + (P,),
+    "iuvl_rowbias_bwd": (P,) * 13 + (I,) * 5 + (P,),
+    "iuvl_relpos_bwd": (P,) * 15 + (I,) * 5 + (P,),
 }
 
 

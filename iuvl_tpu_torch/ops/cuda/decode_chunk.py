@@ -45,7 +45,8 @@ from ..common import gelu
 from .build import launch, require
 from .twoway_attention import _heads, _merge, t2i_stream_plain
 
-C, I, HEADS, SLOTS, M, MLP = 256, 128, 8, 16, 4, 2048
+C, I, HEADS, M, MLP = 256, 128, 8, 4, 2048
+SLOTS = (16, 32)  # the kernel's token slots, Tp: JAX pads a prompt's tokens to a multiple of 16
 ROWS = 256  # N must be a multiple: the kernel's row passes split N in 8 parts of 32-row tiles
 LN_EPS, LN2D_EPS = 1e-5, 1e-6
 ATTN_SITES = ("self1", "t2i1", "i2t1", "final")
@@ -199,10 +200,10 @@ def _operands(t, tpe, keys0, key_pe, W):
     return ops
 
 
-def _shapes(b: int, n: int) -> dict:
+def _shapes(b: int, n: int, tp: int = SLOTS[0]) -> dict:
     c4, c8 = C // 4, C // 8
-    s = dict(t=(b, SLOTS, C), tpe=(b, SLOTS, C), keys0=(1, n, C), qp0=(n, I), pewq1=(n, I),
-             pewk1=(n, I), pewkf=(n, I), kbd0=(b, SLOTS, I), vbd0=(b, SLOTS, I))
+    s = dict(t=(b, tp, C), tpe=(b, tp, C), keys0=(1, n, C), qp0=(n, I), pewq1=(n, I),
+             pewk1=(n, I), pewkf=(n, I), kbd0=(b, tp, I), vbd0=(b, tp, I))
     s.update({"i2t0.ow": (C, I), "i2t0.ob": (C,)})
     for site in ATTN_SITES:
         width = C if site == "self1" else I
@@ -221,9 +222,10 @@ def _shapes(b: int, n: int) -> dict:
 def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
                 return_keys2: bool = False):
     """The whole-chunk decode tail: the CUDA kernel for CUDA tensors (bf16,
-    C 256, 8 heads of 16 in the cross attentions, Tp 16 slots, M 4 mask
-    tokens, MLP width 2048, N % 256 == 0; LayerNorm params fp32), the plain
-    version for CPU tensors. Returns (tokens_out (B, Tp, C), masks_flat
+    C 256, 8 heads of 16 in the cross attentions, Tp 16 or 32 slots (up to
+    32 tokens; the token passes hold Tp x 2048 MLP rows in shared memory),
+    M 4 mask tokens, MLP width 2048, N % 256 == 0; LayerNorm params fp32),
+    the plain version for CPU tensors. Returns (tokens_out (B, Tp, C), masks_flat
     (B, N, 16 M) fp32, columns (di, dj, ei, ej, t)), and with
     ``return_keys2`` also keys2 (B, N, C), the keys after block 1 (on the
     card the kernel's workspace, which ends holding them)."""
@@ -234,33 +236,33 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
     n = keys0.shape[1]
     internal = W["i2t0"]["qw"].shape[0]
     m = W["hyper"][0][0].shape[0]
-    if (c, internal, n_heads, tp, m) != (C, I, HEADS, SLOTS, M) or n % ROWS \
-            or not 1 <= t_valid <= SLOTS or keys0.shape[0] != 1:
+    if (c, internal, n_heads, m) != (C, I, HEADS, M) or tp not in SLOTS or n % ROWS \
+            or not 1 <= t_valid <= tp or keys0.shape[0] != 1:
         raise ValueError(
             f"decode_tail kernel: unsupported C={c}, internal {internal}, heads {n_heads} "
             f"(head width {internal // n_heads}), Tp={tp}, t_valid {t_valid}, M={m}, N={n}, "
-            f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp 16, "
-            f"1 <= t_valid <= 16, M 4, N % {ROWS} == 0, one shared image)")
+            f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp in "
+            f"{SLOTS}, 1 <= t_valid <= Tp, M 4, N % {ROWS} == 0, one shared image)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys0.device
     ops = _operands(t, tpe, keys0, key_pe, W)
-    shapes = _shapes(b, n)
+    shapes = _shapes(b, n, tp)
     for name, x in ops:
         require("decode_tail", name, x, f32 if name.startswith(("ln", "up.ln")) else bf,
                 shapes[name], dev)
         if x.data_ptr() % 32:  # tensor-core fragments load 32-byte aligned tiles
             raise ValueError(f"decode_tail: {name} is not 32-byte aligned")
-    tok = torch.empty((b, SLOTS, C), dtype=bf, device=dev)
+    tok = torch.empty((b, tp, C), dtype=bf, device=dev)
     masks = torch.empty((b, n, 16 * M), dtype=f32, device=dev)
     work = [torch.empty((b, n, C), dtype=bf, device=dev),             # keys1, then keys2
-            torch.empty((b, 8, HEADS, SLOTS, 18), dtype=f32, device=dev),  # softmax partials
-            torch.empty((b, SLOTS, C), dtype=bf, device=dev),          # token state
-            torch.empty((b, SLOTS, I), dtype=bf, device=dev),          # t2i queries
-            torch.empty((b, 2, SLOTS, I), dtype=bf, device=dev),       # i2t1 token k, v
+            torch.empty((b, 8, HEADS, tp, 18), dtype=f32, device=dev),  # softmax partials
+            torch.empty((b, tp, C), dtype=bf, device=dev),             # token state
+            torch.empty((b, tp, I), dtype=bf, device=dev),             # t2i queries
+            torch.empty((b, 2, tp, I), dtype=bf, device=dev),          # i2t1 token k, v
             torch.empty((b, M, C // 8), dtype=bf, device=dev)]         # hypernetwork out
     ptrs = [x.data_ptr() for _, x in ops] + [tok.data_ptr(), masks.data_ptr()] \
         + [x.data_ptr() for x in work]
     array = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    launch("iuvl_decode_tail", dev, ctypes.addressof(array), len(ptrs), b, n, t_valid)
+    launch("iuvl_decode_tail", dev, ctypes.addressof(array), len(ptrs), b, n, tp, t_valid)
     decode_tail.launches += 1
     return (tok, masks, work[0]) if return_keys2 else (tok, masks)
 

@@ -33,14 +33,13 @@ def block_tail_plain(x, a, scale, bias, w1, b1, w2t, b2, eps=EPS):
 
 def block_tail(x, a, scale, bias, w1, b1, w2t, b2):
     """Fused block tail for flattened token rows (T, C): the CUDA kernel for
-    CUDA tensors (bf16, T % 32 == 0, C in {768, 1024, 1280}, H % 128 == 0),
-    the plain version for CPU tensors. Arguments as
-    :func:`block_tail_plain`."""
+    CUDA tensors (bf16, any T, C in {768, 1024, 1280}, H % 128 == 0), the
+    plain version for CPU tensors. Arguments as :func:`block_tail_plain`."""
     if x.device.type == "cpu":
         return block_tail_plain(x, a, scale, bias, w1, b1, w2t, b2)
     t, c = x.shape
     hidden = w1.shape[0]
-    if t % 32 or c not in (768, 1024, 1280) or hidden % 128:
+    if c not in (768, 1024, 1280) or hidden % 128:
         raise ValueError(f"block_tail kernel: unsupported T={t}, C={c}, H={hidden}")
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     args = dict(x=x, a=a, scale=scale, bias=bias, w1=w1, b1=b1, w2t=w2t, b2=b2)
@@ -106,7 +105,8 @@ def block_tail_backward_plain(x, a, g, scale, bias, w1, b1, w2t, eps=EPS):
 
 def block_tail_backward(x, a, g, scale, bias, w1, b1, w2t):
     """Backward of :func:`block_tail`: the CUDA kernel for CUDA tensors
-    (bf16, C % 128 == 0, H % 128 == 0), the plain version for CPU tensors.
+    (bf16, any T, C % 128 == 0, H % 128 == 0), the plain version for CPU
+    tensors.
     Arguments and results as :func:`block_tail_backward_plain`."""
     if x.device.type == "cpu":
         return block_tail_backward_plain(x, a, g, scale, bias, w1, b1, w2t)

@@ -18,7 +18,7 @@ import torch
 
 from .build import launch, require
 
-C, I, HEADS, MAX_TOKENS = 256, 128, 8, 16
+C, I, HEADS = 256, 128, 8
 LN_EPS = 1e-5
 
 
@@ -49,18 +49,17 @@ def t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
 
 def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
     """Token -> image attention streamed over the keys: the CUDA kernel for
-    CUDA tensors (bf16, C 256, I 128, 8 heads, T <= 16, N % 32 == 0), the
+    CUDA tensors (bf16, C 256, I 128, 8 heads, any T, N % 32 == 0), the
     plain version for CPU tensors."""
     if keys.device.type == "cpu":
         return t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads)
     b, t, i = q.shape
     bk_keys, n, c = keys.shape
-    if (c, i, heads) != (C, I, HEADS) or not 1 <= t <= MAX_TOKENS or n % 32 \
-            or bk_keys not in (1, b):
+    if (c, i, heads) != (C, I, HEADS) or t < 1 or n % 32 or bk_keys not in (1, b):
         raise ValueError(
             f"t2i_stream kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            "T <= 16, N % 32 == 0)")
+            "T >= 1, N % 32 == 0)")
     bf, dev = torch.bfloat16, keys.device
     args = dict(q=q, keys=keys, pe_wk=pe_wk, wk=wk, bk=bk, wv=wv, bv=bv)
     shapes = dict(q=(b, t, I), keys=(bk_keys, n, C), pe_wk=(n, I), wk=(I, C), bk=(I,),
@@ -97,18 +96,17 @@ def i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads:
 def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
     """Image -> token block step (attention, out-projection, residual,
     LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
-    (bf16, C 256, I 128, 8 heads, T <= 16, N % 32 == 0; LN params fp32),
-    the plain version for CPU tensors."""
+    (bf16, C 256, I 128, 8 heads, any T, N % 32 == 0; LN params fp32), the
+    plain version for CPU tensors."""
     if keys.device.type == "cpu":
         return i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
     b, t, i = kp.shape
     bk_keys, n, c = keys.shape
-    if (c, i, heads) != (C, I, HEADS) or not 1 <= t <= MAX_TOKENS or n % 32 \
-            or bk_keys not in (1, b):
+    if (c, i, heads) != (C, I, HEADS) or t < 1 or n % 32 or bk_keys not in (1, b):
         raise ValueError(
             f"i2t_block_step kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            "T <= 16, N % 32 == 0)")
+            "T >= 1, N % 32 == 0)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys.device
     args = dict(keys=keys, pe_wq=pe_wq, kp=kp, vp=vp, wq=wq, bq=bq, wo=wo, bo=bo,
                 ln_w=ln_w, ln_b=ln_b)

@@ -16,7 +16,7 @@ import torch
 from ..rel_pos_attention import rel_pos_features, rowbias_attention
 from .build import launch, require
 
-WIN, HEAD_DIM = 14, 64
+WIN, HEAD_DIMS = 14, (64, 80)  # ViT-B/L heads of 64, ViT-H of 80
 
 
 def window_attention_block_plain(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
@@ -36,20 +36,20 @@ def window_attention_block_plain(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
 
 def window_attention_block(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
     """Fused windowed attention body: the CUDA kernel for CUDA tensors
-    (bf16, win 14, head_dim 64, C % 128 == 0), the plain version for CPU
-    tensors. Arguments as :func:`window_attention_block_plain`."""
+    (bf16, win 14, head_dim 64 or 80, C % 128 == 0), the plain version for
+    CPU tensors. Arguments as :func:`window_attention_block_plain`."""
     if xw.device.type == "cpu":
         return window_attention_block_plain(xw, wqkv, bqkv, wo, bo, rh, rw, heads)
     nw, n, c = xw.shape
-    win = rh.shape[0]
-    if win != WIN or c != heads * HEAD_DIM or c % 128 or n != win * win:
+    win, d = rh.shape[0], c // heads
+    if win != WIN or c != heads * d or d not in HEAD_DIMS or c % 128 or n != win * win:
         raise ValueError(
             f"window_attention_block kernel: unsupported win={win}, C={c}, "
-            f"heads={heads}, N={n} (needs win 14, head_dim 64, C % 128 == 0)")
+            f"heads={heads}, N={n} (needs win 14, head_dim 64 or 80, C % 128 == 0)")
     bf, f32, dev = torch.bfloat16, torch.float32, xw.device
     args = dict(xw=xw, wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo, rh=rh, rw=rw)
     shapes = dict(xw=(nw, n, c), wqkv=(3 * c, c), bqkv=(3 * c,), wo=(c, c),
-                  bo=(c,), rh=(win, win, HEAD_DIM), rw=(win, win, HEAD_DIM))
+                  bo=(c,), rh=(win, win, d), rw=(win, win, d))
     for name, tensor in args.items():
         dtype = bf if name in ("xw", "wqkv", "wo") else f32
         require("window_attention_block", name, tensor, dtype, shapes[name], dev)
@@ -59,7 +59,7 @@ def window_attention_block(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
     out = torch.empty_like(xw)
     launch("iuvl_window_block", dev, *(t_.data_ptr() for t_ in args.values()),
            qkv_scratch.data_ptr(), o_scratch.data_ptr(), out.data_ptr(),
-           nw, c, win, HEAD_DIM)
+           nw, c, win, d)
     window_attention_block.launches += 1
     return out
 
@@ -120,15 +120,15 @@ def window_block_backward(xw, g, wqkv, bqkv, wo, rh, rw, heads: int):
     if xw.device.type == "cpu":
         return window_block_backward_plain(xw, g, wqkv, bqkv, wo, rh, rw, heads)
     nw, n, c = xw.shape
-    win = rh.shape[0]
-    if win != WIN or c != heads * HEAD_DIM or c % 128 or n != win * win:
+    win, d = rh.shape[0], c // heads
+    if win != WIN or c != heads * d or d not in HEAD_DIMS or c % 128 or n != win * win:
         raise ValueError(
             f"window_block_backward kernel: unsupported win={win}, C={c}, "
-            f"heads={heads}, N={n} (needs win 14, head_dim 64, C % 128 == 0)")
+            f"heads={heads}, N={n} (needs win 14, head_dim 64 or 80, C % 128 == 0)")
     bf, f32, dev = torch.bfloat16, torch.float32, xw.device
     args = dict(xw=xw, g=g, wqkv=wqkv, bqkv=bqkv, wo=wo, rh=rh, rw=rw)
     shapes = dict(xw=(nw, n, c), g=(nw, n, c), wqkv=(3 * c, c), bqkv=(3 * c,), wo=(c, c),
-                  rh=(win, win, HEAD_DIM), rw=(win, win, HEAD_DIM))
+                  rh=(win, win, d), rw=(win, win, d))
     for name, tensor in args.items():
         dtype = bf if name in ("xw", "g", "wqkv", "wo") else f32
         require("window_block_backward", name, tensor, dtype, shapes[name], dev)
@@ -136,13 +136,13 @@ def window_block_backward(xw, g, wqkv, bqkv, wo, rh, rw, heads: int):
     empty = lambda *s, dtype=bf: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
     scratch = (empty(t, 3 * c, dtype=f32), empty(t, 3 * c), empty(t, 3 * c), empty(t, c),
                empty(t, c), empty(nw * heads, n_pad, n_pad), empty(nw * heads, n_pad, n_pad),
-               empty(nw * heads, 2, win, win, HEAD_DIM, dtype=f32))
+               empty(nw * heads, 2, win, win, d, dtype=f32))
     dx = torch.empty_like(xw)
     grads = (empty(3 * c, c, dtype=f32), empty(3 * c, dtype=f32), empty(c, c, dtype=f32),
-             empty(c, dtype=f32), empty(2, win, win, HEAD_DIM, dtype=f32))
+             empty(c, dtype=f32), empty(2, win, win, d, dtype=f32))
     launch("iuvl_window_block_bwd", dev, *(t_.data_ptr() for t_ in args.values()),
            *(t_.data_ptr() for t_ in scratch), dx.data_ptr(),
-           *(t_.data_ptr() for t_ in grads), nw, c, win, HEAD_DIM)
+           *(t_.data_ptr() for t_ in grads), nw, c, win, d)
     window_block_backward.launches += 1
     dwqkv, dbqkv, dwo, dbo, drhw = grads
     return dx, dwqkv, dbqkv, dwo, dbo, drhw[0], drhw[1]

@@ -62,24 +62,88 @@ def decomposed_rel_pos_bias(q, rel_pos_h, rel_pos_w, hw):
     return bias.reshape(b, heads, n, n)
 
 
-def rowbias_attention(q_scaled, k, v, relh, relw, w: int):
-    """softmax(q_scaled @ k^T + relh[., k // w] + relw[., k % w]) @ v with the
-    scores and softmax in fp32 and the probabilities cast to v's dtype.
-    q_scaled is pre-scaled; relh/relw come from :func:`rel_pos_features`."""
+def rowbias_scores(q_scaled, k, relh, relw, w: int, eh=None, ew=None):
+    """fp32 scores ``q_scaled @ k^T + bias``. Without expanders the bias is
+    ``relh[., key // w] + relw[., key % w]`` (B2b's indexed bias); with
+    expanders eh (h, N) and ew (w, N) it is ``relh @ eh + relw @ ew``
+    (B14's), each product in fp32."""
     s = torch.matmul(q_scaled.float(), k.float().transpose(-1, -2))
     n_k = k.shape[-2]
-    s = s + relh.float().repeat_interleave(w, dim=-1)[..., :n_k]
-    s = s + relw.float().repeat(1, 1, 1, n_k // w)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p, v)
+    if eh is None:
+        s = s + relh.float().repeat_interleave(w, dim=-1)[..., :n_k]
+        return s + relw.float().repeat(1, 1, 1, n_k // w)
+    return s + relh.float() @ eh.float() + relw.float() @ ew.float()
 
 
-def rel_pos_attention(q, k, v, rel_pos_h, rel_pos_w, hw):
-    """Rel-pos attention over an (h, w) grid, (B, heads, N, d) -> same.
-    The bias features are rounded to the working dtype before they join
-    the fp32 scores, as in the JAX augmented route (``impl='xla'``)."""
-    relh, relw = rel_pos_features(q, *rel_pos_tables(rel_pos_h, rel_pos_w, hw))
-    return rowbias_attention(q * (q.shape[-1] ** -0.5), k, v, relh, relw, hw[1])
+def rowbias_attention(q_scaled, k, v, relh, relw, w: int, eh=None, ew=None,
+                      return_lse: bool = False):
+    """softmax(:func:`rowbias_scores`) @ v with the scores and softmax in
+    fp32 and the probabilities cast to v's dtype. q_scaled is pre-scaled;
+    relh/relw come from :func:`rel_pos_features`. With ``return_lse`` also
+    the per-row logsumexp of the scores (fp32), as the flash kernels keep
+    it for their backward."""
+    s = rowbias_scores(q_scaled, k, relh, relw, w, eh, ew)
+    out = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def rowbias_supported(n: int, d: int, hw, block_k: int = 1024) -> bool:
+    """Whether the row-bias kernels take a global block of n tokens on the
+    grid hw with head dim d: the port's copy of ``iuvl_tpu``
+    ``rowbias_supported`` (``ops/pallas/flash_attention.py``), which picks
+    the serving route of ``impl='auto'`` (B2 where it holds, the augmented
+    route through B11 otherwise)."""
+    h, w = hw
+    block_k = min(block_k, max(128, 1 << (n - 1).bit_length()))
+    return (n == h * w and d + w <= 128 and block_k % w == 0
+            and n % block_k == 0 and n % min(2048, n) == 0)
+
+
+def onehot_expanders(hw, dtype, device):
+    """B14's expanders for the (h, w) grid: eh (h, N) with eh[a, j] =
+    1[j // w == a] and ew (w, N) with ew[a, j] = 1[j % w == a], made on
+    ``device`` in ``dtype`` (JAX's ``impl='pallas_rp'`` route)."""
+    h, w = hw
+    col = torch.arange(h * w, device=device)
+    eh = (torch.arange(h, device=device)[:, None] == col[None] // w).to(dtype)
+    ew = (torch.arange(w, device=device)[:, None] == col[None] % w).to(dtype)
+    return eh, ew
+
+
+KERNEL_IMPLS = ("rowbias", "pallas_rp")  # impls whose attention is one kernel, B2b or B14
+
+
+def _attention(q, k, v, rh, rw, impl: str):
+    """Rel-pos attention on the expanded tables rh (h, h, d), rw (w, w, d).
+    ``'rowbias'``: B2b (JAX's ``_rowbias_route``); ``'pallas_rp'``: B14 on
+    the one-hot expanders (JAX's ``impl='pallas_rp'``); each
+    differentiable, its kernels on CUDA tensors and its plain versions on
+    CPU ones. ``'auto'`` and ``'plain'``: the plain math, bias features
+    rounded to the working dtype (JAX's augmented route, ``impl='xla'``).
+    ``'window'`` (B13) is not ported."""
+    if impl == "window":
+        raise NotImplementedError(
+            "rel_pos_attention impl='window' runs B13 (window_rel_attention), which the port "
+            "does not have yet: ROADMAP.md Queue B")
+    relh, relw = rel_pos_features(q, rh, rw)
+    hw = (rh.shape[0], rw.shape[0])
+    qs = q * (q.shape[-1] ** -0.5)
+    if impl not in KERNEL_IMPLS:
+        return rowbias_attention(qs, k, v, relh, relw, hw[1])
+    from .cuda import flash_attention as fa  # it imports this module
+
+    if impl == "rowbias":
+        return fa.flash_attention_rowbias(qs, k, v, relh, relw, hw[1])
+    return fa.flash_attention_relpos(qs, k, v, relh, relw,
+                                     *onehot_expanders(hw, q.dtype, q.device))
+
+
+def rel_pos_attention(q, k, v, rel_pos_h, rel_pos_w, hw, impl: str = "plain"):
+    """Rel-pos attention over an (h, w) grid, (B, heads, N, d) -> same,
+    through ``impl`` (see :func:`_attention`). The bias features are
+    rounded to the working dtype before they join the fp32 scores, as in
+    every JAX route."""
+    return _attention(q, k, v, *rel_pos_tables(rel_pos_h, rel_pos_w, hw), impl)
 
 
 def rel_pos_attention_naive(q, k, v, rel_pos_h, rel_pos_w, hw):
@@ -111,25 +175,36 @@ def augment_qk_rel_pos(q, k, rh, rw):
 
 
 def rel_pos_attention_proj(q, k, v, rh, rw, wo, bo, impl: str = "auto"):
-    """Global-block attention with the output projection folded in:
-    ``(B, N, heads*d) @ wo^T + bo`` in token-major (B, N, C) layout; rh, rw
-    from :func:`rel_pos_tables`; wo, bo rounded to q's dtype where used.
+    """Rel-pos attention with the output projection: ``(B, N, heads*d) @
+    wo^T + bo`` in token-major (B, N, C) layout; rh, rw from
+    :func:`rel_pos_tables`; wo, bo rounded to q's dtype where used.
 
-    The route depends on differentiation, as the JAX grad switch does
-    (``_global_attention_proj_gradswitch``):
+    Under ``impl`` 'rowbias' or 'pallas_rp' (and 'window', which raises)
+    every block takes JAX's ``_attn_then_proj``: :func:`_attention`, the
+    relayout and the projection, autograd taking the backward.
 
-    - not recorded by autograd (serving): the relh/relw features come from
-      the unscaled q, and attention runs on the pre-scaled q through
-      ``flash_attention_rowbias_proj`` (B2: the CUDA kernel for CUDA tensors
-      under ``impl='auto'``, its plain version on the CPU or under
-      ``impl='plain'``); wo in q's dtype, bo fp32;
-    - recorded (training, :func:`~iuvl_tpu_torch.ops.common.needs_grad`):
-      :func:`augment_qk_rel_pos`, then ``flash_attention`` (B11 forward and
-      backward, or their plain versions), the relayout and the projection
-      as plain PyTorch, whose backward autograd takes."""
+    Under 'auto' (the kernels) and 'plain' (their plain versions) the route
+    depends on differentiation, as the JAX grad switch does
+    (``_global_attention_proj_gradswitch``), and on the shape, as JAX's
+    ``rowbias_supported`` decides:
+
+    - not recorded by autograd (serving), where :func:`rowbias_supported`
+      holds: the relh/relw features come from the unscaled q, and attention
+      runs on the pre-scaled q through ``flash_attention_rowbias_proj``
+      (B2); wo in q's dtype, bo fp32;
+    - recorded (training, :func:`~iuvl_tpu_torch.ops.common.needs_grad`),
+      or serving where B2 does not take the shape (ViT-H's head dim 80, a
+      grid that is no multiple of 1024 tokens): :func:`augment_qk_rel_pos`,
+      then ``flash_attention`` (B11 forward and backward), the relayout and
+      the projection as plain PyTorch, whose backward autograd takes."""
     from .cuda import flash_attention as fa  # it imports this module
 
-    if needs_grad(q, k, v, rh, rw, wo, bo):
+    if impl not in ("auto", "plain"):
+        out = _attention(q, k, v, rh, rw, impl)
+        b, heads, n, d = out.shape
+        return linear(out.transpose(1, 2).reshape(b, n, heads * d), wo, bo, q.dtype)
+    hw = (rh.shape[0], rw.shape[0])
+    if needs_grad(q, k, v, rh, rw, wo, bo) or not rowbias_supported(q.shape[2], q.shape[3], hw):
         q_aug, k_aug = augment_qk_rel_pos(q, k, rh, rw)
         out = fa.flash_attention(q_aug, k_aug, v, impl=impl)
         b, heads, n, d = out.shape

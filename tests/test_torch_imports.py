@@ -150,7 +150,7 @@ def test_builders_default_to_the_card(builder, monkeypatch):
 
 @pytest.mark.parametrize("field, value", [("attn_impl", "pallas"), ("attn_impl", "block"),
                                           ("twoway_impl", "pallas"),
-                                          ("attn_impl", "rowbias")])
+                                          ("attn_impl", "window")])
 def test_unported_impls_raise(field, value):
     from iuvl_tpu_torch.models.sam import SamConfig
 
