@@ -1,5 +1,6 @@
 """Drive the port's SAM serving paths, automatic mask generation, its seg
-train step and its seg eval on one CUDA card, and check them.
+train step, its seg eval and its interactive segmentation on one CUDA card,
+and check them.
 
     python3 chip_smoke.py
 
@@ -13,9 +14,11 @@ Phases (any failure raises, so the exit code is non-zero):
    its backward glue B8 at the res3 level of the batch-2 train step; the
    one-hot level B15 at the res5 level of the hybrid eval; the whole-chunk
    decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
-   slots; B2b and B14, forward and backward, at the windowed shape (300
-   (window, head) pairs of N 196) and the global one (12 heads of N 4096),
-   each shape a row of its own). Every output's relative L2 error must stay within its own bound
+   slots, and again at 48 and 64 slots; B2b and B14, forward and backward,
+   and B13 at the windowed shape (300 (window, head) pairs of N 196) and
+   the global one (12 heads of N 4096), each shape a row of its own; B17,
+   which no path runs, at the shape of B7's d_value scatter and at a skewed
+   case). Every output's relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
    rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
    a reduction that misses its last 16 rows, a tap at the wrong row, the
@@ -26,7 +29,8 @@ Phases (any failure raises, so the exit code is non-zero):
    more than its bound, and each output's bound must catch some fault. B8's two entry
    points must agree exactly. Times from CUDA events after a warm-up; for
    B11, B12, B2b, B14 and B7's gather and scatter also the PyTorch call that
-   computes the same function (timed only, never a path). Then the global-block grad
+   computes the same function (timed only, never a path); for B13 SDPA on
+   the materialised bias, for B17 ``index_add_``. Then the global-block grad
    switch: the training route (B11 + projection) against the serving route
    (B2) on the same inputs.
 4. serving: SAM ViT-B bf16 with seeded random weights answers REQUESTS
@@ -51,7 +55,9 @@ Phases (any failure raises, so the exit code is non-zero):
    decode (B16 at 32 slots), each gated against its plain paths. Then the
    same REQUESTS requests through attn_impl 'rowbias' and 'pallas_rp'
    (JAX's unfused encoder route: B2b / B14 in all 12 blocks, no B1-B3),
-   gated against the plain paths.
+   gated against the plain paths, and through attn_impl 'window' (B13 in
+   all 12 blocks, 12 launches a request), gated against 'window_plain' (B13's
+   plain version: its rounding points are not 'plain''s).
    Shapes: the encoder at ViT-H 1024^2, ViT-B 512^2 and ViT-B 800^2 (depth
    cut to one windowed and one global block) through 'auto', the serving
    encode and the training route's backward gated against plain bf16 and
@@ -77,7 +83,13 @@ Phases (any failure raises, so the exit code is non-zero):
    and 'pallas_rp' and at batch 2 under 'rowbias' (B2b / B14 forward and
    backward in every block, the plain tail; no control pair), each gated
    on its gradient groups and its loss terms pooled over GATE_BATCHES
-   batches; their one-batch loss ratios are printed, not gated.
+   batches; their one-batch loss ratios are printed, not gated. Last, at
+   batch 1 under 'window' (B13's forward in every block, its backward the
+   plain augmented recompute; the plain paths 'window_plain'), gated the
+   same way but for its gradient groups, which are gated pooled over
+   POOLED_GRADS batches at the first step's weights (one batch reads sound
+   paths anywhere in 0.45-1.62; PERF.md §6), with each path's peak
+   memory.
 6. eval: ``SysLearner.evaluate_seg`` (the same full-width config, bf16,
    batch 1) on EVAL_IMAGES seeded 1024^2 images with synthetic gt, with the
    134 COCO panoptic class embeddings (80 HashWord-tokenized templates a
@@ -92,7 +104,21 @@ Phases (any failure raises, so the exit code is non-zero):
    pipeline (semantic, panoptic and instance heads into the mIoU, PQ and
    AP evaluators) over the images, its launches counted, the host times of
    the post-processing and the metrics printed.
-7. prints the kernel table as one JSON line, the nvidia-smi line, and
+7. interactive: the full-width SysLearner (bf16, seeded weights), one
+   seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
+   clicks at their conv-dt argmax; ``encode_interactive`` once, then the
+   20-round click loop (20 click slots padded with label -1: 26 tokens a
+   prompt) through ``decode_interactive`` under twoway_impl 'auto' (B4-B6)
+   and 'chunk' (B16 at 32 slots), launches checked each round. The kernel
+   path's prompts are replayed through the plain bf16 and fp32 paths: its
+   encode products, SAM's prompt decode at rounds 1, 10 and 20 and the
+   unified decoder's logits pooled over the 20 rounds no further from fp32
+   than SLICE_FACTOR times plain bf16's (one round's logits are printed,
+   not gated: the unified decoder's mask attention thresholds its previous
+   logits, and a sound path reads up to 1.60x on one round). Encode ms, ms
+   a round, NoC and mIoU@k, and the p50 prompt latency of bench.py's
+   protocol are printed.
+8. prints the kernel table as one JSON line, the nvidia-smi line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -139,8 +165,10 @@ KERNEL_BOUNDS = {
     "onehot_deform_level_forward": {"out": 3e-5},
     # B16: the whole decode tail in bf16, every rounding point of the plain
     # version but the t2i softmax's (unnormalised, per 32-key tile) and the
-    # order of the sums; tokens on the valid slots.
-    "decode_tail": {"tokens": 3.5e-3, "masks": 1.5e-2},
+    # order of the sums; tokens on the valid slots. Masks 1.2e-2, 1.9x the
+    # largest sound reading (6.4e-3 at 16 slots): at 64 slots the swapped
+    # heads of i2t1's k move the masks by 1.43e-2 only.
+    "decode_tail": {"tokens": 3.5e-3, "masks": 1.2e-2},
     # B2b / B14: the online softmax rounds the unnormalised p per 64-key
     # tile (as B11 does); the backward sums dq and the bias cotangents with
     # fp32 atomics in no fixed order.
@@ -148,6 +176,12 @@ KERNEL_BOUNDS = {
     "flash_relpos_fwd": {"o": 1e-2, "lse": 1e-5},
     "flash_rowbias_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
     "flash_relpos_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
+    # B13: its fp32 sums (scores, relh / relw, p v) in another order than the
+    # plain version's, and its softmax sum rescaled per 64-key tile; p and o
+    # rounded to bf16 where the plain version rounds them.
+    "window_rel_attention": {"out": 1e-3},
+    # B17: the same fp32 sums of the same rows, in another order.
+    "segmented_scatter_add": {"out": 1e-6},
 }
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
@@ -187,10 +221,13 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "flash_rowbias_bwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:1074"),
     "flash_relpos_fwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:601"),
     "flash_relpos_bwd": ("flash_attention_rowbias.cu", PALLAS + "flash_attention.py:694"),
+    "window_rel_attention": ("window_attention.cu", PALLAS + "window_attention.py:125"),
+    "segmented_scatter_add": ("seg_scatter.cu", PALLAS + "seg_scatter.py:55"),
 }
 # Checked and timed, on no path: JAX's row-layout glue, which its flat
-# backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default).
-OFF_PATH = ("deform_bwd_glue",)
+# backward runs only under IUVL_GLUE_Q=0 (the query-row glue is the default),
+# and the segmented scatter-add, which no function of the JAX package calls.
+OFF_PATH = ("deform_bwd_glue", "segmented_scatter_add")
 # H100 SXM peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA cores, HBM3.
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 
@@ -365,8 +402,10 @@ def kernels():
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
     from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda import onehot_gather as og
+    from iuvl_tpu_torch.ops.cuda import seg_scatter as ss
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
+    from iuvl_tpu_torch.ops.cuda import window_attention as wa
     from iuvl_tpu_torch.ops.cuda import window_block as wb
 
     one = lambda fn, plain, out="out": ((fn,), fn, plain, (out,))  # noqa: E731
@@ -407,6 +446,9 @@ def kernels():
                              ("o", "lse")),
         "flash_relpos_bwd": ((fa.flash_relpos_bwd,), fa.flash_relpos_bwd, relpos_bwd_plain,
                              RB_GRADS),
+        "window_rel_attention": one(wa.window_rel_attention_fwd,
+                                    wa.window_rel_attention_fwd_plain),
+        "segmented_scatter_add": one(ss.segmented_scatter_add, ss.segmented_scatter_add_plain),
     }
 
 
@@ -580,11 +622,12 @@ def _i2t1_k_heads_swapped(a):
     return a[:4] + (w,) + a[5:]
 
 
-def decode_tail_case(rs: np.random.RandomState, dev):
-    """B16's arguments at the chunk serving shape: CHUNK prompts of 7 tokens
-    (5 output tokens, the point and the pad point) in 16 slots over the
-    ViT-B 64^2 embedding; the decoder's weights as build_sam draws them,
-    its LayerNorms' scales and biases perturbed."""
+def decode_tail_case(rs: np.random.RandomState, dev, tp: int = 16, tv: int = 7):
+    """B16's arguments at the chunk serving shape: CHUNK prompts of ``tv``
+    tokens in ``tp`` slots over the ViT-B 64^2 embedding (by default 7
+    tokens, 5 output tokens, the point and the pad point, in 16 slots); the
+    decoder's weights as build_sam draws them, its LayerNorms' scales and
+    biases perturbed."""
     from iuvl_tpu_torch.models.sam.build import init_random_
     from iuvl_tpu_torch.models.sam.mask_decoder import MaskDecoder
 
@@ -596,8 +639,7 @@ def decode_tail_case(rs: np.random.RandomState, dev):
                 mod.weight.add_(torch.from_numpy(rs.randn(256).astype(np.float32) * 0.1))
                 mod.bias.copy_(torch.from_numpy(rs.randn(256).astype(np.float32) * BIAS_STD))
     dec = dec.to(dev)
-    tv = 7
-    tok = torch.zeros(2, CHUNK, 16, 256)
+    tok = torch.zeros(2, CHUNK, tp, 256)
     tok[:, :, :tv] = torch.from_numpy(rs.randn(2, CHUNK, tv, 256).astype(np.float32))
     tok[1] *= 0.5
     image = torch.from_numpy(rs.randn(2, 1, 64 * 64, 256).astype(np.float32))
@@ -695,12 +737,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
     log(f"kernel onehot_deform_level_forward: {int(torch.tril(same, -1).any(-1).any(-1).sum())} "
         f"of {nh * lq} rows have points that share a cell")
     return [
-        ("decode_tail", decode_tail_case(rs, dev),
-         {"slot mask dropped": _planted(lambda a: _tail_plain(a, t_valid=16)),
-          "heads 0/1 swapped in i2t1's token-side k": _i2t1_k_heads_swapped,
-          "the final attention reads keys1": _t2i_patched(_final_reads_keys1),
-          "a t2i merge misses its last split (N/8 rows)": _t2i_patched(_merge_misses_last_split)},
-         5),
+        ("decode_tail", decode_tail_case(rs, dev), DECODE_TAIL_FAULTS, 5),
         ("window_attention_block", win,
          {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
           "rel_pos_w dropped": _zero(6), "heads 0/1 swapped in wo": _swap(3, 1, d)}, 10),
@@ -752,7 +789,74 @@ def kernel_cases(rs: np.random.RandomState, dev):
           "the last point dropped": _drop_last_point,
           "idx one cell off": _shift(1, 1, side5 * side5 - 1),
           "weights rounded per point, not per cell": _planted(_onehot_per_point)}, 20),
-    ] + rowbias_cases(t, rs, dev)
+    ] + rowbias_cases(t, rs, dev) + window_cases(t, dev) + seg_scatter_cases(rs, scatter_dv) + [
+        # B16 past 32 slots (C3): prompts of 34 and 50 points (40 and 56
+        # tokens) in 48 and 64 slots, 8 of them pad slots.
+        (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
+        for tp in (48, 64)]
+
+
+# B16's planted faults, at any slot count.
+DECODE_TAIL_FAULTS = {
+    "slot mask dropped": _planted(lambda a: _tail_plain(a, t_valid=a[0].shape[1])),
+    "heads 0/1 swapped in i2t1's token-side k": _i2t1_k_heads_swapped,
+    "the final attention reads keys1": _t2i_patched(_final_reads_keys1),
+    "a t2i merge misses its last split (N/8 rows)": _t2i_patched(_merge_misses_last_split)}
+
+
+def _window_tail_unmasked(a):
+    """B13's function with the keys past N in the last 64-key tile left
+    unmasked (zero rows scoring 0 with no bias, as an unmasked padded tile
+    would)."""
+    from iuvl_tpu_torch.ops.cuda.window_attention import window_rel_scores
+
+    q, k, v, rh, rw = a
+    s = window_rel_scores(q, k, rh, rw)
+    s = torch.cat([s, s.new_zeros(*s.shape[:-1], -s.shape[-1] % 64)], -1)
+    p = torch.softmax(s, -1)[..., :k.shape[-2]].to(v.dtype)
+    return ((p.float() @ v.float()).to(q.dtype),)
+
+
+def window_cases(t, dev):
+    """B13 at the two grids 'window' sends it at ViT-B 1024^2: the windowed
+    blocks (25 windows x 12 heads of N 196, w 14) and the global ones (12
+    heads of N 4096, w 64), d 64; the expanded tables rounded to bf16 as
+    the wrapper of the autograd function hands them over."""
+    from iuvl_tpu_torch.ops.rel_pos_attention import rel_pos_tables
+
+    cases = []
+    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 3)):
+        n, d = side * side, 64
+        q, k, v = (t(1, bh, n, d) for _ in range(3))
+        rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD),
+                                t(2 * side - 1, d, std=BIAS_STD), (side, side))
+        faults = {"relh dropped": _zero(3), "relw dropped": _zero(4),
+                  "heads 0/1 swapped in v": _swap(2, 1, 1)}
+        if n % 64:
+            faults["the masked tail tile left unmasked"] = _planted(_window_tail_unmasked)
+        cases.append((f"window_rel_attention@{tag}",
+                      (q, k, v, rh.to(torch.bfloat16), rw.to(torch.bfloat16)), faults, iters))
+    return cases
+
+
+def seg_scatter_cases(rs, scatter_dv):
+    """B17 at the shape of B7's d_value scatter in the batch-2 train step
+    (the res3 level's 688,128 (head, query, point) rows of 4 x 64 into the
+    8 x 128^2 wide-map rows; the destinations of that case's taps) and at
+    tests/test_seg_scatter.py's skewed case (3000 rows of 64, all into row
+    0 of 512)."""
+    contrib, idx, hw, _ = scatter_dv
+    nh = idx.shape[0]
+    dest = (idx.long() + torch.arange(nh, device=idx.device).view(nh, 1, 1) * hw)
+    d_value = (contrib.to(torch.bfloat16).contiguous(), dest.reshape(-1).to(torch.int32),
+               nh * hw)
+    skew = (torch.from_numpy(rs.randn(3000, 64).astype(np.float32)).to(contrib.device,
+                                                                        torch.bfloat16),
+            torch.zeros(3000, dtype=torch.int32, device=contrib.device), 512)
+    return [(f"segmented_scatter_add@{tag}", args,
+             {"misses the last 16 rows": _tile_missed(0, 0, 16),
+              "rows one destination off": _shift(1, 1, args[2] - 1)}, iters)
+            for tag, args, iters in (("d_value", d_value, 10), ("skewed", skew, 10))]
 
 
 def _fp32(a):
@@ -846,6 +950,12 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         flops = b * h * n * n * (4 * d if fwd else 10 * d)
         if name.startswith("flash_relpos"):
             flops += b * h * n * n * hw * (2 if fwd else 4)
+    elif name == "window_rel_attention":
+        # q k^T and p v, 4 N^2 d a head; relh and relw, 4 N w d.
+        b, h, n, d = args[0].shape
+        flops = b * h * (4 * n * n * d + 4 * n * args[3].shape[0] * d)
+    elif name == "segmented_scatter_add":  # an fp32 add per element of contrib
+        return args[0].numel(), nbytes, F32_FLOPS
     elif name == "tap_scatter":  # 4 fp32 adds a row
         return 4 * args[0].numel(), nbytes, F32_FLOPS
     elif name == "ms_deform_level_fwd":  # a multiply-add per tap and channel (fp32)
@@ -903,6 +1013,20 @@ def library_call(name: str, args):
             with torch.enable_grad():
                 sdpa(q, k, v, attn_mask=bias, scale=1.0).backward(do)
         return call
+    if name == "window_rel_attention":
+        # SDPA on the materialised (BH, N, N) bias, made outside the call.
+        from iuvl_tpu_torch.ops.cuda.window_attention import window_rel_bias
+
+        q, k, v, rh, rw = args
+        bias_h, bias_w = window_rel_bias(q, rh, rw)
+        bias = (bias_h + bias_w).to(q.dtype)
+        del bias_h, bias_w
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=q.shape[-1] ** -0.5)
+    if name == "segmented_scatter_add":
+        contrib, idx, n_out = args
+        return lambda: torch.zeros((n_out, contrib.shape[1]), device=contrib.device).index_add_(
+            0, idx, contrib.float())
     if name == "tap_scatter":
         base, rows, span = args
         n = base.shape[0]
@@ -1132,6 +1256,22 @@ def serving_phase(dev) -> dict:
             for r in range(REQUESTS):
                 request(r, unfused, plain, rs_i, dev, want, totals, timing, label=impl)
         del unfused
+    # 'window': B13 in all 12 blocks, gated against its own plain version
+    # ('window_plain'), whose rounding points are B13's.
+    window = {}
+    for dtype in ("bfloat16", "float32"):
+        window[dtype] = build_sam("vit_b", dtype=dtype, attn_impl="window_plain",
+                                  twoway_impl="plain", device=dev).eval()
+        window[dtype].load_state_dict(model.state_dict())
+    kern = build_sam("vit_b", dtype="bfloat16", attn_impl="window", device=dev).eval()
+    kern.load_state_dict(model.state_dict())
+    rs_w = np.random.RandomState(SEED + 1)
+    timing["window"], timing["plain (window requests)"] = [], []
+    with torch.inference_mode():
+        for r in range(REQUESTS):
+            request(r, kern, window, rs_w, dev, {**DECODE_PER_REQUEST, "window_rel_attention": 12},
+                    totals, timing, label="window")
+    del kern, window
     for path, runs in timing.items():  # steady state: requests after the first
         enc = float(np.mean([e for e, _ in runs[1:]]))
         dec = float(np.mean([np.mean(d) for _, d in runs[1:]]))
@@ -1426,11 +1566,22 @@ DEFORM_STEP = {k: v for k, v in PER_STEP[2].items() if k not in PER_STEP[1]}
 def per_step(impl: str, batch: int) -> dict:
     """Launches per train step: under 'rowbias' / 'pallas_rp' each of the 12
     blocks runs the impl's forward and backward kernel once, and no B1-B3,
-    B9-B11 (JAX's unfused route); B12, and at batch 2 B7 and B8, as 'auto'."""
+    B9-B11 (JAX's unfused route); under 'window' B13's forward once a block
+    (its backward is plain PyTorch, as JAX's is XLA); B12, and at batch 2
+    B7 and B8, as 'auto'."""
     if impl == "auto":
         return PER_STEP[batch]
-    return {IMPL_FWD[impl]: 12, IMPL_BWD[impl]: 12, "tap_scatter": 10,
-            **(DEFORM_STEP if batch == 2 else {})}
+    attn = ({"window_rel_attention": 12} if impl == "window"
+            else {IMPL_FWD[impl]: 12, IMPL_BWD[impl]: 12})
+    return {**attn, "tap_scatter": 10, **(DEFORM_STEP if batch == 2 else {})}
+
+
+# The plain reference of an impl on the card: the plain versions with the
+# impl's rounding points ('plain' has those of every route but B13's).
+PLAIN_OF = {"window": "window_plain"}
+# Phases whose gradient gate pools over this many batches at the first step's
+# weights (loss_gate) instead of reading the first step's batch alone.
+POOLED_GRADS = {"window": 6}
 GROUPS = ("image_encoder.", "pixel_decoder.", "predictor.")
 
 
@@ -1497,7 +1648,8 @@ def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") 
     weights). Before the steps, :func:`loss_gate` gates the loss terms on
     the first step's batch and GATE_BATCHES - 1 more at the same weights;
     at batch 1 they are also gated on the first step's batch alone.
-    ``impl`` is the kernel path's attn_impl; the plain paths are 'plain'.
+    ``impl`` is the kernel path's attn_impl; the plain paths are 'plain'
+    (``PLAIN_OF``: 'window_plain' under 'window').
     Returns the kernel path's launch totals."""
     from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion
     from iuvl_tpu_torch.models.xdecoder import convert
@@ -1507,8 +1659,9 @@ def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") 
 
     cfg = SysLearnerConfig(**{**TRAIN_CONFIG, "attn_impl": impl})
     size = cfg.img_size
-    plain = {"bf16": dataclasses.replace(cfg, attn_impl="plain"),
-             "fp32": dataclasses.replace(cfg, attn_impl="plain", dtype="float32")}
+    ref = PLAIN_OF.get(impl, "plain")
+    plain = {"bf16": dataclasses.replace(cfg, attn_impl=ref),
+             "fp32": dataclasses.replace(cfg, attn_impl=ref, dtype="float32")}
     cfgs = {"kernels": cfg, "plain_bf16": plain["bf16"], "plain_fp32": plain["fp32"]}
     if control:
         cfgs.update(control_bf16=plain["bf16"], control_fp32=plain["fp32"])
@@ -1544,7 +1697,7 @@ def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") 
     gate_gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     loss_gate(models, crits, text, data[:1] + [
         (*make_batch(gate_rs, batch, size, dev), step_draws(gate_gen, n_layers, batch))
-        for _ in range(GATE_BATCHES - 1)])
+        for _ in range(GATE_BATCHES - 1)], grad_batches=POOLED_GRADS.get(impl, 0))
     want = per_step(impl, batch)
     totals = {k: 0 for k in want}
     times = {"kernels": [], "plain_bf16": []}
@@ -1572,9 +1725,10 @@ def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") 
             elif any(counts.values()):
                 raise RuntimeError(f"step {step} {path}: kernels launched {counts}")
         # The one-batch loss gate only on the 'auto' batch-1 phase; every phase
-        # gates its gradient groups and (loss_gate) its loss terms pooled over
-        # GATE_BATCHES batches.
-        check_step(step, metrics, grads, gate_losses=batch == 1 and impl == "auto")
+        # gates its gradient groups (pooled in loss_gate for POOLED_GRADS) and
+        # (loss_gate) its loss terms pooled over GATE_BATCHES batches.
+        check_step(step, metrics, grads, gate_losses=batch == 1 and impl == "auto",
+                   gate_grads=impl not in POOLED_GRADS)
         if step == 0 and control:  # the control pair has served its purpose
             for path in ("control_bf16", "control_fp32"):
                 del models[path], states[path], step_fns[path]
@@ -1620,9 +1774,12 @@ def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict,
 LOSS_TERMS = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice")
 
 
-def check_step(step: int, metrics: dict, grads: dict, gate_losses: bool) -> None:
-    """Print the losses; on the first step gate each parameter group's
-    gradient and, with ``gate_losses``, each loss term (class CE, mask BCE,
+def check_step(step: int, metrics: dict, grads: dict, gate_losses: bool,
+               gate_grads: bool = True) -> None:
+    """Print the losses; on the first step gate, with ``gate_grads``, each
+    parameter group's gradient (:func:`loss_gate` gates them over several
+    batches where one batch is no gate) and, with ``gate_losses``, each
+    loss term (class CE, mask BCE,
     dice: the vector of its values over the kept layers; :func:`loss_gate`
     gates them over many batches): the kernel path may be at most
     SLICE_FACTOR times as far from fp32, in relative L2, as the plain bf16
@@ -1695,32 +1852,38 @@ def check_step(step: int, metrics: dict, grads: dict, gate_losses: bool) -> None
         r = {path: e[path] / e["plain_bf16"] for path in pairs}
         log(f"train step 0 grad {group[:-1]}: rel L2 to fp32 kernels {e['kernels']:.3e} plain "
             f"bf16 {e['plain_bf16']:.3e}{others(e, '{:.3e}'.format)}; ratio kernels "
-            f"{r['kernels']:.3f}{others(r, '{:.3f}'.format, ' (not gated)')}")
-        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            f"{r['kernels']:.3f}{others(r, '{:.3f}'.format, ' (not gated)')}"
+            + ("" if gate_grads else " (one batch, not gated)"))
+        if gate_grads and not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
             failed.append(f"grad {group}: {e['kernels']:.3e} > {SLICE_FACTOR} x "
                           f"{e['plain_bf16']:.3e}")
     if failed:
         raise RuntimeError("train gate failed: " + "; ".join(failed))
 
 
-def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
+def loss_gate(models: dict, crits: dict, text, batches: list, grad_batches: int = 0) -> None:
     """Gate each loss term (its 10 layers' values) pooled over ``batches``
     (images, targets, draws), every path at the same weights: forward and
     criterion as in a train step (autograd recording, so the training
-    routes run; no backward, no update), the fp32 path's assignments on
-    every path. The kernel path's relative L2 from fp32 must be at most
-    SLICE_FACTOR times the plain bf16 path's. On one batch the ratio of two
-    sound bf16 paths spreads over about 0.4-2.5 (PERF.md, Findings), so one
-    batch's ten values per term are no gate."""
+    routes run; no update), the fp32 path's assignments on every path. The
+    kernel path's relative L2 from fp32 must be at most SLICE_FACTOR times
+    the plain bf16 path's. On one batch the ratio of two sound bf16 paths
+    spreads over about 0.4-2.5 (PERF.md, Findings), so one batch's ten
+    values per term are no gate. On the first ``grad_batches`` batches the
+    backward runs too, and each parameter group's gradient is gated the
+    same way, pooled over them (under 'window' a sound bf16 path's
+    one-batch gradient ratio reads 0.45-1.62: PERF.md §6)."""
     from iuvl_tpu_torch.losses.matcher import batched_hungarian
     from iuvl_tpu_torch.ops.point_sample import given_draws
     from iuvl_tpu_torch.train.train_step import split_seg_outputs
 
     paths = ("plain_fp32", "plain_bf16", "kernels")
     values = {path: {term: [] for term in LOSS_TERMS} for path in paths}
+    # pooled gradient rel L2: sum |g - g_fp32|^2 and sum |g_fp32|^2 by group
+    sq = {path: {g: [0.0, 0.0] for g in GROUPS} for path in paths[1:]}
     per_batch = []
-    for images, targets, draws in batches:
-        assignments = None
+    for b, (images, targets, draws) in enumerate(batches):
+        assignments, ref = None, None
         for path in paths:
             model, crit, draw = models[path], crits[path], given_draws(draws)
             with torch.enable_grad():
@@ -1729,10 +1892,26 @@ def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
                 if assignments is None:
                     assignments = batched_hungarian(costs)
                 losses = crit.losses_from_assignments(kept, assignments, targets, draw)
+                if b < grad_batches:
+                    model.zero_grad(set_to_none=True)
+                    sum(losses.values()).backward()
+                    grad = {g: torch.cat([p.grad.float().flatten()
+                                          for n, p in model.named_parameters()
+                                          if n.startswith(g) and p.grad is not None])
+                            for g in GROUPS}
+                    model.zero_grad(set_to_none=True)
+                    if ref is None:
+                        ref = grad
+                    else:
+                        for g in GROUPS:
+                            sq[path][g][0] += float(torch.linalg.vector_norm(grad[g] - ref[g]) ** 2)
+                            sq[path][g][1] += float(torch.linalg.vector_norm(ref[g]) ** 2)
+                    del grad
             for term in LOSS_TERMS:
                 values[path][term] += [float(v.detach()) for k, v in sorted(losses.items())
                                        if k.startswith(term + "_")]
             del obj, kept, losses
+        del ref
         per_batch.append({term: [
             rel_l2(torch.tensor(values[path][term][-10:]), torch.tensor(
                 values["plain_fp32"][term][-10:])) for path in paths[1:]] for term in LOSS_TERMS})
@@ -1746,6 +1925,13 @@ def loss_gate(models: dict, crits: dict, text, batches: list) -> None:
             f"{e['kernels'] / e['plain_bf16']:.3f} (one batch at a time, not gated: {one})")
         if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
             failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    for g in GROUPS if grad_batches else ():
+        e = {path: (sq[path][g][0] / sq[path][g][1]) ** 0.5 for path in paths[1:]}
+        log(f"train grad {g[:-1]} over {grad_batches} batches: rel L2 to fp32 kernels "
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}; ratio "
+            f"{e['kernels'] / e['plain_bf16']:.3f}")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"grad {g}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
     if failed:
         raise RuntimeError("train loss gate failed: " + "; ".join(failed))
 
@@ -2019,6 +2205,206 @@ def eval_phase(dev) -> dict:
     return totals
 
 
+INTERACTIVE_CONFIG = dict(sam_size="base", img_size=1024, dtype="bfloat16")
+INTERACTIVE_ROUNDS = 20
+INTERACTIVE_GATED = (1, 10, 20)  # rounds whose SAM decode is gated
+LATENCY_CALLS = 20
+# Launches a click round (a prompt batch of the 8 targets, 26 tokens): the
+# per-op decode (B4 three times, B5 twice, B6 once) or B16 once; the unified
+# decoder runs no kernel. The encode: B1-B3 (the pixel decoder's batch-1
+# core is the plain 'wide' one).
+PER_ROUND = {"auto": {"t2i_stream": 3, "i2t_block_step": 2, "masks_upscale": 1},
+             "chunk": {"decode_tail": 1}}
+
+
+def gt_shapes(size: int = 1024) -> np.ndarray:
+    """8 synthetic gt masks at input resolution: discs, boxes and an L
+    (their geometry given for 1024^2, scaled to ``size``)."""
+    yy, xx = np.meshgrid(np.arange(size) * 1024 / size, np.arange(size) * 1024 / size,
+                         indexing="ij")
+    masks = [(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+             for cy, cx, r in ((300, 320, 160), (700, 650, 210), (520, 180, 90))]
+    for y0, y1, x0, x1 in ((80, 300, 560, 960), (760, 980, 60, 420), (400, 460, 300, 900)):
+        box = np.zeros((size, size), bool)
+        box[y0:y1, x0:x1] = True
+        masks.append(box)
+    ell = np.zeros((size, size), bool)
+    ell[560:940, 520:640] = True
+    ell[840:940, 520:960] = True
+    masks.append(ell)
+    masks.append((yy - 150) ** 2 + (xx - 150) ** 2 <= 70 ** 2)
+    return np.stack(masks)
+
+
+class _Recorder:
+    """A SysLearner whose ``decode_interactive`` also keeps each round's
+    prompts and logits, and whose launches a round are checked."""
+
+    def __init__(self, model, want: dict):
+        self.model, self.want, self.rounds = model, want, []
+
+    def decode_interactive(self, *cached, points, labels):
+        reset_launches()
+        logits = self.model.decode_interactive(*cached, points=points, labels=labels)
+        counts = launches()
+        check_launches(f"interactive round {len(self.rounds) + 1}", counts, self.want)
+        self.rounds.append((points.clone(), labels.clone(), logits, counts))
+        return logits
+
+
+def _gate_ratio(where: str, k, p, f, ref: str, failed: list) -> str:
+    """The kernel path's rel L2 from fp32 against ``ref`` bf16's: a log
+    fragment; a failure (over SLICE_FACTOR) is appended to ``failed``."""
+    err_k, err_p = rel_l2(k, f), rel_l2(p, f)
+    if not err_k <= SLICE_FACTOR * err_p:
+        failed.append(f"{where}: rel L2 to fp32 {err_k:.3e} over {SLICE_FACTOR} x {ref}'s "
+                      f"{err_p:.3e}")
+    return f"{where} {err_k:.3e} / {err_p:.3e} ({err_k / err_p:.3f})"
+
+
+def interactive_gate(design: str, model, cached, plain16, plain32, rec, image,
+                     refs: tuple) -> None:
+    """Replay the kernel path's prompts through the plain bf16 and fp32
+    paths (each encoding the image itself) and gate, at SLICE_FACTOR x the
+    plain bf16 path's distance from fp32: the cached encode products (SAM
+    embedding, mask features, the pixel decoder's levels); SAM's prompt
+    decode (masks, upscaled embedding) at rounds INTERACTIVE_GATED, where
+    the decode kernels act; the unified decoder's logits pooled over all the
+    rounds. The unified decoder's mask attention is a step function of the
+    previous layer's logits, so one round's logits are no gate: a sound
+    control path reads up to 1.60x on one round (tools/interactive_gate_spread.py,
+    PERF.md §6); their per-round ratios at INTERACTIVE_GATED are printed."""
+    failed = []
+    caches = {"kernels": cached, refs[0]: plain16.encode_interactive(image),
+              refs[1]: plain32.encode_interactive(image)}
+    flat = {path: (c[0], c[1], torch.cat([x.float().flatten() for x in c[2]]))
+            for path, c in caches.items()}
+    log(f"interactive {design} encode products vs {refs[1]}: rel L2 kernels / {refs[0]} "
+        "(ratio): " + "; ".join(_gate_ratio(name, flat["kernels"][i], flat[refs[0]][i],
+                                            flat[refs[1]][i], refs[0], failed)
+                                for i, name in enumerate(("sam_embedding", "mask_features",
+                                                          "multi_scale"))))
+    logits = {path: [] for path in refs}
+    for r, (points, labels, k_logits, _) in enumerate(rec.rounds, 1):
+        for path, m in ((refs[0], plain16), (refs[1], plain32)):
+            logits[path].append(m.decode_interactive(*caches[path], points=points,
+                                                     labels=labels))
+        if r not in INTERACTIVE_GATED:
+            continue
+        dec = {path: m.decode_prompts(caches[path][0], points=points, labels=labels)
+               for path, m in (("kernels", model), (refs[0], plain16), (refs[1], plain32))}
+        parts = [_gate_ratio(name, dec["kernels"][key], dec[refs[0]][key], dec[refs[1]][key],
+                             refs[0], failed)
+                 for name, key in (("SAM masks", "masks"),
+                                   ("upscaled embedding", "upscaled_embedding"))]
+        err_k, err_p = (rel_l2(x, logits[refs[1]][-1]) for x in (k_logits, logits[refs[0]][-1]))
+        log(f"interactive {design} round {r} vs {refs[1]}: rel L2 kernels / {refs[0]} (ratio): "
+            + "; ".join(parts) + f"; logits {err_k:.3e} / {err_p:.3e} ({err_k / err_p:.3f}, "
+            "one round, not gated)")
+        del dec
+    pooled = [torch.cat([x.flatten() for x in xs]) for xs in (
+        [k for *_, k, _ in rec.rounds], logits[refs[0]], logits[refs[1]])]
+    log(f"interactive {design} logits over {len(rec.rounds)} rounds vs {refs[1]}: rel L2 "
+        "kernels / " + refs[0] + " (ratio): " + _gate_ratio("logits", *pooled, refs[0], failed))
+    if failed:
+        raise RuntimeError(f"interactive {design} gate failed: " + "; ".join(failed))
+
+
+def interactive_phase(dev) -> dict:
+    """SAM x X-Decoder interactive segmentation at full width: one seeded
+    1024^2 image and 8 synthetic gt masks, first clicks at their
+    ``conv_dt_argmax``; ``encode_interactive`` once, then the 20-round
+    click loop through ``decode_interactive`` with the kernels, under
+    twoway_impl 'auto' (B4-B6) and then 'chunk' (B16 at 32 slots).
+    Launches checked per round. Gate (:func:`interactive_gate`): the kernel
+    path's clicks replayed through the plain bf16 and fp32 paths ('plain' /
+    'chunk_plain'). Printed: encode ms, ms a round, launches a round, NoC and
+    mIoU@k (meaningless on random weights), and the p50 prompt latency of
+    bench.py's protocol (one one-point prompt through decode_interactive
+    from the cached products, median of LATENCY_CALLS synchronised calls).
+    Returns the launch totals."""
+    from iuvl_tpu_torch.data.visual_sampler import conv_dt_argmax
+    from iuvl_tpu_torch.evaluation import InteractiveEvaluator
+    from iuvl_tpu_torch.inference.interactive import make_interactive_loop
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+
+    cfg = SysLearnerConfig(**INTERACTIVE_CONFIG)
+    size = cfg.img_size
+    t0 = time.perf_counter()
+    models = {"auto": build_syslearner(cfg, device=dev, generator=torch.Generator().manual_seed(
+        SEED + 50)).eval()}
+    weights = models["auto"].state_dict()
+    paths = {"chunk": ("auto", "chunk", "bfloat16"),
+             "plain_bf16": ("plain", "plain", "bfloat16"),
+             "plain_fp32": ("plain", "plain", "float32"),
+             "chunk_plain_bf16": ("plain", "chunk_plain", "bfloat16"),
+             "chunk_plain_fp32": ("plain", "chunk_plain", "float32")}
+    for path, (attn, twoway, dtype) in paths.items():
+        models[path] = build_syslearner(dataclasses.replace(
+            cfg, attn_impl=attn, twoway_impl=twoway, dtype=dtype), device=dev).eval()
+        models[path].load_state_dict(weights)
+    del weights
+    log(f"interactive: {len(models)} x SysLearner built in {time.perf_counter() - t0:.1f} s")
+    image = torch.from_numpy(np.random.RandomState(SEED + 51).rand(1, size, size, 3).astype(
+        np.float32) * 255).to(dev)
+    gt_np = gt_shapes(size)
+    gt = torch.from_numpy(gt_np).to(dev)
+    firsts = torch.tensor([conv_dt_argmax(m)[::-1] for m in gt_np], dtype=torch.float32,
+                          device=dev)
+    totals: dict = {}
+    with torch.inference_mode():
+        for design, refs in (("auto", ("plain_bf16", "plain_fp32")),
+                             ("chunk", ("chunk_plain_bf16", "chunk_plain_fp32"))):
+            model = models[design]
+            reset_launches()
+            cached, encode_s = synced(lambda: model.encode_interactive(image))
+            counts = launches()
+            check_launches(f"interactive encode ({design})", counts, ENCODE_PER_REQUEST)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            rec = _Recorder(model, PER_ROUND[design])
+            loop = make_interactive_loop(rec, max_clicks=INTERACTIVE_ROUNDS)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+            t_loop = time.perf_counter()
+            ious, final = loop(*cached, gt, firsts, gen)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t_loop
+            for *_, c in rec.rounds:
+                for k, v in c.items():
+                    totals[k] = totals.get(k, 0) + v
+            if tuple(ious.shape) != (INTERACTIVE_ROUNDS, len(gt_np)) or not all(
+                    bool(torch.isfinite(lg).all()) for *_, lg, _ in rec.rounds):
+                raise RuntimeError(f"interactive {design}: ious {tuple(ious.shape)} or "
+                                   "non-finite logits")
+            evaluator = InteractiveEvaluator(max_clicks=INTERACTIVE_ROUNDS)
+            for traj in ious.cpu().numpy().T:
+                evaluator.process(traj)
+            metrics = evaluator.evaluate()
+            log(f"interactive {design}: encode {encode_s * 1e3:.2f} ms; {INTERACTIVE_ROUNDS} "
+                f"rounds of {len(gt_np)} prompts (26 tokens) in {loop_s * 1e3:.1f} ms, "
+                f"{loop_s / INTERACTIVE_ROUNDS * 1e3:.2f} ms a round; launches a round "
+                f"{({k: v for k, v in rec.rounds[0][3].items() if v})}; NoC@0.85 "
+                f"{metrics['NoC@0.85']:.2f}, mIoU@5 {metrics['mIoU@5']:.2f} (random weights)")
+            interactive_gate(design, model, cached, models[refs[0]], models[refs[1]], rec,
+                             image, (refs[0], refs[1]))
+            del rec
+            # p50 prompt latency (bench.py's protocol): one one-point prompt.
+            point = torch.tensor([[[size / 2, size / 2]]], device=dev)
+            label = torch.ones((1, 1), dtype=torch.int32, device=dev)
+            lat = []
+            for _ in range(LATENCY_CALLS + 2):
+                lat.append(synced(lambda: model.decode_interactive(
+                    *cached, points=point, labels=label))[1])
+            lat = sorted(lat[2:])
+            log(f"interactive {design}: p50 prompt latency {float(np.median(lat)) * 1e3:.2f} ms "
+                f"(min {lat[0] * 1e3:.2f}, max {lat[-1] * 1e3:.2f}; {LATENCY_CALLS} "
+                "synchronised calls of one one-point prompt through decode_interactive)")
+            del cached
+    del models
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = device_phase()
@@ -2041,13 +2427,17 @@ def main() -> int:
     paths.append(shape_phase(dev))
     log(f"shape phase: {time.perf_counter() - t0:.1f} s")
     for batch, control, impl in ((1, True, "auto"), (2, False, "auto"), (1, False, "rowbias"),
-                                 (1, False, "pallas_rp"), (2, False, "rowbias")):
+                                 (1, False, "pallas_rp"), (2, False, "rowbias"),
+                                 (1, False, "window")):
         t0 = time.perf_counter()
         paths.append(train_phase(dev, batch, STEPS, control, impl))
         log(f"train phase, batch {batch}, {impl}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(eval_phase(dev))
     log(f"eval phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(interactive_phase(dev))
+    log(f"interactive phase: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = sum(counts.get(row["name"], 0) for counts in paths)
         if not row["launches"] and row["name"] not in OFF_PATH:

@@ -7,10 +7,13 @@
 // GELUs, and the mask contraction. Writes the (B, Tp, 256) bf16 tokens
 // and the (B, N, 64) fp32 mask logits, columns (di, dj, ei, ej, t). Tp, the
 // token slots (t_valid of them real), is a template parameter, 16 (a
-// one-point prompt's 7 tokens) or 32 (up to 32 tokens: the interactive
-// click loop's 26); past 32 the token passes' rows (the MLP hidden of
-// Tp x 2048) no longer fit a block's shared memory. The t2i partials keep
-// the online-softmax state of each 16-row token tile in registers.
+// one-point prompt's 7 tokens), 32 (the interactive click loop's 26), 48
+// or 64 (prompts of up to 58 points). The token passes hold Tp rows of
+// every token-side operand in shared memory; the MLP hidden (Tp x 2048)
+// streams through it in chunks of kHc columns, its second product summed
+// in registers across the chunks, so Tp 64 fits (past 64 it does not). The
+// t2i partials keep the online-softmax state of each 16-row token tile in
+// registers.
 //
 // The TPU kernel kept a prompt's 2 MB keys row (N 4096 x C 256 bf16) in
 // VMEM and ran the whole chain for one prompt per grid step, with
@@ -79,13 +82,15 @@ constexpr int kC4 = 64, kC8 = 32, kMlp = 2048;
 constexpr int kSplits = 8;      // row blocks a prompt in the two attention row passes
 constexpr int kRT = 32;         // rows a tile there
 constexpr int kPart = 2 + kHd;  // a softmax partial: max, sum, 16 outputs
-constexpr int kLdC = kC + 8, kLdI = kI + 8, kLdM = kMlp + 8;
+constexpr int kHc = 256;       // MLP hidden columns a chunk in tok_mid
+constexpr int kLdC = kC + 8, kLdI = kI + 8, kLdH = kHc + 8;
 constexpr int kLdS = kRT + 4, kLdP = kRT + 8;
 constexpr float kScaleI = 0.25f;                 // 16^-1/2
 constexpr float kScaleC = 0.17677669529663687f;  // 32^-1/2
 constexpr float kEps = 1e-5f, kEps2d = 1e-6f;
 constexpr int kOperands = 71;  // decode_chunk.py `_operands`
 static_assert(kI / kHd == kWarps && kC / kHs == kH, "a warp per head");
+static_assert(kC == 2 * 16 * kWarps && kMlp % kHc == 0, "mlp_stream: two column tiles a warp");
 static_assert(kRT * kH == kThreads, "a thread per (row, head) in the slot attention");
 
 struct Attn {
@@ -169,7 +174,7 @@ __device__ __forceinline__ void add_rows(bf16* dst, const bf16* a, const bf16* b
   }
 }
 
-// kRows (16 or 32) token rows A (shared, stride lda, depth k) times W^T, W
+// kRows (a multiple of 16) token rows A (shared, stride lda, depth k) times W^T, W
 // (nout, k) in nn.Linear layout in device memory. A warp per 16-column
 // tile of the result, each weight fragment read once for every row tile;
 // each lane gets row er of each 16-row tile, columns c..c+7: epi(row, c, v).
@@ -271,20 +276,19 @@ __device__ void merge_partials(const float* part, bf16* dst) {
 
 // -------------------------------------------------------------- tok_front --
 template <int kT>
-constexpr size_t kFrontSmem = 7 * kT * kLdC * sizeof(bf16) + kWarps * 256 * sizeof(float);
+constexpr size_t kFrontSmem = 6 * kT * kLdC * sizeof(bf16) + kWarps * 256 * sizeof(float);
 
 template <int kT>
 __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
-  static_assert(kT * kH <= kThreads, "a thread per (slot, head) in the self-attention");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT = reinterpret_cast<bf16*>(smem);  // t
   bf16* sE = sT + kT * kLdC;                 // tpe
-  bf16* sU = sE + kT * kLdC;                 // t + tpe, then t1 + tpe
+  bf16* sU = sE + kT * kLdC;                 // t + tpe; then the residual sum, t1, t1 + tpe
   bf16* sQ = sU + kT * kLdC;                 // self-attention q, then its output
   bf16* sK = sQ + kT * kLdC;
   bf16* sV = sK + kT * kLdC;
-  bf16* sY = sV + kT * kLdC;  // residual sum, then t1
-  float* st = reinterpret_cast<float*>(sY + kT * kLdC) + (threadIdx.x >> 5) * 256;
+  bf16* sY = sU;  // free once q and k are made
+  float* st = reinterpret_cast<float*>(sV + kT * kLdC) + (threadIdx.x >> 5) * 256;
   const int tid = threadIdx.x, b = blockIdx.x;
   stage_rows(sT, kLdC, a.t + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
   stage_rows(sE, kLdC, a.tpe + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
@@ -301,8 +305,9 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
   tok_gemm<kT>(sT, kLdC, kC, w.wv, kC, st,
            [&](int r, int c, const float* v) { store_biased(sV + r * kLdC + c, v, w.bv + c); });
   __syncthreads();
-  if (tid < kT * kH) {  // (query, head): attention over the valid slots, into sQ
-    const int q = tid >> 3, h = tid & 7;
+  for (int pair = tid; pair < kT * kH; pair += kThreads) {
+    // (query, head): attention over the valid slots, into its own slice of sQ
+    const int q = pair >> 3, h = pair & 7;
     float qv[kHs];
 #pragma unroll
     for (int u = 0; u < kHs / 8; ++u) {
@@ -356,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
   ln_rows(sY, sY, kLdC, kT, a.ln[LN11][0], a.ln[LN11][1],
           a.tstate + static_cast<size_t>(b) * kT * kC);
   __syncthreads();
-  add_rows<kT>(sU, sY, sE);
+  add_rows<kT>(sU, sY, sE);  // in place: sY is sU
   __syncthreads();
   bf16* q1 = a.q_ws + static_cast<size_t>(b) * kT * kI;
   tok_gemm<kT>(sU, kLdC, kC, a.t2i1.wq, kI, st, [&](int r, int c, const float* v) {
@@ -370,8 +375,65 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
 
 // ---------------------------------------------------------------- tok_mid --
 template <int kT>
-constexpr size_t kMidSmem = (4 * kT * kLdC + kT * kLdI + kT * kLdM) * sizeof(bf16) +
+constexpr size_t kMidSmem = (4 * kT * kLdC + kT * kLdI + kT * kLdH) * sizeof(bf16) +
                             kWarps * 256 * sizeof(float);
+
+// Block 1's MLP over kT token rows X (shared, stride kLdC):
+// epi(r, c, v) gets v = relu(round(X W1^T) + b1) W2^T, summed in fp32. The
+// hidden passes through sH (kT x kHc) a chunk of kHc columns at a time;
+// each warp keeps its two 16-column tiles of the second product in
+// registers across the chunks, summing over the hidden in the same order
+// as one pass over all 2048 would.
+template <int kT, typename Epi>
+__device__ void mlp_stream(const bf16* X, bf16* sH, const TailArgs& a, float* st, Epi epi) {
+  constexpr int kRTs = kT / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int er = lane >> 1, ec = (lane & 1) * 8;
+  FragC acc[2][kRTs];  // column tiles warp and warp + 8 of the (kT, kC) result
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int rt = 0; rt < kRTs; ++rt) wmma::fill_fragment(acc[u][rt], 0.f);
+  for (int h0 = 0; h0 < kMlp; h0 += kHc) {
+    tok_gemm<kT>(X, kLdC, kC, a.m_w1 + static_cast<size_t>(h0) * kC, kHc, st,
+                 [&](int r, int c, const float* v) {
+                   const uint4 bv = load8(a.m_b1 + h0 + c);
+                   float o[8];
+#pragma unroll
+                   for (int j = 0; j < 8; ++j) o[j] = fmaxf(round_bf(v[j]) + at8(bv, j), 0.f);
+                   store8(sH + r * kLdH + c, o);
+                 });
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const bf16* w = a.m_w2 + static_cast<size_t>(warp + u * kWarps) * 16 * kMlp + h0;
+#pragma unroll 4
+      for (int kk = 0; kk < kHc; kk += 16) {
+        FragBc fb;  // B[k][n] = W2[ct*16 + n][h0 + kk + k]
+        wmma::load_matrix_sync(fb, w + kk, kMlp);
+#pragma unroll
+        for (int rt = 0; rt < kRTs; ++rt) {
+          FragA fa;
+          wmma::load_matrix_sync(fa, sH + rt * 16 * kLdH + kk, kLdH);
+          wmma::mma_sync(acc[u][rt], fa, fb, acc[u][rt]);
+        }
+      }
+    }
+    __syncthreads();  // sH is read before the next chunk overwrites it
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int rt = 0; rt < kRTs; ++rt) {
+      wmma::store_matrix_sync(st, acc[u][rt], 16, wmma::mem_row_major);
+      __syncwarp();
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = st[er * 16 + ec + j];
+      __syncwarp();
+      epi(rt * 16 + er, (warp + u * kWarps) * 16 + ec, v);
+    }
+}
 
 template <int kT>
 __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
@@ -381,8 +443,8 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
   bf16* sU = sE + kT * kLdC;                  // t1 + tpe
   bf16* sY = sU + kT * kLdC;                  // residual sums
   bf16* sA = sY + kT * kLdC;                  // merged attention output
-  bf16* sH = sA + kT * kLdI;                  // the MLP's hidden
-  float* st = reinterpret_cast<float*>(sH + kT * kLdM) + (threadIdx.x >> 5) * 256;
+  bf16* sH = sA + kT * kLdI;                  // a chunk of the MLP's hidden
+  float* st = reinterpret_cast<float*>(sH + kT * kLdH) + (threadIdx.x >> 5) * 256;
   const int b = blockIdx.x;
   stage_rows(sT1, kLdC, a.tstate + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
   stage_rows(sE, kLdC, a.tpe + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
@@ -396,15 +458,7 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
   __syncthreads();
   ln_rows(sY, sT1, kLdC, kT, a.ln[LN21][0], a.ln[LN21][1], nullptr);
   __syncthreads();
-  tok_gemm<kT>(sT1, kLdC, kC, a.m_w1, kMlp, st, [&](int r, int c, const float* v) {
-    const uint4 bv = load8(a.m_b1 + c);
-    float o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = fmaxf(round_bf(v[j]) + at8(bv, j), 0.f);
-    store8(sH + r * kLdM + c, o);
-  });
-  __syncthreads();
-  tok_gemm<kT>(sH, kLdM, kMlp, a.m_w2, kC, st, [&](int r, int c, const float* v) {
+  mlp_stream<kT>(sT1, sH, a, st, [&](int r, int c, const float* v) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.m_b2 + c);
   });
   __syncthreads();
@@ -493,7 +547,7 @@ __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
 template <int kT>
 constexpr size_t kRowSmem =
     (2 * kRT * kLdC + 4 * kRT * kLdI + kT * kLdI + 2 * kT * kI) * sizeof(bf16) +
-    kWarps * kT * kLdS * sizeof(float) + kWarps * kT * kLdP * sizeof(bf16);
+    kWarps * 16 * kLdS * sizeof(float) + kWarps * 16 * kLdP * sizeof(bf16);
 
 // kFirst: block 0's image -> token step over the shared keys0 (queries from
 // the qp0 table), then t2i1's partials. Otherwise: i2t1 over keys1 (the
@@ -510,7 +564,7 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
   bf16* sQt = sV + kRT * kLdI;               // the prompt's t2i queries (T x I)
   bf16* sKV = sQt + kT * kLdI;               // the prompt's slot keys, values (2 x T x I)
   float* sS = reinterpret_cast<float*>(sKV + 2 * kT * kI);
-  bf16* sP = reinterpret_cast<bf16*>(sS + kWarps * kT * kLdS);
+  bf16* sP = reinterpret_cast<bf16*>(sS + kWarps * 16 * kLdS);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int split = blockIdx.x, b = blockIdx.y;
@@ -547,8 +601,8 @@ __global__ void __launch_bounds__(kThreads) row_pass_kernel(TailArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[tt][j] = 0.f;
   }
-  float* S = sS + warp * kT * kLdS;  // also the warp's 16x16 staging tile
-  bf16* P = sP + warp * kT * kLdP;
+  float* S = sS + warp * 16 * kLdS;  // one token tile's scores; also the staging tile
+  bf16* P = sP + warp * 16 * kLdP;
   auto staged = [&](const FragC& f, float v[8]) {
     wmma::store_matrix_sync(S, f, 16, wmma::mem_row_major);
     __syncwarp();
@@ -961,11 +1015,11 @@ int launch_tail(const TailArgs& a, int batch, int n, void* stream) {
 
 // p: kOperands pointers in the order of iuvl_tpu_torch/ops/cuda/decode_chunk.py
 // `_operands` (inputs, precomputes, weights), then tokens_out, masks and
-// the six workspace buffers. tp (the token slots) 16 or 32, 1 <= t_valid <=
-// tp, N % 256 == 0.
+// the six workspace buffers. tp (the token slots) 16, 32, 48 or 64,
+// 1 <= t_valid <= tp, N % 256 == 0.
 extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int n, int tp,
                                 int t_valid, void* stream) {
-  if (count != kOperands + 8 || (tp != 16 && tp != 32) || t_valid < 1 || t_valid > tp ||
+  if (count != kOperands + 8 || tp < 16 || tp > 64 || tp % 16 || t_valid < 1 || t_valid > tp ||
       n % (kSplits * kRT) || n % kUpRows || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a;
@@ -1000,5 +1054,10 @@ extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int 
   a.hyper = static_cast<bf16*>(out());
   a.n = n;
   a.t_valid = t_valid;
-  return tp == 16 ? launch_tail<16>(a, batch, n, stream) : launch_tail<32>(a, batch, n, stream);
+  switch (tp) {
+    case 16: return launch_tail<16>(a, batch, n, stream);
+    case 32: return launch_tail<32>(a, batch, n, stream);
+    case 48: return launch_tail<48>(a, batch, n, stream);
+    default: return launch_tail<64>(a, batch, n, stream);
+  }
 }

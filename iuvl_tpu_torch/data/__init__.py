@@ -1,2 +1,3 @@
 """Host-side data helpers of the port: tokenizers, class names, prompt
-templates (the dataset layer is not ported yet)."""
+templates, the interactive eval's prompt helpers (the dataset layer is not
+ported yet)."""

@@ -3,8 +3,9 @@ of ``iuvl_tpu/inference/amg.py``.
 
 Point grids, the stability score, the COCO RLE codecs, boxes, crop boxes,
 mask NMS and the pipeline: encode once per crop, decode the layer's point
-grid in prompt batches through ``Sam.decode_from_embedding`` (with
-``twoway_impl='chunk'``, one B16 launch a batch), filter by predicted IoU
+grid in prompt batches through ``Sam.decode_from_embedding`` or
+``SysLearner.decode_prompts`` (with ``twoway_impl='chunk'``, one B16 launch
+a batch), filter by predicted IoU
 and stability, NMS over all crops. Host code is numpy, as in JAX; NMS
 computes the pairwise intersection counts as one 0/1 product on a torch
 device (exact in fp32 up to 2^24 pixels) and keeps JAX's greedy order,
@@ -193,20 +194,24 @@ def _device(model) -> torch.device:
 def _decode_grid(model, image, grid, batch, pred_iou_thresh, stability_thresh):
     """Encode one (1, S, S, 3) image (raw pixels, numpy), decode the point
     grid in prompt batches of ``batch`` (the last one padded), filter by
-    predicted IoU and stability. Returns (logits, scores, stability,
-    points) of the kept masks, logits at S/4 resolution."""
+    predicted IoU and stability. ``model`` is a ``Sam`` (its
+    ``decode_from_embedding``) or a ``SysLearner`` (its
+    ``decode_prompts``), as in JAX; either way only the SAM embedding is
+    computed. Returns (logits, scores, stability, points) of the kept
+    masks, logits at S/4 resolution."""
     dev = _device(model)
+    decode = getattr(model, "decode_prompts", None) or model.decode_from_embedding
     with torch.no_grad():
         img = torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(dev)
-        emb, _ = model.encode_image(model.normalize(img), return_fpn=False)
+        emb, _ = model.image_encoder(model.normalize(img), return_fpn=False)
         labels = torch.ones((batch, 1), dtype=torch.int32, device=dev)
         all_logits, all_iou = [], []
         for start in range(0, len(grid), batch):
             chunk = grid[start:start + batch]
             pts = np.zeros((batch, 1, 2), np.float32)
             pts[:len(chunk), 0] = chunk
-            out = model.decode_from_embedding(emb, points=torch.from_numpy(pts).to(dev),
-                                              labels=labels, return_upscaled=False)
+            out = decode(emb, points=torch.from_numpy(pts).to(dev), labels=labels,
+                         return_upscaled=False)
             all_logits.append(out["masks"][:len(chunk), 0].float().cpu().numpy())
             all_iou.append(out["iou_pred"][:len(chunk), 0].float().cpu().numpy())
     logits = np.concatenate(all_logits)
@@ -220,7 +225,7 @@ def generate_masks(model, image, points_per_side: int = 32, batch: int = 64,
                    pred_iou_thresh: float = 0.88, stability_thresh: float = 0.95,
                    nms_thresh: float = 0.7, crop_n_layers: int = 0,
                    crop_overlap_ratio: float = 512 / 1500, output_mode: str = "binary_mask"):
-    """AMG over one image with a ``Sam``: encode once per crop, decode the
+    """AMG over one image with a ``Sam`` or a ``SysLearner``: encode once per crop, decode the
     layer's point grid in prompt batches, filter by predicted IoU and
     stability, NMS across all crops (on the model's device). image (1, S,
     S, 3) raw pixels, numpy. ``crop_n_layers`` > 0 adds zoomed-in crop

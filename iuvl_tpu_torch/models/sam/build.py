@@ -15,20 +15,22 @@ import torch
 from torch import nn
 
 from .image_encoder import ATTN_IMPLS, ImageEncoderViT
-from .mask_decoder import MaskDecoder
+from .mask_decoder import TWOWAY_ALIASES, MaskDecoder
 from .prompt_encoder import PromptEncoder
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 
-TWOWAY_IMPLS = ("auto", "plain", "chunk", "chunk_plain")
-_NOT_PORTED = (
+TWOWAY_IMPLS = ("auto", "plain", "chunk", "chunk_plain", *TWOWAY_ALIASES)
+_UNKNOWN = (
     "{field}={value!r} is not a choice of the port, which takes {allowed}: 'auto' "
-    "runs the CUDA kernels, 'plain' their plain versions; for attn_impl, 'rowbias' "
-    "and 'pallas_rp' every block's attention through B2b and B14; for twoway_impl, "
-    "'chunk' the whole-chunk decode kernel (B16) and 'chunk_plain' its plain version. "
-    "Kernels not ported yet (B13 for attn_impl='window') are listed in ROADMAP.md "
-    "Queue B.")
+    "runs the CUDA kernels, 'plain' their plain versions; for attn_impl, 'rowbias', "
+    "'pallas_rp', 'window' and 'pallas' every block's attention through B2b, B14, B13 "
+    "and B11 ('window_plain' B13's plain version, 'xla_naive' the materialised-bias "
+    "oracle); for twoway_impl, 'chunk' the "
+    "whole-chunk decode kernel (B16) and 'chunk_plain' its plain version; JAX's names "
+    "'block', 'xla', 'off' and 'chunk_xla' run as 'auto', 'plain', 'plain' and "
+    "'chunk_plain', its twoway 'pallas' as 'auto'.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +38,15 @@ class SamConfig:
     """``attn_impl`` / ``twoway_impl``: ``'auto'`` runs the CUDA kernels on
     CUDA tensors (their plain versions on the CPU); ``'plain'`` runs the
     plain PyTorch versions everywhere (the reference on the card).
-    ``attn_impl='rowbias'`` / ``'pallas_rp'`` run JAX's unfused encoder
-    route with every block's attention in B2b / B14 (forward and backward;
-    their plain versions on the CPU) and the plain block tail; their
-    rounding points are those of ``'plain'``, which is their reference.
-    ``twoway_impl='chunk'`` decodes through the whole-chunk kernel (B16;
+    ``attn_impl='rowbias'`` / ``'pallas_rp'`` / ``'pallas'`` run JAX's
+    unfused encoder route with every block's attention in B2b / B14 / B11
+    on the augmented q, k (forward and backward; their plain versions on
+    the CPU) and the plain block tail; their rounding points are those of
+    ``'plain'``, which is their reference. ``'window'`` runs the same route
+    with B13 forward (backward: autograd of the plain augmented route, as
+    JAX's), whose rounding points are its own: ``'window_plain'`` is its
+    reference. JAX's names of the other routes are accepted (see
+    ``_UNKNOWN``). ``twoway_impl='chunk'`` decodes through the whole-chunk kernel (B16;
     a shared batch-1 image embedding), ``'chunk_plain'`` through its plain
     version (JAX's ``'chunk_xla'``)."""
 
@@ -61,8 +67,7 @@ class SamConfig:
                                ("twoway_impl", TWOWAY_IMPLS)):
             value = getattr(self, field)
             if value not in allowed:
-                raise NotImplementedError(
-                    _NOT_PORTED.format(field=field, value=value, allowed=allowed))
+                raise ValueError(_UNKNOWN.format(field=field, value=value, allowed=allowed))
 
     @property
     def grid(self) -> int:

@@ -18,14 +18,19 @@ their plain versions):
   on layouts made from the parameters inside the graph, so that every
   parameter gets its gradient.
 
-``attn_impl='rowbias'`` and ``'pallas_rp'`` take JAX's unfused route in
-every block, as its encoder does under those impls (``use_block`` and
-``use_tail`` need ``'auto'`` or ``'block'``): the qkv projection as a plain
-matmul, the attention through one kernel, B2b (``'rowbias'``) or B14
-(``'pallas_rp'``), forward and backward, then the relayout and the
-projection, and the plain block tail with autograd's backward. They read
-the same parameters as ``'auto'``, so the weight bridge (``convert.py``) is
-the same for every impl.
+``attn_impl='rowbias'``, ``'pallas_rp'``, ``'window'`` and ``'pallas'``
+take JAX's unfused route in every block, as its encoder does under those
+impls (``use_block`` and ``use_tail`` need ``'auto'`` or ``'block'``): the
+qkv projection as a plain matmul, the attention through one kernel, then
+the relayout and the projection, and the plain block tail with autograd's
+backward. The attention kernel: B2b (``'rowbias'``) or B14
+(``'pallas_rp'``), forward and backward; B13 (``'window'``), whose backward
+is autograd of the plain augmented route, as in JAX; B11 on the augmented
+q, k (``'pallas'``), or the materialised-bias oracle (``'xla_naive'``).
+``'window_plain'`` is the same route with B13's plain version, the card's
+reference for ``'window'``. JAX's ``'block'`` runs as
+``'auto'`` and its ``'xla'`` as ``'plain'``. Every impl reads the
+same parameters, so the weight bridge (``convert.py``) is the same for all.
 """
 
 from __future__ import annotations
@@ -45,16 +50,30 @@ from ...ops.cuda.window_block import (window_attention_block,
 from ...ops.rel_pos_attention import rel_pos_attention_proj, rel_pos_tables
 from ...ops.resize import resize_axis
 
-# 'auto' / 'plain': the fused kernels B1-B3 (B9-B11 in training) or their
-# plain versions; 'rowbias' / 'pallas_rp': every block's attention through
-# B2b / B14 (ops/rel_pos_attention.py KERNEL_IMPLS).
-ATTN_IMPLS = ("auto", "plain", "rowbias", "pallas_rp")
+# 'auto' / 'plain' (JAX's 'block' / 'xla'): the fused kernels B1-B3 (B9-B11 in
+# training) or their plain versions; 'rowbias' / 'pallas_rp' / 'window' /
+# 'pallas': every block's attention through B2b / B14 / B13 / B11 on the
+# augmented q, k; 'window_plain': B13's plain version; 'xla_naive': the
+# materialised-bias oracle (ops/rel_pos_attention.py _attention).
+ATTN_IMPLS = ("auto", "plain", "block", "xla", "rowbias", "pallas_rp", "window",
+              "window_plain", "pallas", "xla_naive")
 
 
 def fused(attn_impl: str) -> bool:
     """Whether ``attn_impl`` runs the fused block kernels (B1, B2, B3) or
     their plain versions, rather than JAX's unfused route."""
     return attn_impl in ("auto", "plain")
+
+
+# JAX's names of the fused routes: 'block' runs as 'auto' does on its TPU (B1
+# in the windowed blocks, the global blocks as 'auto', B3 in every tail);
+# 'xla' is its XLA math, the port's plain versions.
+ATTN_ALIASES = {"block": "auto", "xla": "plain"}
+
+
+def resolved(attn_impl: str) -> str:
+    """The route an ``attn_impl`` takes (:data:`ATTN_ALIASES`)."""
+    return ATTN_ALIASES.get(attn_impl, attn_impl)
 
 
 class LayerNorm2d(nn.Module):
@@ -279,6 +298,7 @@ class ImageEncoderViT(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        attn_impl = resolved(attn_impl)
         self.patch_size = patch_size
         self.dtype = dtype
         grid = img_size // patch_size

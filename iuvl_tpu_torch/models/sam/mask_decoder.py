@@ -235,6 +235,12 @@ class MLP(nn.Module):
         return x
 
 
+# JAX's twoway_impl names and the port's routes: 'pallas' forces JAX's fused
+# per-op decode kernels (the port's 'auto'), 'off' its XLA math (the plain
+# versions), 'chunk_xla' the whole-chunk decode's XLA oracle ('chunk_plain').
+TWOWAY_ALIASES = {"pallas": "auto", "off": "plain", "chunk_xla": "chunk_plain"}
+
+
 class MaskDecoder(nn.Module):
     def __init__(self, transformer_dim: int = 256, num_multimask_outputs: int = 3,
                  iou_head_depth: int = 3, iou_head_hidden_dim: int = 256,
@@ -242,6 +248,7 @@ class MaskDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32, twoway_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        twoway_impl = TWOWAY_ALIASES.get(twoway_impl, twoway_impl)
         self.twoway_impl = twoway_impl
         self.num_mask_tokens = num_multimask_outputs + 1
         c = transformer_dim
@@ -343,7 +350,7 @@ class MaskDecoder(nn.Module):
         two-way transformer, the hypernetwork and the upscale in
         ``decode_tail`` (B16 for ``'chunk'`` on CUDA tensors, its plain
         version on the CPU and for ``'chunk_plain'``); the tokens padded to
-        a multiple of 16 slots (B16 takes 16 and 32). ``hyper_in`` and
+        a multiple of 16 slots (B16 takes 16 to 64). ``hyper_in`` and
         ``iou_pred`` come from the output tokens as in the per-op path."""
         if src.shape[0] != 1:
             raise ValueError(

@@ -1,6 +1,7 @@
 """SysLearner — the unified top model, PyTorch port of
 ``iuvl_tpu/models/xdecoder/model.py``: the seg training forward, the seg
-eval forward and the class text embeddings.
+eval forward, the class text embeddings and the interactive path (one
+encode, many prompt decodes through SAM's decoder into the unified one).
 
 SAM backbone (image encoder with the SimpleFPN; prompt encoder and mask
 decoder, which the seg paths do not read) -> deformable pixel decoder
@@ -40,9 +41,12 @@ class SysLearnerConfig:
     the others raise unless left at their defaults. ``attn_impl``:
     ``'auto'`` runs the CUDA kernels on CUDA tensors (their plain versions
     on the CPU), ``'plain'`` the plain PyTorch versions everywhere;
-    ``'rowbias'`` and ``'pallas_rp'`` reach the image encoder (every block's
-    attention in B2b / B14, see ``SamConfig``), the other modules run their
-    kernels as under ``'auto'``."""
+    the other encoder routes (``'rowbias'``, ``'pallas_rp'``, ``'window'``,
+    ``'pallas'``, JAX's names; see ``SamConfig``) reach the image encoder
+    only, the other modules run their kernels as under ``'auto'``.
+    ``twoway_impl`` (a field of the port alone: JAX's SysLearner builds its
+    mask decoder with the default ``'auto'``) picks SAM's decode design for
+    the interactive path, as ``SamConfig.twoway_impl`` does."""
 
     sam_size: str = "base"
     img_size: int = 1024
@@ -60,6 +64,7 @@ class SysLearnerConfig:
     retrieval_ensemble: bool = False
     dtype: str = "float32"
     attn_impl: str = "auto"
+    twoway_impl: str = "auto"
     remat: bool = False
     msdeform_impl: str = "auto"
     pixel_decoder: str = "msdeform"
@@ -80,7 +85,8 @@ class SysLearnerConfig:
         """The impl of the modules outside the image encoder (the pixel
         decoder's deformable core, the criterion): ``'plain'`` or
         ``'auto'``; JAX's ``attn_impl`` reaches the encoder only."""
-        return "plain" if self.attn_impl == "plain" else "auto"
+        return "plain" if self.attn_impl in ("plain", "xla", "xla_naive", "window_plain") \
+            else "auto"
 
     @property
     def num_queries(self) -> int:
@@ -88,7 +94,8 @@ class SysLearnerConfig:
 
     def sam_config(self) -> SamConfig:
         return SamConfig(**SAM_VARIANTS[self.sam_size], img_size=self.img_size,
-                         dtype=self.dtype, attn_impl=self.attn_impl)
+                         dtype=self.dtype, attn_impl=self.attn_impl,
+                         twoway_impl=self.twoway_impl)
 
 
 class SysLearner(nn.Module):
@@ -155,6 +162,56 @@ class SysLearner(nn.Module):
         h, w = images.shape[1], images.shape[2]
         mask_pred = resize_axis(resize_axis(out["pred_masks"], 2, h, "linear"), 3, w, "linear")
         return out["pred_logits"], mask_pred
+
+    # -- the interactive path: one encode, many prompt decodes --------------
+    def decode_prompts(self, sam_embedding, points=None, labels=None, boxes=None, masks=None,
+                       return_upscaled: bool = True) -> dict:
+        """SAM's prompt decode from a cached (1 or B, H, W, 256) embedding:
+        the MaskDecoder dict (``return_upscaled=False`` skips the upscaled
+        embedding, as a JAX program that does not read it never makes it)."""
+        sparse, dense = self.prompt_encoder(points=points, labels=labels, boxes=boxes,
+                                            masks=masks, batch=sam_embedding.shape[0])
+        return self.mask_decoder(sam_embedding, self.prompt_encoder.get_dense_pe(), sparse,
+                                 dense, return_upscaled=return_upscaled)
+
+    def encode_interactive(self, images: torch.Tensor):
+        """Raw RGB (B, H, W, 3) -> (sam_embedding, mask_features,
+        multi_scale): everything of the interactive path that the prompts
+        do not change, cached across click rounds."""
+        sam_embedding, fpn = self.encode_image(images)
+        mask_features, multi_scale = self.pixel_decoder(fpn)
+        return sam_embedding, mask_features, multi_scale
+
+    def decode_interactive(self, sam_embedding, mask_features, multi_scale, points=None,
+                           labels=None, boxes=None, masks=None) -> torch.Tensor:
+        """One prompt round from the cached products: SAM's prompt decode,
+        then the unified decoder's interactive task with the primary mask
+        token's hypernetwork vector as the prompt query and the upscaled
+        embedding as the mask-feature modulation; batch-1 caches are
+        broadcast to the prompt batch. Returns (N, H/4, W/4) mask logits,
+        one a prompt set."""
+        dec = self.decode_prompts(sam_embedding, points=points, labels=labels, boxes=boxes,
+                                  masks=masks)
+        n = dec["hyper_in"].shape[0]
+
+        def tile(x):
+            if x.shape[0] == n:
+                return x
+            if x.shape[0] == 1:
+                return x.expand(n, *x.shape[1:])
+            return x.repeat_interleave(n // x.shape[0], dim=0)
+
+        out = self.predictor([tile(x) for x in multi_scale], tile(mask_features),
+                             text_embeddings=None, logit_scale=self.lang_encoder.logit_scale,
+                             task="interactive", sam_queries=dec["hyper_in"][:, :1],
+                             sam_features=dec["upscaled_embedding"])
+        return out["pred_interactive_masks"][:, 0]
+
+    def evaluate_interactive_step(self, sam_embedding, fpn, points, labels) -> dict:
+        """A click round scored by SAM's own masks (the ablation baseline):
+        the prompt decode alone; ``fpn`` is not read, as in JAX."""
+        del fpn
+        return self.decode_prompts(sam_embedding, points=points, labels=labels)
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:

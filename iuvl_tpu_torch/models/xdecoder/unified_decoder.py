@@ -1,6 +1,6 @@
 """Unified latent/text-query transformer decoder, PyTorch port of
-``iuvl_tpu/models/xdecoder/unified_decoder.py`` (its ``task='seg'``
-training path).
+``iuvl_tpu/models/xdecoder/unified_decoder.py`` (its ``task='seg'`` and
+``task='interactive'`` paths).
 
 9 layers (3 feature levels x 3 rounds) of masked cross-attention over the
 pixel decoder's maps, block-masked self-attention over [100 object queries
@@ -13,10 +13,16 @@ logits: bicubic-resized with ``jax.image.resize``'s kernel
 unmasked. Rounding points follow the flax modules' ``dtype=`` casts:
 Dense in the working dtype, scores, softmax, norms and heads in fp32.
 
-Captioning, grounding and the interactive and LLM tasks are not ported
-yet (ROADMAP.md); their parameters (``caping_embed``, ``pos_embed_caping``,
-``sam_query_proj``, ``sam_feat_proj``) are kept so the weight bridge
-covers the flax tree.
+``task='interactive'`` takes SAM's prompt decode: ``sam_queries`` (the
+mask-token hypernetwork vectors) through ``sam_query_proj`` join as prompt
+slots after the latent queries (which cannot see them; they see everything),
+and ``sam_features`` (SAM's upscaled embedding) through ``sam_feat_proj``
+are added to the mask features; the prompt slots' mask logits are
+``pred_interactive_masks``.
+
+Captioning, grounding and the LLM tasks are not ported yet (ROADMAP.md);
+their parameters (``caping_embed``, ``pos_embed_caping``) are kept so the
+weight bridge covers the flax tree.
 """
 
 from __future__ import annotations
@@ -168,13 +174,15 @@ class UnifiedDecoder(nn.Module):
         return bias.masked_fill(disallow, NEG_INF)[:, None]
 
     def _prediction_heads(self, output, mask_features, text_embeddings, logit_scale):
+        """The heads over [obj; cls] and, under the interactive task, the
+        prompt slots after them (kept as they are)."""
         dec = _ln(output, self.decoder_norm)
         nq = self.num_queries
         norm_dec = dec / (torch.linalg.vector_norm(dec, dim=-1, keepdim=True) + 1e-7)
         obj, cls = norm_dec[:, : nq - 1], norm_dec[:, nq - 1: nq]
         sim = torch.softmax(torch.einsum("bic,bqc->bqi", obj, cls), dim=-1)[:, 0, :, None]
         cls_token = (sim * dec[:, : nq - 1]).sum(dim=1, keepdim=True)
-        dec = torch.cat([dec[:, : nq - 1], cls_token], dim=1)
+        dec = torch.cat([dec[:, : nq - 1], cls_token, dec[:, nq:]], dim=1)
         class_embed = dec @ self.class_embed
         outputs_class = None
         if text_embeddings is not None:
@@ -190,18 +198,32 @@ class UnifiedDecoder(nn.Module):
                 "outputs_mask": outputs_mask}
 
     def forward(self, multi_scale: Sequence[torch.Tensor], mask_features: torch.Tensor,
-                text_embeddings=None, task: str = "seg", logit_scale=None, **unported):
-        if task != "seg" or unported:
+                text_embeddings=None, task: str = "seg", logit_scale=None, sam_queries=None,
+                sam_features=None, **unported):
+        if task not in ("seg", "interactive") or unported:
             raise NotImplementedError(
                 f"UnifiedDecoder task={task!r} ({sorted(unported)}) is not ported yet; the "
-                "port runs task='seg' (ROADMAP.md lists the other tasks)")
+                "port runs task='seg' and 'interactive' (ROADMAP.md lists the other tasks)")
         assert len(multi_scale) == self.num_feature_levels
         srcs, poss, sizes = self._prepare_memory(multi_scale)
         b, nq, dt = srcs[0].shape[0], self.num_queries, self.dtype
+        if sam_features is not None:  # the prompt-conditioned mask-feature modulation
+            mask_features = mask_features + _dense(sam_features.to(dt), self.sam_feat_proj, dt)
         mask_features = mask_features.float()
         output = self.query_feat[None].expand(b, -1, -1).to(dt)
         query_pos = self.query_embed[None].expand(b, -1, -1).to(dt)
-        base = torch.from_numpy(build_base_self_mask(nq, self.contxt_len)[:nq, :nq])
+        base = build_base_self_mask(nq, self.contxt_len)[:nq, :nq]
+        if task == "interactive":
+            sq = _dense(sam_queries.to(dt), self.sam_query_proj, dt)
+            total = nq + sq.shape[1]
+            m = np.ones((total, total), dtype=bool)
+            m[:nq, :nq] = base
+            m[nq:, :] = False  # prompt slots attend obj, cls and each other
+            m[:nq, nq:] = True  # the latent queries are blind to them
+            base = m
+            output = torch.cat([output, sq], dim=1)
+            query_pos = torch.cat([query_pos, sq], dim=1)
+        base = torch.from_numpy(base)
         self_bias = torch.zeros(base.shape).masked_fill(base, NEG_INF)[None, None].to(
             output.device)
         results = self._prediction_heads(output, mask_features, text_embeddings, logit_scale)
@@ -214,10 +236,13 @@ class UnifiedDecoder(nn.Module):
             results = self._prediction_heads(output, mask_features, text_embeddings,
                                              logit_scale)
             predictions.append(results)
-        return {
+        out = {
             "pred_logits": predictions[-1]["outputs_class"],
             "pred_masks": predictions[-1]["outputs_mask"],
             "pred_captions": predictions[-1]["class_embed"],
             "aux_outputs": [{"pred_logits": p["outputs_class"], "pred_masks": p["outputs_mask"],
                              "pred_captions": p["class_embed"]} for p in predictions[:-1]],
         }
+        if task == "interactive":  # the prompt slots' masks
+            out["pred_interactive_masks"] = predictions[-1]["outputs_mask"][:, nq:]
+        return out

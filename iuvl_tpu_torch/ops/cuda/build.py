@@ -62,6 +62,8 @@ SIGNATURES = {
     "iuvl_relpos_fwd": (P,) * 9 + (I,) * 5 + (P,),
     "iuvl_rowbias_bwd": (P,) * 13 + (I,) * 5 + (P,),
     "iuvl_relpos_bwd": (P,) * 15 + (I,) * 5 + (P,),
+    "iuvl_window_attention": (P,) * 6 + (I,) * 4 + (F, P),
+    "iuvl_seg_scatter": (P,) * 4 + (I,) * 3 + (P,),
 }
 
 

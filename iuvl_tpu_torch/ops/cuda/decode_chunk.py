@@ -46,7 +46,10 @@ from .build import launch, require
 from .twoway_attention import _heads, _merge, t2i_stream_plain
 
 C, I, HEADS, M, MLP = 256, 128, 8, 4, 2048
-SLOTS = (16, 32)  # the kernel's token slots, Tp: JAX pads a prompt's tokens to a multiple of 16
+# The kernel's token slots, Tp. JAX pads a prompt's tokens to any multiple of
+# 16; the kernel's token passes hold Tp rows in shared memory and stop at 64
+# (58 points with the 5 output tokens and the pad point): ROADMAP.md Queue C.
+SLOTS = (16, 32, 48, 64)
 ROWS = 256  # N must be a multiple: the kernel's row passes split N in 8 parts of 32-row tiles
 LN_EPS, LN2D_EPS = 1e-5, 1e-6
 ATTN_SITES = ("self1", "t2i1", "i2t1", "final")
@@ -222,9 +225,9 @@ def _shapes(b: int, n: int, tp: int = SLOTS[0]) -> dict:
 def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
                 return_keys2: bool = False):
     """The whole-chunk decode tail: the CUDA kernel for CUDA tensors (bf16,
-    C 256, 8 heads of 16 in the cross attentions, Tp 16 or 32 slots (up to
-    32 tokens; the token passes hold Tp x 2048 MLP rows in shared memory),
-    M 4 mask tokens, MLP width 2048, N % 256 == 0; LayerNorm params fp32),
+    C 256, 8 heads of 16 in the cross attentions, Tp 16, 32, 48 or 64 slots
+    (up to 64 tokens; the token passes hold Tp rows in shared memory), M 4
+    mask tokens, MLP width 2048, N % 256 == 0; LayerNorm params fp32),
     the plain version for CPU tensors. Returns (tokens_out (B, Tp, C), masks_flat
     (B, N, 16 M) fp32, columns (di, dj, ei, ej, t)), and with
     ``return_keys2`` also keys2 (B, N, C), the keys after block 1 (on the
@@ -242,7 +245,8 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
             f"decode_tail kernel: unsupported C={c}, internal {internal}, heads {n_heads} "
             f"(head width {internal // n_heads}), Tp={tp}, t_valid {t_valid}, M={m}, N={n}, "
             f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp in "
-            f"{SLOTS}, 1 <= t_valid <= Tp, M 4, N % {ROWS} == 0, one shared image)")
+            f"{SLOTS} (at most {SLOTS[-1]} tokens), 1 <= t_valid <= Tp, M 4, N % {ROWS} == 0, "
+            "one shared image)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys0.device
     ops = _operands(t, tpe, keys0, key_pe, W)
     shapes = _shapes(b, n, tp)

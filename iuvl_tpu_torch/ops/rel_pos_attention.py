@@ -49,12 +49,11 @@ def rel_pos_features(q, rh, rw):
     return relh.to(q.dtype).contiguous(), relw.to(q.dtype).contiguous()
 
 
-def decomposed_rel_pos_bias(q, rel_pos_h, rel_pos_w, hw):
-    """(B, heads, N, N) decomposed bias from unscaled q (B, heads, N, d)."""
-    h, w = hw
+def decomposed_rel_pos_bias(q, rh, rw):
+    """(B, heads, N, N) decomposed bias from unscaled q (B, heads, N, d) and
+    the expanded tables of :func:`rel_pos_tables`."""
+    h, w = rh.shape[0], rw.shape[0]
     b, heads, n, d = q.shape
-    rh = rel_pos_table(h, h, rel_pos_h)
-    rw = rel_pos_table(w, w, rel_pos_w)
     r_q = q.reshape(b, heads, h, w, d)
     rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, rh)
     rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, rw)
@@ -111,26 +110,36 @@ def onehot_expanders(hw, dtype, device):
 
 
 KERNEL_IMPLS = ("rowbias", "pallas_rp")  # impls whose attention is one kernel, B2b or B14
+# B13 and its plain version (the card's reference for 'window': B13 rounds
+# where no other route does, see ops/cuda/window_attention.py).
+WINDOW_IMPLS = ("window", "window_plain")
 
 
 def _attention(q, k, v, rh, rw, impl: str):
     """Rel-pos attention on the expanded tables rh (h, h, d), rw (w, w, d).
     ``'rowbias'``: B2b (JAX's ``_rowbias_route``); ``'pallas_rp'``: B14 on
-    the one-hot expanders (JAX's ``impl='pallas_rp'``); each
-    differentiable, its kernels on CUDA tensors and its plain versions on
-    CPU ones. ``'auto'`` and ``'plain'``: the plain math, bias features
-    rounded to the working dtype (JAX's augmented route, ``impl='xla'``).
-    ``'window'`` (B13) is not ported."""
-    if impl == "window":
-        raise NotImplementedError(
-            "rel_pos_attention impl='window' runs B13 (window_rel_attention), which the port "
-            "does not have yet: ROADMAP.md Queue B")
+    the one-hot expanders (JAX's ``impl='pallas_rp'``); ``'window'``: B13
+    (JAX's ``window_rel_attention``, square grids), ``'window_plain'`` its
+    plain version; ``'pallas'``: the augmented q, k through B11 (JAX's
+    ``impl='pallas'``); each differentiable, its kernels on CUDA tensors and
+    its plain versions on CPU ones. ``'xla_naive'``: the materialised-bias
+    oracle. ``'auto'`` and ``'plain'``: the plain math, bias features
+    rounded to the working dtype (JAX's augmented route, ``impl='xla'``)."""
+    from .cuda import flash_attention as fa  # it imports this module
+
+    if impl == "xla_naive":
+        return naive_attention(q, k, v, rh, rw)
+    if impl in WINDOW_IMPLS:
+        from .cuda.window_attention import window_attention
+
+        return window_attention(q, k, v, rh, rw, impl)
+    if impl == "pallas":
+        return fa.flash_attention(*augment_qk_rel_pos(q, k, rh, rw), v)
     relh, relw = rel_pos_features(q, rh, rw)
     hw = (rh.shape[0], rw.shape[0])
     qs = q * (q.shape[-1] ** -0.5)
     if impl not in KERNEL_IMPLS:
         return rowbias_attention(qs, k, v, relh, relw, hw[1])
-    from .cuda import flash_attention as fa  # it imports this module
 
     if impl == "rowbias":
         return fa.flash_attention_rowbias(qs, k, v, relh, relw, hw[1])
@@ -146,14 +155,20 @@ def rel_pos_attention(q, k, v, rel_pos_h, rel_pos_w, hw, impl: str = "plain"):
     return _attention(q, k, v, *rel_pos_tables(rel_pos_h, rel_pos_w, hw), impl)
 
 
-def rel_pos_attention_naive(q, k, v, rel_pos_h, rel_pos_w, hw):
-    """Materialised-bias oracle (``iuvl_tpu`` ``_rel_pos_attention_naive``)."""
+def naive_attention(q, k, v, rh, rw):
+    """Materialised-bias oracle (``iuvl_tpu`` ``_rel_pos_attention_naive``,
+    JAX's ``impl='xla_naive'``) on the expanded fp32 tables: the bias in
+    fp32, unrounded, added to the fp32 scores of the pre-scaled q."""
     scale = q.shape[-1] ** -0.5
     attn = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
-    attn = attn + decomposed_rel_pos_bias(
-        q.float(), rel_pos_h.float(), rel_pos_w.float(), hw)
+    attn = attn + decomposed_rel_pos_bias(q.float(), rh, rw)
     attn = torch.softmax(attn, dim=-1).to(v.dtype)
     return torch.matmul(attn, v)
+
+
+def rel_pos_attention_naive(q, k, v, rel_pos_h, rel_pos_w, hw):
+    """:func:`naive_attention` from the stored tables."""
+    return naive_attention(q, k, v, *rel_pos_tables(rel_pos_h, rel_pos_w, hw))
 
 
 def augment_qk_rel_pos(q, k, rh, rw):
@@ -179,9 +194,10 @@ def rel_pos_attention_proj(q, k, v, rh, rw, wo, bo, impl: str = "auto"):
     wo^T + bo`` in token-major (B, N, C) layout; rh, rw from
     :func:`rel_pos_tables`; wo, bo rounded to q's dtype where used.
 
-    Under ``impl`` 'rowbias' or 'pallas_rp' (and 'window', which raises)
-    every block takes JAX's ``_attn_then_proj``: :func:`_attention`, the
-    relayout and the projection, autograd taking the backward.
+    Under ``impl`` 'rowbias', 'pallas_rp', 'window' (and 'window_plain'),
+    'pallas' or 'xla_naive' every block takes JAX's ``_attn_then_proj``:
+    :func:`_attention`, the relayout and the projection, autograd taking
+    the backward.
 
     Under 'auto' (the kernels) and 'plain' (their plain versions) the route
     depends on differentiation, as the JAX grad switch does

@@ -1,8 +1,10 @@
-"""The seg evaluation, PyTorch port of two parts of ``iuvl_tpu/pipeline.py``:
-``class_text_embeddings`` (the class-name embeddings with the prompt
-ensemble) and the seg-mode body of ``_evaluate_dataset`` (``evaluate_seg``,
-then semantic inference into the mIoU evaluator, the panoptic merge into
-the PQ evaluator and instance inference into the AP evaluator).
+"""The seg and interactive evaluations, PyTorch port of three parts of
+``iuvl_tpu/pipeline.py``: ``class_text_embeddings`` (the class-name
+embeddings with the prompt ensemble), the seg-mode body of
+``_evaluate_dataset`` (``evaluate_seg``, then semantic inference into the
+mIoU evaluator, the panoptic merge into the PQ evaluator and instance
+inference into the AP evaluator) and ``_evaluate_interactive`` (the click
+loop, or the single-shot box / stroke prompts, into the NoC evaluator).
 
 It works over in-memory batches; the dataset layer (``build_dataset``, the
 loaders) and the other eval modes are not ported yet. The model's outputs
@@ -22,7 +24,10 @@ import torch
 from .data.class_names import COCO_THING_IDS
 from .data.prompts import clean_class_name, get_prompt_templates
 from .data.tokenizer import build_tokenizer
-from .evaluation import InstanceAPEvaluator, PanopticEvaluator, SemSegEvaluator
+from .data.visual_sampler import box_points
+from .evaluation import (InstanceAPEvaluator, InteractiveEvaluator, PanopticEvaluator,
+                         SemSegEvaluator)
+from .inference.interactive import make_interactive_loop, sample_fn_click, single_shot_eval
 from .inference.postprocess import instance_inference, panoptic_merge, semantic_inference
 
 IGNORE = 255  # the gt label of pixels no mask covers (detectron2's ignore label)
@@ -141,3 +146,51 @@ def evaluate_seg_batches(model, text_emb: torch.Tensor, batches: Iterable[dict],
     for ev in (pan_eval, inst_eval):
         out.update({f"{name}/{k}": v for k, v in ev.evaluate().items()})
     return out
+
+
+@torch.no_grad()
+def evaluate_interactive_batches(model, items: Iterable[dict], name: str = "interactive",
+                                 prompt_mode: str = "Point", max_clicks: int = 20,
+                                 unified: bool = True, sample_fn=sample_fn_click) -> dict:
+    """JAX's ``_evaluate_interactive`` over ``items``, dicts of numpy
+    arrays: ``image`` (H, W, 3) raw RGB, ``gt_masks`` (N, H, W) bool at the
+    input resolution, ``spatial_query`` with ``click_points`` (N, 2) xy
+    (else the first pixel of each ``rand_shape`` mask is the first click)
+    and, for the single-shot modes, ``rand_shape`` (N, H, W). Each image is
+    encoded once (``encode_interactive``); ``prompt_mode`` 'Point' runs the
+    click loop (the draws of item i from a generator seeded i on the
+    model's device), 'Box' and the stroke modes one decode, its IoU
+    standing for every click. Returns the evaluator's metrics keyed
+    ``<name>/<metric>``."""
+    dev = next(model.parameters()).device
+    evaluator = InteractiveEvaluator(max_clicks=max_clicks)
+    loop = make_interactive_loop(model, max_clicks=max_clicks, unified=unified,
+                                 sample_fn=sample_fn)
+    for i, item in enumerate(items):
+        gtn = np.asarray(item["gt_masks"], bool)
+        if len(gtn) == 0:
+            continue
+        image = torch.from_numpy(np.asarray(item["image"], np.float32)[None]).to(dev)
+        sam_emb, mask_features, multi_scale = model.encode_interactive(image)
+        sq = item["spatial_query"]
+        if prompt_mode != "Point":
+            boxes = np.stack([box_points(m) for m in gtn]) if prompt_mode == "Box" else None
+            ious, _ = single_shot_eval(model, sam_emb, gtn,
+                                       "box" if prompt_mode == "Box" else "stroke",
+                                       prompt_masks=sq.get("rand_shape"), boxes=boxes, seed=i)
+            for iou in ious.cpu().numpy():
+                evaluator.process(np.full(max_clicks, iou, np.float64))
+            continue
+        if "click_points" in sq:
+            firsts = np.asarray(sq["click_points"], np.float32)
+        else:
+            firsts = []
+            for m in np.asarray(sq["rand_shape"]):
+                ys, xs = np.nonzero(m)
+                firsts.append([xs[0], ys[0]] if len(ys) else [0, 0])
+        gen = torch.Generator(device=dev).manual_seed(i)
+        ious, _ = loop(sam_emb, mask_features, multi_scale, torch.from_numpy(gtn).to(dev),
+                       torch.from_numpy(np.asarray(firsts, np.float32)).to(dev), gen)
+        for traj in ious.cpu().numpy().T:
+            evaluator.process(traj)
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}

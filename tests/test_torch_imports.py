@@ -33,7 +33,9 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.evaluation.instance\n"
         "import iuvl_tpu_torch.models.xdecoder.lang_encoder\n"
         "import iuvl_tpu_torch.ops.cuda.decode_chunk, iuvl_tpu_torch.inference.amg\n"
-        "import iuvl_tpu_torch.data.transforms\n"
+        "import iuvl_tpu_torch.data.transforms, iuvl_tpu_torch.data.visual_sampler\n"
+        "import iuvl_tpu_torch.ops.cuda.window_attention, iuvl_tpu_torch.ops.cuda.seg_scatter\n"
+        "import iuvl_tpu_torch.inference.interactive, iuvl_tpu_torch.evaluation.interactive\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
@@ -84,8 +86,10 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.cuda import mlp_block as mb
     from iuvl_tpu_torch.ops.cuda import onehot_gather as og
+    from iuvl_tpu_torch.ops.cuda import seg_scatter as ss
     from iuvl_tpu_torch.ops.cuda import tap_scatter as ts
     from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
+    from iuvl_tpu_torch.ops.cuda import window_attention as wa
     from iuvl_tpu_torch.ops.cuda import window_block as wb
 
     g = torch.Generator().manual_seed(0)
@@ -118,12 +122,16 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     contrib, _ = dg.deform_bwd_glue(g4, r(heads * 6, 8), r(heads * 24, 4), 4)
     md.deform_scatter_dv(contrib, idx, 12, 4)
     og.onehot_deform_level_forward(r(heads, 12, 4 * 8), idx, r(heads, 6, 4, 4), 4)
+    wa.window_rel_attention_fwd(r(1, heads, 16, 8), r(1, heads, 16, 8), r(1, heads, 16, 8),
+                                r(4, 4, 8), r(4, 4, 8))
+    ss.segmented_scatter_add(r(6, 8), torch.zeros(6, dtype=torch.int32), 512)
     for fn in (wb.window_attention_block, fa.flash_attention_rowbias_proj,
                mb.block_tail, mu.masks_upscale, ta.t2i_stream, ta.i2t_block_step,
                wb.window_block_backward, mb.block_tail_backward, fa.flash_attention_fwd,
                fa.flash_attention_bwd, ts.tap_scatter, md.ms_deform_level_fwd,
                md.deform_gather_rows, dg.deform_bwd_glue_q, dg.deform_bwd_glue,
-               md.deform_scatter_dv, og.onehot_deform_level_forward):
+               md.deform_scatter_dv, og.onehot_deform_level_forward,
+               wa.window_rel_attention_fwd, ss.segmented_scatter_add):
         assert fn.launches == 0, fn.__name__
 
 
@@ -152,10 +160,29 @@ def test_builders_default_to_the_card(builder, monkeypatch):
                                           ("twoway_impl", "pallas"),
                                           ("attn_impl", "window")])
 def test_unported_impls_raise(field, value):
+    """The impl values the port once refused for want of a kernel: each is
+    accepted now, builds on the CPU and runs the route JAX gives it."""
+    from iuvl_tpu_torch.models.sam import SamConfig, build_sam
+
+    assert getattr(SamConfig(**{field: value}), field) == value
+    sam = build_sam("vit_b", embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                    img_size=64, window_size=4, device="cpu", **{field: value})
+    want = {"block": "auto", "pallas": "auto" if field == "twoway_impl" else "pallas"}
+    got = (sam.mask_decoder.twoway_impl if field == "twoway_impl"
+           else sam.image_encoder.blocks[0].attn.attn_impl)
+    assert got == want.get(value, value)
+    with torch.no_grad():
+        emb, _ = sam.encode_image(torch.zeros(1, 64, 64, 3), return_fpn=False)
+        out = sam.decode_from_embedding(emb, torch.full((2, 1, 2), 30.0),
+                                        torch.ones(2, 1, dtype=torch.int32))
+    assert out["masks"].shape == (2, 4, 16, 16) and bool(torch.isfinite(out["masks"]).all())
+
+
+def test_unknown_impl_raises():
     from iuvl_tpu_torch.models.sam import SamConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B"):
-        SamConfig(**{field: value})
+    with pytest.raises(ValueError, match="not a choice of the port"):
+        SamConfig(attn_impl="flash")
 
 
 @pytest.mark.parametrize("twoway_impl", ["chunk", "chunk_plain"])

@@ -158,17 +158,21 @@ def test_gradients_down_to_the_tables_match_jax(impl, interpret):
 
 
 def test_window_impl_still_raises_naming_b13():
-    q = torch.zeros(1, 1, 16, 8)
-    with pytest.raises(NotImplementedError, match="B13"):
-        trpa.rel_pos_attention(q, q, q, torch.zeros(7, 8), torch.zeros(7, 8), (4, 4),
+    """B13 takes square grids only (JAX asserts it): a 4 x 2 grid under
+    impl='window' raises, naming B13."""
+    q = torch.zeros(1, 1, 8, 8)
+    with pytest.raises(ValueError, match="B13"):
+        trpa.rel_pos_attention(q, q, q, torch.zeros(7, 8), torch.zeros(3, 8), (4, 2),
                                impl="window")
 
 
-@pytest.mark.parametrize("impl", ["rowbias", "pallas_rp"])
+@pytest.mark.parametrize("impl", ["rowbias", "pallas_rp", "pallas", "xla_naive"])
 def test_tiny_sam_encoder_matches_jax(impl, interpret):
     """The tiny SAM's image encoder (windows of 4 x 4 and a global 8 x 8
     block) under ``impl``: every block's attention through the kernel
-    route, the plain tail, against JAX's encoder under the same impl."""
+    route (B11 on the augmented q, k under 'pallas'; the materialised-bias
+    oracle under 'xla_naive'), the plain tail, against JAX's encoder under
+    the same impl."""
     rs = np.random.RandomState(0)
     init = JSam(cfg=JSamConfig(**SAM_TINY, twoway_impl="off"))
     params = jax.jit(init.init)(jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)),

@@ -7,6 +7,7 @@ package:
   whole-chunk decode (``'chunk_plain'``: 32 token slots, 26 valid), against
   JAX's ``'off'`` and ``'chunk_xla'`` on bridged weights (1e-4; 3e-4 for
   the chunk oracle, as tests/test_torch_decode_chunk.py).
+- C3: the chunk decode of 40- and 58-point prompts (48 and 64 slots).
 - C2: the port's copy of ``rowbias_supported`` equals JAX's, and the global
   block's serving route follows it (B2 where it holds, B11's forward on the
   augmented q, k otherwise), both computing the plain function.
@@ -51,13 +52,28 @@ def params():
 @pytest.mark.parametrize("port_impl, jax_impl, atol", [("plain", "off", 1e-4),
                                                        ("chunk_plain", "chunk_xla", 3e-4)])
 def test_decode_of_20_point_prompts_matches_jax(params, port_impl, jax_impl, atol):
+    _decode_matches_jax(params, port_impl, jax_impl, atol, POINTS)
+
+
+@pytest.mark.parametrize("points", [40, 58])
+def test_chunk_decode_of_40_and_58_point_prompts_matches_jax(params, points):
+    """C3: prompts of 40 and 58 points (46 and 64 tokens) pad to 48 and 64
+    slots, the slot counts B16 now takes (its largest: 64); the chunk
+    decode against JAX's ``'chunk_xla'``."""
+    from iuvl_tpu_torch.ops.cuda.decode_chunk import SLOTS
+
+    assert -(-(points + 6) // 16) * 16 in SLOTS and SLOTS[-1] == 64
+    _decode_matches_jax(params, "chunk_plain", "chunk_xla", 3e-4, points)
+
+
+def _decode_matches_jax(params, port_impl, jax_impl, atol, n_points):
     rs = np.random.RandomState(8)
     jm = JSam(cfg=JSamConfig(**TINY, twoway_impl=jax_impl))
     tm = Sam(SamConfig(**TINY, twoway_impl=port_impl)).eval()
     tm.load_state_dict(flax_to_state_dict(params, depth=2), strict=True)
     emb = rs.randn(1, GRID, GRID, C).astype(np.float32) * 0.5
-    points = rs.rand(4, POINTS, 2).astype(np.float32) * 128
-    labels = rs.randint(0, 2, (4, POINTS)).astype(np.int32)
+    points = rs.rand(4, n_points, 2).astype(np.float32) * 128
+    labels = rs.randint(0, 2, (4, n_points)).astype(np.int32)
     ref = jax.jit(lambda p, e, pt, lb: jm.apply(p, e, points=pt, labels=lb,
                                                 method=JSam.decode_from_embedding))(
         params, jnp.asarray(emb), jnp.asarray(points), jnp.asarray(labels))
