@@ -25,10 +25,14 @@ Phases (any failure raises, so the exit code is non-zero):
    zero-padding validity dropped, a slot read from the next slot's columns,
    a point dropped, an index one cell off, weights rounded per point
    instead of per cell, the slot mask dropped, the final attention reading
-   keys1, a softmax merge missing a split): each must move some output by
-   more than its bound, and each output's bound must catch some fault. B8's two entry
-   points must agree exactly. Times from CUDA events after a warm-up; for
-   B11, B12, B2b, B14 and B7's gather and scatter also the PyTorch call that
+   keys1, a softmax merge missing a split, B13's relw read from the
+   neighbouring column, a B2b / B14 dq pass that skips the last key tile):
+   each must move some output by more than its bound, and each output's
+   bound must catch some fault. B8's two entry points must agree exactly;
+   two launches of the B2b / B14 backward on the same inputs must give the
+   same bits. Times from CUDA events after a warm-up (20 calls at the
+   global shapes of B2b, B14 and B13); for B11, B12, B2b, B14 and B7's
+   gather and scatter also the PyTorch call that
    computes the same function (timed only, never a path); for B13 SDPA on
    the materialised bias, for B17 ``index_add_``. Then the global-block grad
    switch: the training route (B11 + projection) against the serving route
@@ -170,15 +174,18 @@ KERNEL_BOUNDS = {
     # heads of i2t1's k move the masks by 1.43e-2 only.
     "decode_tail": {"tokens": 3.5e-3, "masks": 1.2e-2},
     # B2b / B14: the online softmax rounds the unnormalised p per 64-key
-    # tile (as B11 does); the backward sums dq and the bias cotangents with
-    # fp32 atomics in no fixed order.
+    # tile (as B11 does); the backward's fp32 sums (s, dp, dq, dk, dv and the
+    # bias cotangents) run in the tensor cores' order, not the plain
+    # version's (each in one fixed order: two launches give the same bits).
     "flash_rowbias_fwd": {"o": 1e-2, "lse": 1e-5},
     "flash_relpos_fwd": {"o": 1e-2, "lse": 1e-5},
     "flash_rowbias_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
     "flash_relpos_bwd": {"dq": 1e-3, "dk": 1e-3, "dv": 1e-3, "drelh": 1e-3, "drelw": 1e-3},
-    # B13: its fp32 sums (scores, relh / relw, p v) in another order than the
-    # plain version's, and its softmax sum rescaled per 64-key tile; p and o
-    # rounded to bf16 where the plain version rounds them.
+    # B13: its fp32 sums (scores, p v in the tensor cores' order; relh / relw
+    # over the head dim in order) in another order than the plain version's,
+    # its softmax sum rescaled per 64-key tile and p = exp(s - m) * (1 / l)
+    # where the plain version divides; p and o rounded to bf16 where the
+    # plain version rounds them.
     "window_rel_attention": {"out": 1e-3},
     # B17: the same fp32 sums of the same rows, in another order.
     "segmented_scatter_add": {"out": 1e-6},
@@ -300,6 +307,8 @@ def decode_tail_valid(*args):
 
 
 RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
+# Kernels whose outputs must not change from launch to launch (no atomics).
+DETERMINISTIC = ("flash_rowbias_bwd", "flash_relpos_bwd")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -350,6 +359,33 @@ def _rb_wrong_lse(a):
     return fa.flash_rowbias_bwd_plain(*b) if len(a) == 9 else relpos_bwd_plain(*b)
 
 
+def _rb_dq_misses_last_key_tile(a):
+    """The backward whose dq pass skips the last 64-key tile: dq, drelh and
+    drelw of the plain version without that tile's ds; dk, dv sound."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+    from iuvl_tpu_torch.ops.rel_pos_attention import rowbias_scores
+
+    relpos = len(a) == 10
+    q, k, v, relh, relw = a[:5]
+    eh, ew = (a[5], a[6]) if relpos else (None, None)
+    o, lse, do = a[7:10] if relpos else a[5:8]
+    w, n = relw.shape[-1], k.shape[-2]
+    out = list(relpos_bwd_plain(*a) if relpos else fa.flash_rowbias_bwd_plain(*a))
+    p = torch.exp(rowbias_scores(q, k, relh, relw, w, eh, ew) - lse.unsqueeze(-1))
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = (p * (do.float() @ v.float().transpose(-1, -2) - delta)).to(q.dtype).float()
+    del p
+    ds[..., (n - 1) // 64 * 64:] = 0
+    out[0] = (ds @ k.float()).to(q.dtype)
+    if eh is None:
+        grid = ds.reshape(*ds.shape[:-1], -1, w)
+        drelh, drelw = grid.sum(-1), grid.sum(-2)
+    else:
+        drelh, drelw = ds @ eh.float().t(), ds @ ew.float().t()
+    out[3], out[4] = drelh.to(relh.dtype), drelw.to(relw.dtype)
+    return tuple(out)
+
+
 def rowbias_cases(t, rs, dev):
     """B2b's and B14's cases, forward and backward, at the windowed shape
     (25 windows x 12 heads of N 196, h = w = 14, d 64) and the global one
@@ -362,7 +398,7 @@ def rowbias_cases(t, rs, dev):
                                                       rel_pos_tables)
 
     cases = []
-    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 3)):
+    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 20)):
         n, d = side * side, 64
         q, k, v, do = (t(1, bh, n, d) for _ in range(4))
         rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD), t(2 * side - 1, d, std=BIAS_STD),
@@ -377,10 +413,10 @@ def rowbias_cases(t, rs, dev):
             fwd_faults["the masked tail tile left unmasked"] = _planted(_rb_tail_unmasked)
         bwd_faults = {"wrong lse (+0.05)": _planted(_rb_wrong_lse),
                       "drelh misses the last grid row": _planted(_rb_last_row_missed),
-                      "heads 0/1 swapped in do": _swap(7, 1, 1)}
-        rel_bwd_faults = {"wrong lse (+0.05)": _planted(_rb_wrong_lse),
-                          "drelh misses the last grid row": _planted(_rb_last_row_missed),
-                          "heads 0/1 swapped in do": _swap(9, 1, 1)}
+                      "heads 0/1 swapped in do": _swap(7, 1, 1),
+                      "the dq pass skips the last key tile":
+                          _planted(_rb_dq_misses_last_key_tile)}
+        rel_bwd_faults = {**bwd_faults, "heads 0/1 swapped in do": _swap(9, 1, 1)}
         cases += [
             (f"flash_rowbias_fwd@{tag}", (qs, k, v, relh, relw, side), fwd_faults, iters),
             (f"flash_rowbias_bwd@{tag}", (qs, k, v, relh, relw, o, lse, do, side), bwd_faults,
@@ -825,13 +861,17 @@ def window_cases(t, dev):
     from iuvl_tpu_torch.ops.rel_pos_attention import rel_pos_tables
 
     cases = []
-    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 3)):
+    for tag, bh, side, iters in (("window", 300, 14, 10), ("global", 12, 64, 20)):
         n, d = side * side, 64
         q, k, v = (t(1, bh, n, d) for _ in range(3))
         rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD),
                                 t(2 * side - 1, d, std=BIAS_STD), (side, side))
+        # relw[q, c ^ 1] for relw[q, c]: the neighbouring column's register.
+        neighbour = torch.arange(side, device=dev) ^ 1
         faults = {"relh dropped": _zero(3), "relw dropped": _zero(4),
-                  "heads 0/1 swapped in v": _swap(2, 1, 1)}
+                  "heads 0/1 swapped in v": _swap(2, 1, 1),
+                  "relw from the neighbouring column": lambda a, i=neighbour: a[:4] + (
+                      a[4][:, i].contiguous(),)}
         if n % 64:
             faults["the masked tail tile left unmasked"] = _planted(_window_tail_unmasked)
         cases.append((f"window_rel_attention@{tag}",
@@ -1077,6 +1117,14 @@ def kernel_phase(dev) -> list[dict]:
         bounds = KERNEL_BOUNDS[base]
         out = as_tuple(kern(*args))
         torch.cuda.synchronize()
+        if base in DETERMINISTIC:
+            again = as_tuple(kern(*args))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            log(f"kernel {name}: two launches bit-equal {same}")
+            if not same:
+                failed.append(f"{name}: two launches on the same inputs differ")
+            del again
         if name.startswith("deform_bwd_glue"):
             glue_outs[name] = out
         ref = as_tuple(plain(*args))

@@ -11,8 +11,8 @@
 //   (_flash_rp_forward, _flash_rp_backward).
 // The backward returns dq, dk, dv and the cotangents of relh and relw:
 //   ds = p (do v^T - rowsum(do o)),  dq = ds k,  dk = ds^T q,  dv = p^T do,
-//   [drelh | drelw] = ds [eh | ew]^T   (for B2b the one-hot [eh | ew] that
-//   the indices describe, built in shared memory).
+//   [drelh | drelw] = ds [eh | ew]^T   (for B2b: ds summed over each key
+//   row and over each key column of the grid).
 // SAM runs them under attn_impl 'rowbias' (B2b) and 'pallas_rp' (B14) in
 // every block: windowed (25 windows x 12 heads of N 196, h = w = 14 at
 // ViT-B 1024^2) and global (12 heads of N 4096, h = w = 64).
@@ -35,32 +35,63 @@
 //   padded to 16, skipping the 16-row groups of the expander tile that are
 //   zero for this key tile (with one-hot expanders 3 of 8 skipped at N 4096): the
 //   tile loads in 16-byte pieces and sets a bit per group in use.
-// - Backward: one pass, a block per key tile looping over the query tiles,
-//   so s and dp are computed once (not twice as in B11's two passes). dk
-//   and dv stay in registers; dq, drelh and drelw are sums over key tiles,
-//   so each block adds its share [dq | drelh | drelw] += ds [k | e^T] to
-//   fp32 accumulators in device memory with atomics (zero groups of e
-//   skipped), each block starting at another query tile so that blocks do
-//   not add to the same rows at once. drelh and drelw are never (N, N).
-//   The order of the atomic adds changes from run to run.
+// - Backward: two passes, as the TPU kernel's dkv and dq pallas_calls. (A
+//   one-pass design that adds dq and the bias cotangents with fp32 atomics
+//   runs as slow with those adds made plain stores, 12.24 against 12.49 ms
+//   at the global shape, tools/kernel_ab.py on the card: its cost is the
+//   scores and dp going through shared fp32 and one 126 KB block an SM, not
+//   the atomics. Two passes give the same bits on every run.) Each pass
+//   keeps s, dp, p and ds in registers (mma.sync m16n8k16, mma.cuh): a
+//   warp owns a 16-row strip and one 64-row tile of the other side at a
+//   time, p and ds packed to bf16 straight into the A operand of the next
+//   product; the other side's tiles come by cp.async into a two-stage ring,
+//   one block barrier a tile.
+//   * dk/dv pass: a block per 64-key tile loops over the query tiles with
+//     s^T and dp^T (keys as rows); dk, dv sum in registers. B14 adds e^T
+//     relh^T as a product over the expander groups in use; B2b adds relw,
+//     relh from the query tile's rows in shared memory.
+//   * dq pass: a block per 64-query tile loops over the key tiles; dq sums
+//     in registers, and so do the bias cotangents: B2b at w 64 (a key tile
+//     is one grid row) keeps drelw[q, c] in registers at the lane's fixed
+//     columns c and writes drelh[q, tile] as a row sum (shuffles). B14,
+//     and B2b at other w (the windows; the one-hot e that the indices
+//     describe, written once a call by rb_onehot_kernel), accumulate ds e^T
+//     in registers for up to 8 groups of 16 (h + w <= 128; past that the
+//     pass runs again for the next 8 groups, dq written once), skipping
+//     the groups the expander tile leaves zero (a word a key tile from
+//     rb_nz_kernel). (Sums in shared memory, the four lanes of a row in
+//     turn, serialise on the CUDA cores; the products run on the tensor
+//     cores, and B2b's windowed backward then costs what B14's does.)
+//   Every output element is summed by one block in a fixed order and
+//   written once: no atomics, no zeroed accumulators, the same bits on
+//   every run. s and dp are computed in both passes: 7 N^2 d products
+//   against the one pass's 5.
+//   Measured (ptxas on the card, d 64, global shape; no spills): the dk/dv
+//   pass 240 registers and 91,136 bytes of shared memory a block (B2b),
+//   242 and 109,568 (B14); the dq pass 223 and 72,704 (B2b at w 64), 255
+//   and 109,568 (B14): 2 blocks, 8 warps an SM (__launch_bounds__(128, 2)).
+//   On the card (H100 SXM, 700 W; PERF.md) B2b's global backward takes
+//   1.07 ms against its 0.130 ms bound: 0.66 the dk/dv pass (four products
+//   a tile, each operand tile of the other side read twice by ldmatrix,
+//   once as is and once transposed), 0.38 the dq pass.
 //
 // Rounding points follow the TPU kernels: s, the bias and the softmax in
 // fp32; the unnormalised p = exp(s - m) rounded to bf16 for p v; o =
 // bf16(acc / l); lse = m + log(l); in the backward p = exp(s - lse) in
 // fp32, ds rounded to bf16 before the products dq, dk and the bias
 // cotangents, dv from bf16(p); dk, dv rounded once; dq, drelh and drelw
-// returned as fp32 sums (the wrapper rounds them, as the JAX wrappers do).
-#include "common.cuh"
+// summed in fp32 and rounded once to bf16 (the JAX wrappers round the fp32
+// sums of their kernels to the same dtype).
+#include "mma.cuh"
 
 namespace iuvl {
 namespace {
 
 constexpr int kRT = 128;      // threads: 4 warps, each a 16-row strip
 constexpr int kT = 64;        // query / key tile
-constexpr int kLdS = kT + 4;  // fp32 score rows
 constexpr int kLdP = kT + 8;  // bf16 probability rows, expander rows
 
-// Shared-memory layout of both kernels: D the head dim (q, k, v, o), ka
+// Shared-memory layout of the forward: D the head dim (q, k, v, o), ka
 // the bias depth h + w rounded up to 16.
 template <int D>
 struct RbSmem {
@@ -74,11 +105,6 @@ struct RbSmem {
   static size_t fwd(int ka) {
     return 3 * kTile + ra(ka) + e(ka) + kT * kLdF * sizeof(float) + kT * kLdP * sizeof(bf16) +
            kT * (D + 4) * sizeof(float) + 2 * kT * sizeof(float);
-  }
-  // backward: K, V, Q, dO, RA, E, S, dP, P, dS, lse, delta
-  static size_t bwd(int ka) {
-    return 4 * kTile + ra(ka) + e(ka) + 2 * kT * kLdS * sizeof(float) +
-           2 * kT * kLdP * sizeof(bf16) + 2 * kT * sizeof(float);
   }
 };
 
@@ -298,176 +324,524 @@ __global__ void rb_delta_kernel(const bf16* __restrict__ d_o, const bf16* __rest
 }
 
 // ----------------------------------------------------------- backward --
+// Two passes, as the TPU kernel's dq and dkv pallas_calls: a block per key
+// tile for dk, dv; a block per query tile for dq and the bias cotangents.
+// Each output element is summed in one block, in a fixed order, and
+// written once: no atomics, no zeroed accumulators, the same bits on every
+// run. Both passes compute s and dp (7 N^2 d products in all, against the
+// one-pass design's 5).
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The dq pass's bias and bias cotangents: B2b at w == 64 (relw and the
+// drelw sums in registers, drelh a row sum a key tile); B2b at other w (the
+// bias read from the RA rows, the cotangents as the product ds e^T with the
+// one-hot e that the indices describe, rb_onehot_kernel); B14 (both as
+// products with the expander tile).
+enum DrelMode { kDrelW64 = 0, kDrelIdx = 1, kDrelExp = 2 };
+
+template <int D>
+struct BwdSmem {
+  static constexpr int kLd = D + 8;
+  static constexpr size_t kTile = kT * kLd * sizeof(bf16);
+  __host__ __device__ static size_t ra(int ka) { return kT * (ka + 8) * sizeof(bf16); }
+  __host__ __device__ static size_t e(int ka) { return ka * kLdP * sizeof(bf16); }
+  // dk/dv pass: K, V, E (B14), then two stages of {Q, dO, RA, lse, delta}.
+  __host__ __device__ static size_t dkv_stage(int ka) {
+    return 2 * kTile + ra(ka) + 2 * kT * sizeof(float);
+  }
+  __host__ __device__ static size_t dkv(int ka, bool exp) {
+    return 2 * kTile + (exp ? e(ka) : 0) + 2 * dkv_stage(ka);
+  }
+  // dq pass: Q, dO, RA, then two stages of {K, V, E (not at w 64)}.
+  __host__ __device__ static size_t dq_stage(int ka, bool exp) {
+    return 2 * kTile + (exp ? e(ka) : 0);
+  }
+  __host__ __device__ static size_t dq(int ka, bool exp) {
+    return 2 * kTile + ra(ka) + 2 * dq_stage(ka, exp);
+  }
+};
+
+// RA rows [q0, q0 + kT) (see load_ra) by cp.async when relh and relw rows
+// are whole 16-byte pieces, else by plain loads; columns [h + w, ka) are
+// left as they are (zeroed once by the caller).
+__device__ __forceinline__ void stage_ra(bf16* ra, int ka, const bf16* relh, const bf16* relw,
+                                         int q0, int n, int h, int w) {
+  const int ld = ka + 8;
+  if (h % 8 == 0 && w % 8 == 0) {
+    const int ch = h / 8, cw = w / 8;
+    for (int i = threadIdx.x; i < kT * (ch + cw); i += kRT) {
+      const int r = i / (ch + cw), c = i % (ch + cw), row = q0 + r;
+      const bool in = row < n;
+      const bf16* src = c < ch ? relh + static_cast<size_t>(in ? row : 0) * h + c * 8
+                               : relw + static_cast<size_t>(in ? row : 0) * w + (c - ch) * 8;
+      cp_async16_zfill(ra + r * ld + c * 8, src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kT * (h + w); i += kRT) {
+      const int r = i / (h + w), a = i % (h + w), row = q0 + r;
+      bf16 val = to_bf(0.f);
+      if (row < n) val = a < h ? relh[static_cast<size_t>(row) * h + a]
+                               : relw[static_cast<size_t>(row) * w + a - h];
+      ra[r * ld + a] = val;
+    }
+  }
+}
+
+// Columns [h + w, ka + 8) of kT rows of RA: zero.
+__device__ __forceinline__ void zero_ra_pad(bf16* ra, int ka, int h, int w) {
+  const int ld = ka + 8, pad = ld - (h + w);
+  for (int i = threadIdx.x; i < kT * pad; i += kRT)
+    ra[(i / pad) * ld + h + w + i % pad] = to_bf(0.f);
+}
+
+// lse (0 past n) and delta (0 past n) of rows [q0, q0 + kT) by cp.async.
+// A row past n has q = do = 0, so dp = delta = 0 and ds = 0 whatever p is.
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int q0, int n) {
+  if (threadIdx.x < kT / 4) {
+    const int r = threadIdx.x * 4;
+    if (q0 + r + 4 <= n && (reinterpret_cast<size_t>(src + q0 + r) & 15) == 0) {
+      cp_async16_zfill(dst + r, src + q0 + r, true);
+    } else {
+      for (int u = 0; u < 4; ++u) dst[r + u] = q0 + r + u < n ? src[q0 + r + u] : 0.f;
+    }
+  }
+}
+
+// E for the keys [k0, k0 + kT) (see load_e) without the group flags: by
+// cp.async when the expander rows are 16-byte aligned (n % 8 == 0), else by
+// plain loads.
+__device__ __forceinline__ void stage_e(bf16* e, int ka, const bf16* eh, const bf16* ew, int k0,
+                                        int n, int h, int w) {
+  if (n % 8 == 0) {
+    for (int i = threadIdx.x; i < ka * (kT / 8); i += kRT) {
+      const int a = i / (kT / 8), c = (i % (kT / 8)) * 8, key = k0 + c;
+      const bool in = key < n && a < h + w;
+      const bf16* src = a < h ? eh + static_cast<size_t>(a) * n
+                              : ew + static_cast<size_t>(in ? a - h : 0) * n;
+      cp_async16_zfill(e + a * kLdP + c, src + (in ? key : 0), in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ka * kT; i += kRT) {
+      const int a = i / kT, c = i % kT, key = k0 + c;
+      bf16 val = to_bf(0.f);
+      if (key < n && a < h + w)
+        val = a < h ? eh[static_cast<size_t>(a) * n + key]
+                    : ew[static_cast<size_t>(a - h) * n + key];
+      e[a * kLdP + c] = val;
+    }
+  }
+}
+
+// key / w for 0 <= key < 2^24, inv_w = 1 / w: a float estimate, corrected.
+__device__ __forceinline__ int div_w(int key, int w, float inv_w) {
+  int g = __float2int_rz((key + 0.5f) * inv_w);
+  g -= g * w > key;
+  g += (g + 1) * w <= key;
+  return g;
+}
+
+// B2b's one-hot expanders, as B14 takes them: e[a][key] = 1 where key / w
+// == a (a < h) or key % w == a - h (h <= a < h + w), else 0; (h + w, n) bf16.
+__global__ void rb_onehot_kernel(bf16* __restrict__ e, int n, int h, int w) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(h + w) * n) return;
+  const int a = static_cast<int>(i / n), key = static_cast<int>(i % n);
+  e[i] = to_bf((a < h ? key / w == a : key % w == a - h) ? 1.f : 0.f);
+}
+
+// nz[t]: bit g set where rows 16 g .. 16 g + 15 of key tile t's expander
+// tile hold a non-zero value (the groups the products cannot skip).
+__global__ void __launch_bounds__(kRT) rb_nz_kernel(const bf16* __restrict__ eh,
+                                                    const bf16* __restrict__ ew,
+                                                    int* __restrict__ nz, int n, int h, int w,
+                                                    int ka) {
+  __shared__ int bits_s;
+  if (threadIdx.x == 0) bits_s = 0;
+  __syncthreads();
+  const int k0 = blockIdx.x * kT;
+  int bits = 0;
+  for (int i = threadIdx.x; i < (h + w) * kT; i += kRT) {
+    const int a = i / kT, key = k0 + i % kT;
+    if (key >= n) continue;
+    const bf16 val = a < h ? eh[static_cast<size_t>(a) * n + key]
+                           : ew[static_cast<size_t>(a - h) * n + key];
+    if (to_f(val) != 0.f) bits |= 1 << (a / 16);
+  }
+  if (bits) atomicOr(&bits_s, bits);
+  __syncthreads();
+  if (threadIdx.x == 0) nz[blockIdx.x] = bits_s;
+}
+
+// --- dk/dv pass: a block per 64-key tile, looping over the query tiles;
+// warp w owns keys k0 + 16 w .. +15 and works on s^T, dp^T (keys as rows).
 template <int D, bool kExp>
-__global__ void __launch_bounds__(kRT) rb_bwd_kernel(
+__global__ void __launch_bounds__(kRT, 2) rb_bwd_dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ relh, const bf16* __restrict__ relw, const bf16* __restrict__ eh,
     const bf16* __restrict__ ew, const bf16* __restrict__ d_o, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq_acc, float* __restrict__ drel_acc,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int h, int w, int ka) {
-  using L = RbSmem<D>;
-  constexpr int kLdT = L::kLdT;
+    const float* __restrict__ delta, const int* __restrict__ nz, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n, int h, int w, int ka) {
+  using L = BwdSmem<D>;
+  constexpr int kLd = L::kLd, kTileE = kT * kLd;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kT * kLdT;
-  bf16* Qs = Vs + kT * kLdT;
-  bf16* dOs = Qs + kT * kLdT;
-  bf16* RA = dOs + kT * kLdT;
-  bf16* E = RA + kT * (ka + 8);
-  float* S = reinterpret_cast<float*>(E + ka * kLdP);  // [query][key]
-  float* dP = S + kT * kLdS;
-  bf16* Pb = reinterpret_cast<bf16*>(dP + kT * kLdS);
-  bf16* dSb = Pb + kT * kLdP;
-  float* lse_s = reinterpret_cast<float*>(dSb + kT * kLdP);
-  float* del_s = lse_s + kT;
-  __shared__ int nz;  // the expander groups of this key tile in use
+  bf16* Vs = Ks + kTileE;
+  bf16* E = Vs + kTileE;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(E) + (kExp ? L::e(ka) : 0);
+  const size_t stage_bytes = L::dkv_stage(ka);
+  const int lda = ka + 8;
+  auto Qs = [&](int st) { return reinterpret_cast<bf16*>(stages + st * stage_bytes); };
+  auto dOs = [&](int st) { return Qs(st) + kTileE; };
+  auto RA = [&](int st) { return dOs(st) + kTileE; };
+  auto LSE = [&](int st) { return reinterpret_cast<float*>(RA(st) + kT * lda); };
+  auto DEL = [&](int st) { return LSE(st) + kT; };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, lo = lane >> 2;
   const size_t bh = blockIdx.y;
   const int k0 = blockIdx.x * kT, r0 = warp * 16;
-  const int lda = ka + 8, hw = h + w;
   const bf16* qh = q + bh * n * D;
   const bf16* doh = d_o + bh * n * D;
-  if (threadIdx.x == 0) nz = 0;
-  __syncthreads();
-  load_rows<D>(Ks, kLdT, k + bh * n * D, k0, n);
-  load_rows<D>(Vs, kLdT, v + bh * n * D, k0, n);
-  load_e<kExp>(E, ka, eh, ew, k0, n, h, w, &nz);
-  __syncthreads();
-  const int groups = nz;
-
-  FragC acc_k[D / 16], acc_v[D / 16];
-#pragma unroll
-  for (int t = 0; t < D / 16; ++t) {
-    wmma::fill_fragment(acc_k[t], 0.f);
-    wmma::fill_fragment(acc_v[t], 0.f);
-  }
+  const bf16* rhh = relh + bh * n * h;
+  const bf16* rwh = relw + bh * n * w;
   const int tiles = (n + kT - 1) / kT;
+  auto issue = [&](int it) {
+    const int st = it & 1, q0 = it * kT;
+    cp_rows<D>(Qs(st), kLd, qh, q0, kT, n, tid, kRT);
+    cp_rows<D>(dOs(st), kLd, doh, q0, kT, n, tid, kRT);
+    stage_ra(RA(st), ka, rhh, rwh, q0, n, h, w);
+    stage_rows_f32(LSE(st), lse + bh * n, q0, n);
+    stage_rows_f32(DEL(st), delta + bh * n, q0, n);
+  };
+  cp_rows<D>(Ks, kLd, k + bh * n * D, k0, kT, n, tid, kRT);
+  cp_rows<D>(Vs, kLd, v + bh * n * D, k0, kT, n, tid, kRT);
+  if (kExp) stage_e(E, ka, eh, ew, k0, n, h, w);
+  zero_ra_pad(RA(0), ka, h, w);
+  zero_ra_pad(RA(1), ka, h, w);
+  issue(0);
+  cp_async_commit();
+  const int groups = kExp ? nz[blockIdx.x] : 0;
+  // B2b: the grid row and column of the lane's two keys (0 past n).
+  int kg[2] = {0, 0}, kc[2] = {0, 0};
+  if (!kExp) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int key = k0 + r0 + lo + 8 * u;
+      if (key < n) {
+        kg[u] = key / w;
+        kc[u] = key - kg[u] * w;
+      }
+    }
+  }
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+
   for (int it = 0; it < tiles; ++it) {
-    const int q0 = ((blockIdx.x + it) % tiles) * kT;  // staggered over the blocks
-    __syncthreads();  // the previous query tile is consumed
-    load_rows<D>(Qs, kLdT, qh, q0, n);
-    load_rows<D>(dOs, kLdT, doh, q0, n);
-    load_ra(RA, ka, relh + bh * n * h, relw + bh * n * w, q0, n, h, w);
-    if (threadIdx.x < kT) {
-      const bool in = q0 + threadIdx.x < n;  // past n: p = exp(-inf) = 0
-      lse_s[threadIdx.x] = in ? lse[bh * n + q0 + threadIdx.x] : INFINITY;
-      del_s[threadIdx.x] = in ? delta[bh * n + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    // Warp w: the score and dp rows of queries r0.. against this key tile.
+    cp_async_wait<0>();
+    __syncthreads();  // query tile it landed; the other stage is free
+    if (it == 0) {
 #pragma unroll
-    for (int ct = 0; ct < kT / 16; ++ct) {
-      FragC sc, dc;
-      wmma::fill_fragment(sc, 0.f);
-      wmma::fill_fragment(dc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        FragA fa;
-        FragBc fb;  // B[d][key] = K[key][d]
-        wmma::load_matrix_sync(fa, Qs + r0 * kLdT + kk, kLdT);
-        wmma::load_matrix_sync(fb, Ks + ct * 16 * kLdT + kk, kLdT);
-        wmma::mma_sync(sc, fa, fb, sc);
-        wmma::load_matrix_sync(fa, dOs + r0 * kLdT + kk, kLdT);
-        wmma::load_matrix_sync(fb, Vs + ct * 16 * kLdT + kk, kLdT);
-        wmma::mma_sync(dc, fa, fb, dc);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        lda_rows(kf[kk], Ks, kLd, r0, kk * 16);
+        lda_rows(vf[kk], Vs, kLd, r0, kk * 16);
       }
-      if (kExp) {
-        for (int g = 0; g < ka / 16; ++g) {
-          if (!(groups >> g & 1)) continue;
-          FragA fa;
-          wmma::load_matrix_sync(fa, RA + r0 * lda + g * 16, lda);
-          FragBr fb;  // B[a][key] = E[a][key]
-          wmma::load_matrix_sync(fb, E + g * 16 * kLdP + ct * 16, kLdP);
-          wmma::mma_sync(sc, fa, fb, sc);
+    }
+    if (it + 1 < tiles) issue(it + 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const bf16* Qt = Qs(st);
+    const bf16* dOt = dOs(st);
+    const bf16* RAt = RA(st);
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t b[4];
+        ldb_rows(b, Qt, kLd, p * 16, kk * 16);  // B[d][query] = Q[query][d]
+        mma16816(s[2 * p], kf[kk], b[0], b[1]);
+        mma16816(s[2 * p + 1], kf[kk], b[2], b[3]);
+        ldb_rows(b, dOt, kLd, p * 16, kk * 16);
+        mma16816(dp[2 * p], vf[kk], b[0], b[1]);
+        mma16816(dp[2 * p + 1], vf[kk], b[2], b[3]);
+      }
+    }
+    if (kExp) {  // s^T += E^T RA^T over the groups in use
+      for (int g = 0; g < ka / 16; ++g) {
+        if (!(groups >> g & 1)) continue;
+        uint32_t ea[4];
+        lda_cols(ea, E, kLdP, r0, g * 16);  // A[key][a] = E[a][key]
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t b[4];
+          ldb_rows(b, RAt, lda, p * 16, g * 16);  // B[a][query] = RA[query][a]
+          mma16816(s[2 * p], ea, b[0], b[1]);
+          mma16816(s[2 * p + 1], ea, b[2], b[3]);
         }
       }
-      wmma::store_matrix_sync(S + r0 * kLdS + ct * 16, sc, kLdS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dP + r0 * kLdS + ct * 16, dc, kLdS, wmma::mem_row_major);
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * kT; e += 32) {
-      const int r = r0 + e / kT, c = e % kT, key = k0 + c;
-      float s = S[r * kLdS + c];
-      if (!kExp && key < n) {
-        const int g = key / w;
-        s = (s + to_f(RA[r * lda + h + key - g * w])) + to_f(RA[r * lda + g]);
-      }
-      const float p = key < n ? expf(s - lse_s[r]) : 0.f;
-      Pb[r * kLdP + c] = to_bf(p);
-      dSb[r * kLdP + c] = to_bf(p * (dP[r * kLdS + c] - del_s[r]));
-    }
-    __syncthreads();  // dk and dv below read every query row
-    // Warp w owns keys r0..r0+15: dv += p^T do, dk += ds^T q.
-    using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+    // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta), column by column.
+    const float* LSEt = LSE(st);
+    const float* DELt = DEL(st);
 #pragma unroll
-    for (int kk = 0; kk < kT; kk += 16) {
-      FragACol pa, da;  // A[key][query] = P[query][key]
-      wmma::load_matrix_sync(pa, Pb + kk * kLdP + r0, kLdP);
-      wmma::load_matrix_sync(da, dSb + kk * kLdP + r0, kLdP);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int t = 0; t < D / 16; ++t) {
-        FragBr ob;  // B[query][c] = dO[query][c]
-        wmma::load_matrix_sync(ob, dOs + kk * kLdT + t * 16, kLdT);
-        wmma::mma_sync(acc_v[t], pa, ob, acc_v[t]);
-        FragBr qb;  // B[query][d] = Q[query][d]
-        wmma::load_matrix_sync(qb, Qs + kk * kLdT + t * 16, kLdT);
-        wmma::mma_sync(acc_k[t], da, qb, acc_k[t]);
-      }
-    }
-    // Warp w's query rows: [dq | drelh | drelw] += ds [k | e^T], added to
-    // the fp32 accumulators a 16 x 16 tile at a time through its (free)
-    // score rows.
-    float* st = S + r0 * kLdS;
-    for (int t = 0; t < D / 16 + ka / 16; ++t) {
-      const bool is_q = t < D / 16;
-      const int g = t - D / 16;
-      if (!is_q && !(groups >> g & 1)) continue;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = 8 * j + 2 * (lane & 3) + e2;
+        const float ll = LSEt[c] * kLog2e, dl = DELt[c];
 #pragma unroll
-      for (int kk = 0; kk < kT; kk += 16) {
-        FragA da;
-        wmma::load_matrix_sync(da, dSb + r0 * kLdP + kk, kLdP);
-        if (is_q) {
-          FragBr kb;  // B[key][d] = K[key][d]
-          wmma::load_matrix_sync(kb, Ks + kk * kLdT + t * 16, kLdT);
-          wmma::mma_sync(acc, da, kb, acc);
-        } else {
-          FragBc eb;  // B[key][a] = E[a][key]
-          wmma::load_matrix_sync(eb, E + g * 16 * kLdP + kk, kLdP);
-          wmma::mma_sync(acc, da, eb, acc);
+        for (int u = 0; u < 2; ++u) {
+          const int e = 2 * u + e2;
+          float x = s[j][e];
+          if (!kExp)  // (q.k + relw) + relh, as the TPU kernel sums them
+            x = (x + to_f(RAt[c * lda + h + kc[u]])) + to_f(RAt[c * lda + kg[u]]);
+          const float p = ex2(fmaf(x, kLog2e, -ll));
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl);
         }
       }
-      __syncwarp();
-      wmma::store_matrix_sync(st, acc, kLdS, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, c = e % 16, row = q0 + r0 + r;
-        if (row >= n) continue;
-        if (is_q) {
-          atomicAdd(dq_acc + (bh * n + row) * D + t * 16 + c, st[r * kLdS + c]);
-        } else if (g * 16 + c < hw) {
-          atomicAdd(drel_acc + (bh * n + row) * hw + g * 16 + c, st[r * kLdS + c]);
+    }
+    // dv += bf16(p)^T do, dk += bf16(ds)^T q.
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, s[2 * kq], s[2 * kq + 1]);
+      acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldb_cols(b, dOt, kLd, dn * 16, kq * 16);  // B[query][c] = dO[query][c]
+        mma16816(dva[2 * dn], pa, b[0], b[1]);
+        mma16816(dva[2 * dn + 1], pa, b[2], b[3]);
+        ldb_cols(b, Qt, kLd, dn * 16, kq * 16);
+        mma16816(dka[2 * dn], da, b[0], b[1]);
+        mma16816(dka[2 * dn + 1], da, b[2], b[3]);
+      }
+    }
+  }
+  store_strip_rows<D>(dk + bh * n * D, dka, k0 + r0, n);
+  store_strip_rows<D>(dv + bh * n * D, dva, k0 + r0, n);
+}
+
+// --- dq pass: a block per 64-query tile, looping over the key tiles; warp
+// w owns queries q0 + 16 w .. +15. Writes dq and, for the groups [g0, g0 +
+// kG) (kDrelExp) or all of them, drelh and drelw; dq only when g0 == 0.
+template <int D, int kMode, int kG>
+__global__ void __launch_bounds__(kRT, 2) rb_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ relh, const bf16* __restrict__ relw, const bf16* __restrict__ eh,
+    const bf16* __restrict__ ew, const bf16* __restrict__ d_o, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ nz, bf16* __restrict__ dq,
+    bf16* __restrict__ drelh, bf16* __restrict__ drelw, int n, int h, int w, int ka, int g0) {
+  constexpr bool kE = kMode != kDrelW64;  // an E tile in each stage
+  using L = BwdSmem<D>;
+  constexpr int kLd = L::kLd, kTileE = kT * kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kTileE;
+  bf16* RA = dOs + kTileE;
+  const int lda = ka + 8;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(RA + kT * lda);
+  const size_t stage_bytes = L::dq_stage(ka, kE);
+  auto Ks = [&](int st) { return reinterpret_cast<bf16*>(stages + st * stage_bytes); };
+  auto Vs = [&](int st) { return Ks(st) + kTileE; };
+  auto Es = [&](int st) { return Vs(st) + kTileE; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, lo = lane >> 2;
+  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.x * kT, r0 = warp * 16;
+  const bf16* kh = k + bh * n * D;
+  const bf16* vh = v + bh * n * D;
+  const int tiles = (n + kT - 1) / kT;
+  auto issue = [&](int it) {
+    const int st = it & 1, k0 = it * kT;
+    cp_rows<D>(Ks(st), kLd, kh, k0, kT, n, tid, kRT);
+    cp_rows<D>(Vs(st), kLd, vh, k0, kT, n, tid, kRT);
+    if constexpr (kE) stage_e(Es(st), ka, eh, ew, k0, n, h, w);
+  };
+  zero_ra_pad(RA, ka, h, w);
+  cp_rows<D>(Qs, kLd, q + bh * n * D, q0, kT, n, tid, kRT);
+  cp_rows<D>(dOs, kLd, d_o + bh * n * D, q0, kT, n, tid, kRT);
+  stage_ra(RA, ka, relh + bh * n * h, relw + bh * n * w, q0, n, h, w);
+  issue(0);
+  cp_async_commit();
+  // Each row's lse (log2 units) and delta; 0 past n (then q = do = 0).
+  float ll[2], dl[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = q0 + r0 + lo + 8 * u;
+    ll[u] = row < n ? lse[bh * n + row] * kLog2e : 0.f;
+    dl[u] = row < n ? delta[bh * n + row] : 0.f;
+  }
+  const float inv_w = 1.f / w;
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  // kDrelW64: relw[row, c] of the lane's columns c, and drelw's sums there;
+  // otherwise the sums of ds e^T for groups g0 .. g0 + kG - 1.
+  constexpr int kR = kMode == kDrelW64 ? 8 : 2 * kG;
+  float rwr[kMode == kDrelW64 ? 8 : 1][4], dra[kR][4];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) dra[j][0] = dra[j][1] = dra[j][2] = dra[j][3] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // key tile it landed; the other stage is free
+    if constexpr (kMode == kDrelW64) if (it == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rwr[j][e] =
+              to_f(RA[(r0 + lo + 8 * (e >> 1)) * lda + h + 8 * j + 2 * (lane & 3) + (e & 1)]);
+    }
+    if (it + 1 < tiles) issue(it + 1);
+    cp_async_commit();
+    const int st = it & 1, k0 = it * kT;
+    const bf16* Kt = Ks(st);
+    const bf16* Vt = Vs(st);
+    const bf16* Et = Es(st);
+    const int groups = kE ? nz[it] : 0;  // the groups of E in use
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      lda_rows(qa, Qs, kLd, r0, kk * 16);
+      lda_rows(oa, dOs, kLd, r0, kk * 16);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t b[4];
+        ldb_rows(b, Kt, kLd, p * 16, kk * 16);  // B[d][key] = K[key][d]
+        mma16816(s[2 * p], qa, b[0], b[1]);
+        mma16816(s[2 * p + 1], qa, b[2], b[3]);
+        ldb_rows(b, Vt, kLd, p * 16, kk * 16);
+        mma16816(dp[2 * p], oa, b[0], b[1]);
+        mma16816(dp[2 * p + 1], oa, b[2], b[3]);
+      }
+    }
+    if constexpr (kMode == kDrelExp) {  // s += RA E over the groups in use
+      for (int g = 0; g < ka / 16; ++g) {
+        if (!(groups >> g & 1)) continue;
+        uint32_t ra[4];
+        lda_rows(ra, RA, lda, r0, g * 16);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t b[4];
+          ldb_cols(b, Et, kLdP, p * 16, g * 16);  // B[a][key] = E[a][key]
+          mma16816(s[2 * p], ra, b[0], b[1]);
+          mma16816(s[2 * p + 1], ra, b[2], b[3]);
+        }
+      }
+    }
+    float rh[2] = {0.f, 0.f};
+    if constexpr (kMode == kDrelW64) {  // key tile it is grid row it
+#pragma unroll
+      for (int u = 0; u < 2; ++u) rh[u] = to_f(RA[(r0 + lo + 8 * u) * lda + it]);
+    }
+    // p = exp(s - lse) (0 past n), ds = p (dp - delta) rounded to bf16.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = e >> 1, key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        float x = s[j][e];
+        if constexpr (kMode == kDrelW64) {
+          x = (x + rwr[j][e]) + rh[u];
+        } else if constexpr (kMode == kDrelIdx) {
+          if (key < n) {  // (q.k + relw) + relh, as the TPU kernel sums them
+            const int g = div_w(key, w, inv_w), row = r0 + lo + 8 * u;
+            x = (x + to_f(RA[row * lda + h + key - g * w])) + to_f(RA[row * lda + g]);
+          }
+        }
+        const float p = key < n ? ex2(fmaf(x, kLog2e, -ll[u])) : 0.f;
+        dp[j][e] = round_bf(p * (dp[j][e] - dl[u]));
+      }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) acc_to_a(da[kq], dp[2 * kq], dp[2 * kq + 1]);
+    // dq += ds k
+    if (g0 == 0) {
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t b[4];
+          ldb_cols(b, Kt, kLd, dn * 16, kq * 16);  // B[key][c] = K[key][c]
+          mma16816(dqa[2 * dn], da[kq], b[0], b[1]);
+          mma16816(dqa[2 * dn + 1], da[kq], b[2], b[3]);
+        }
+    }
+    if constexpr (kMode == kDrelW64) {
+      // drelw[row, c] += ds[row, c]; drelh[row, it] = sum_c ds[row, c].
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dra[j][e] += dp[j][e];
+          rs[e >> 1] += dp[j][e];
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        rs[u] += __shfl_xor_sync(0xffffffffu, rs[u], 1);
+        rs[u] += __shfl_xor_sync(0xffffffffu, rs[u], 2);
+        const int row = q0 + r0 + lo + 8 * u;
+        if ((lane & 3) == 0 && row < n) drelh[(bh * n + row) * h + it] = to_bf(rs[u]);
+      }
+    } else {
+      // [drelh | drelw] += ds E^T over the groups in use.
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        const int g = g0 + gi;
+        if (g >= ka / 16 || !(groups >> g & 1)) continue;
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          uint32_t b[4];
+          ldb_rows(b, Et, kLdP, g * 16, kq * 16);  // B[key][a] = E[a][key]
+          mma16816(dra[2 * gi], da[kq], b[0], b[1]);
+          mma16816(dra[2 * gi + 1], da[kq], b[2], b[3]);
         }
       }
     }
   }
-  __syncthreads();  // S is free for staging
-  float* st = S + r0 * kLdS;
+  if (g0 == 0) store_strip_rows<D>(dq + bh * n * D, dqa, q0 + r0, n);
+  // The bias cotangents, rounded once.
+  if constexpr (kMode == kDrelW64) {
 #pragma unroll
-  for (int t = 0; t < 2 * (D / 16); ++t) {
-    const bool is_k = t < D / 16;
-    const int u = is_k ? t : t - D / 16;
-    wmma::store_matrix_sync(st, is_k ? acc_k[u] : acc_v[u], kLdS, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, c = e % 16;
-      if (k0 + r0 + r >= n) continue;
-      const size_t row = bh * n + k0 + r0 + r;
-      (is_k ? dk : dv)[row * D + u * 16 + c] = to_bf(st[r * kLdS + c]);
-    }
-    __syncwarp();
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = q0 + r0 + lo + 8 * u, c = 8 * j + 2 * (lane & 3);
+        if (row < n)
+          *reinterpret_cast<uint32_t*>(drelw + (bh * n + row) * w + c) =
+              pack_bf16(dra[j][2 * u], dra[j][2 * u + 1]);
+      }
+  } else {
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + r0 + lo + 8 * (e >> 1);
+          const int a = (g0 + gi) * 16 + 8 * t + 2 * (lane & 3) + (e & 1);
+          if (row >= n || a >= h + w) continue;
+          if (a < h) drelh[(bh * n + row) * h + a] = to_bf(dra[2 * gi + t][e]);
+          else drelw[(bh * n + row) * w + a - h] = to_bf(dra[2 * gi + t][e]);
+        }
   }
 }
 
@@ -497,29 +871,69 @@ int rb_forward(const void* q, const void* k, const void* v, const void* relh, co
   return static_cast<int>(cudaGetLastError());
 }
 
+struct BwdArgs {
+  const bf16 *q, *k, *v, *relh, *relw, *eh, *ew, *d_o;
+  const float *lse, *delta;
+  const int* nz;
+  bf16 *dq, *drelh, *drelw;
+  int n, h, w, ka;
+};
+
+template <int D, int kMode, int kG>
+int launch_dq(const BwdArgs& a, int bh, int g0, cudaStream_t s) {
+  const size_t smem = BwdSmem<D>::dq(a.ka, kMode != kDrelW64);
+  if (int err = set_smem(rb_bwd_dq_kernel<D, kMode, kG>, smem)) return err;
+  rb_bwd_dq_kernel<D, kMode, kG><<<dim3((a.n + kT - 1) / kT, bh), kRT, smem, s>>>(
+      a.q, a.k, a.v, a.relh, a.relw, a.eh, a.ew, a.d_o, a.lse, a.delta, a.nz, a.dq, a.drelh,
+      a.drelw, a.n, a.h, a.w, a.ka, g0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kExp>
 int rb_backward(const void* q, const void* k, const void* v, const void* relh, const void* relw,
                 const void* eh, const void* ew, const void* o, const void* lse, const void* d_o,
-                void* delta, void* dq_acc, void* drel_acc, void* dk, void* dv, int bh, int n,
-                int h, int w, void* stream) {
+                void* delta, void* onehot, void* nz, void* dq, void* drelh, void* drelw,
+                void* dk, void* dv, int bh, int n, int h, int w, void* stream) {
   const int ka = (h + w + 15) / 16 * 16;
   if (ka / 16 > 31) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = bh * n;
+  const int rows = bh * n, tiles = (n + kT - 1) / kT;
   rb_delta_kernel<D><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(d_o),
                                                      static_cast<const bf16*>(o),
                                                      static_cast<float*>(delta), rows);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
-  const size_t smem = RbSmem<D>::bwd(ka);
-  if (int err = set_smem(rb_bwd_kernel<D, kExp>, smem)) return err;
-  rb_bwd_kernel<D, kExp><<<dim3((n + kT - 1) / kT, bh), kRT, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(relh), static_cast<const bf16*>(relw),
-      static_cast<const bf16*>(eh), static_cast<const bf16*>(ew), static_cast<const bf16*>(d_o),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<float*>(drel_acc), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n, h, w, ka);
-  return static_cast<int>(cudaGetLastError());
+  if (!kExp && w != kT) {  // B2b's dq pass takes the one-hot expanders from onehot
+    rb_onehot_kernel<<<static_cast<int>((static_cast<size_t>(h + w) * n + 255) / 256), 256, 0,
+                       s>>>(static_cast<bf16*>(onehot), n, h, w);
+    if (int err = static_cast<int>(cudaGetLastError())) return err;
+    eh = onehot;
+    ew = static_cast<const bf16*>(onehot) + static_cast<size_t>(h) * n;
+  }
+  if (eh) {
+    rb_nz_kernel<<<tiles, kRT, 0, s>>>(static_cast<const bf16*>(eh), static_cast<const bf16*>(ew),
+                                       static_cast<int*>(nz), n, h, w, ka);
+    if (int err = static_cast<int>(cudaGetLastError())) return err;
+  }
+  const BwdArgs a{static_cast<const bf16*>(q),     static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v),     static_cast<const bf16*>(relh),
+                  static_cast<const bf16*>(relw),  static_cast<const bf16*>(eh),
+                  static_cast<const bf16*>(ew),    static_cast<const bf16*>(d_o),
+                  static_cast<const float*>(lse),  static_cast<const float*>(delta),
+                  static_cast<const int*>(nz),     static_cast<bf16*>(dq),
+                  static_cast<bf16*>(drelh),       static_cast<bf16*>(drelw),
+                  n, h, w, ka};
+  const size_t smem = BwdSmem<D>::dkv(ka, kExp);
+  if (int err = set_smem(rb_bwd_dkv_kernel<D, kExp>, smem)) return err;
+  rb_bwd_dkv_kernel<D, kExp><<<dim3(tiles, bh), kRT, smem, s>>>(
+      a.q, a.k, a.v, a.relh, a.relw, a.eh, a.ew, a.d_o, a.lse, a.delta, a.nz,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, h, w, ka);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  if (!kExp && w == kT) return launch_dq<D, kDrelW64, 1>(a, bh, 0, s);
+  constexpr int kMode = kExp ? kDrelExp : kDrelIdx;
+  if (ka <= 32) return launch_dq<D, kMode, 2>(a, bh, 0, s);
+  for (int g0 = 0; g0 < ka / 16; g0 += 8)  // 8 groups of sums in registers a launch
+    if (int err = launch_dq<D, kMode, 8>(a, bh, g0, s)) return err;
+  return 0;
 }
 
 }  // namespace
@@ -551,25 +965,25 @@ extern "C" int iuvl_relpos_fwd(const void* q, const void* k, const void* v, cons
   IUVL_RB_DISPATCH(rb_forward, true, q, k, v, relh, relw, eh, ew, o, lse, bh, n, h, w, stream)
 }
 
-// The backward: o and lse from the forward, do (BH, N, d) bf16; delta (BH,
-// N) fp32 scratch; dq_acc (BH, N, d) and drel_acc (BH, N, h + w) fp32,
-// zeroed by the caller, receive dq and [drelh | drelw]; dk, dv (BH, N, d)
-// bf16.
+// The backward: o and lse from the forward, do (BH, N, d) bf16; scratch:
+// delta (BH, N) fp32, nz int32 (one word a 64-key tile), and for B2b onehot
+// ((h + w) N bf16, used where w != 64); outputs dq, dk, dv (BH, N, d), drelh
+// (BH, N, h), drelw (BH, N, w), bf16, each written once (no zeroing needed).
 extern "C" int iuvl_rowbias_bwd(const void* q, const void* k, const void* v, const void* relh,
                                 const void* relw, const void* o, const void* lse,
-                                const void* d_o, void* delta, void* dq_acc, void* drel_acc,
-                                void* dk, void* dv, int bh, int n, int d, int h, int w,
-                                void* stream) {
+                                const void* d_o, void* delta, void* onehot, void* nz, void* dq,
+                                void* drelh, void* drelw, void* dk, void* dv, int bh, int n,
+                                int d, int h, int w, void* stream) {
   if (h * w != n) return static_cast<int>(cudaErrorInvalidValue);
   IUVL_RB_DISPATCH(rb_backward, false, q, k, v, relh, relw, nullptr, nullptr, o, lse, d_o,
-                   delta, dq_acc, drel_acc, dk, dv, bh, n, h, w, stream)
+                   delta, onehot, nz, dq, drelh, drelw, dk, dv, bh, n, h, w, stream)
 }
 
 extern "C" int iuvl_relpos_bwd(const void* q, const void* k, const void* v, const void* relh,
                                const void* relw, const void* eh, const void* ew, const void* o,
-                               const void* lse, const void* d_o, void* delta, void* dq_acc,
-                               void* drel_acc, void* dk, void* dv, int bh, int n, int d, int h,
-                               int w, void* stream) {
-  IUVL_RB_DISPATCH(rb_backward, true, q, k, v, relh, relw, eh, ew, o, lse, d_o, delta, dq_acc,
-                   drel_acc, dk, dv, bh, n, h, w, stream)
+                               const void* lse, const void* d_o, void* delta, void* nz, void* dq,
+                               void* drelh, void* drelw, void* dk, void* dv, int bh, int n, int d,
+                               int h, int w, void* stream) {
+  IUVL_RB_DISPATCH(rb_backward, true, q, k, v, relh, relw, eh, ew, o, lse, d_o, delta, nullptr,
+                   nz, dq, drelh, drelw, dk, dv, bh, n, h, w, stream)
 }

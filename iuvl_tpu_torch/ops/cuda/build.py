@@ -60,9 +60,9 @@ SIGNATURES = {
     "iuvl_decode_tail": (P,) + (I,) * 5 + (P,),
     "iuvl_rowbias_fwd": (P,) * 7 + (I,) * 5 + (P,),
     "iuvl_relpos_fwd": (P,) * 9 + (I,) * 5 + (P,),
-    "iuvl_rowbias_bwd": (P,) * 13 + (I,) * 5 + (P,),
-    "iuvl_relpos_bwd": (P,) * 15 + (I,) * 5 + (P,),
-    "iuvl_window_attention": (P,) * 6 + (I,) * 4 + (F, P),
+    "iuvl_rowbias_bwd": (P,) * 16 + (I,) * 5 + (P,),
+    "iuvl_relpos_bwd": (P,) * 17 + (I,) * 5 + (P,),
+    "iuvl_window_attention": (P,) * 7 + (I,) * 4 + (F, P),
     "iuvl_seg_scatter": (P,) * 4 + (I,) * 3 + (P,),
 }
 

@@ -12,8 +12,9 @@ Replaces four functions of ``iuvl_tpu/ops/pallas/flash_attention.py``:
 - ``flash_attention_rowbias`` (B2b) and ``flash_attention_relpos`` (B14),
   ``csrc/flash_attention_rowbias.cu``: rel-pos attention with the bias
   inside the kernel (indexed, or through expander matrices), forward with
-  lse and a one-pass backward that also returns the bias cotangents; every
-  block's attention under ``attn_impl='rowbias'`` / ``'pallas_rp'``.
+  lse and a two-pass backward (dk/dv, then dq with the bias cotangents;
+  no atomics); every block's attention under ``attn_impl='rowbias'`` /
+  ``'pallas_rp'``.
 
 Each kernel's header says what bounds it on the card and how the TPU's
 sequential grid became loops in a block.
@@ -288,22 +289,27 @@ flash_relpos_fwd.launches = 0
 def _rowbias_bwd(name, q, k, v, relh, relw, o, lse, do, eh=None, ew=None):
     bh, n, d, h, w = _require_rowbias(name, q, k, v, relh, relw, eh, ew,
                                       (("o", o), ("lse", lse), ("do", do)))
-    dev, f32 = q.device, torch.float32
-    delta = torch.empty(lse.shape, dtype=f32, device=dev)
-    dq_acc = torch.zeros(q.shape, dtype=f32, device=dev)
-    drel_acc = torch.zeros((*q.shape[:-1], h + w), dtype=f32, device=dev)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dev = q.device
+    # Scratch: delta; for B2b the one-hot expanders its dq pass multiplies
+    # by (where w != 64); the expander groups in use, a word a 64-key tile.
+    scratch = (torch.empty(lse.shape, dtype=torch.float32, device=dev),)
+    if eh is None:
+        scratch += (torch.empty((h + w, n), dtype=torch.bfloat16, device=dev),)
+    scratch += (torch.empty(((n + 63) // 64,), dtype=torch.int32, device=dev),)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    drelh, drelw = torch.empty_like(relh), torch.empty_like(relw)
     ins = (q, k, v, relh, relw) + ((eh, ew) if eh is not None else ()) + (o, lse, do)
     launch("iuvl_relpos_bwd" if eh is not None else "iuvl_rowbias_bwd", dev,
-           *(t_.data_ptr() for t_ in ins + (delta, dq_acc, drel_acc, dk, dv)), bh, n, d, h, w)
-    return (dq_acc.to(q.dtype), dk, dv, drel_acc[..., :h].to(relh.dtype),
-            drel_acc[..., h:].to(relw.dtype))
+           *(t_.data_ptr() for t_ in ins + scratch + (dq, drelh, drelw, dk, dv)),
+           bh, n, d, h, w)
+    return dq, dk, dv, drelh, drelw
 
 
 def flash_rowbias_bwd(q, k, v, relh, relw, o, lse, do, w: int):
-    """B2b's backward (one pass; dq and the bias cotangents summed in fp32
-    by atomics): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments and results as :func:`flash_rowbias_bwd_plain`."""
+    """B2b's backward (a dk/dv pass and a dq pass, no atomics; dq and the
+    bias cotangents summed in fp32 and rounded once): the CUDA kernels for
+    CUDA tensors, the plain version for CPU tensors. Arguments and results
+    as :func:`flash_rowbias_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_rowbias_bwd_plain(q, k, v, relh, relw, o, lse, do, w)
     out = _rowbias_bwd("flash_rowbias_bwd", q, k, v, relh, relw, o, lse, do)

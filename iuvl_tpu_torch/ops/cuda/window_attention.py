@@ -77,8 +77,9 @@ def window_rel_attention_fwd(q, k, v, rh, rw):
     for name, t in zip(shapes, (q, k, v, rh, rw)):
         require("window_rel_attention", name, t, torch.bfloat16, shapes[name], q.device)
     o = torch.empty_like(q)
+    rel = torch.empty((b * heads, n, 2, w), dtype=torch.float32, device=q.device)  # relh, relw
     launch("iuvl_window_attention", q.device,
-           *(t.data_ptr() for t in (q, k, v, rh, rw, o)), b * heads, n, d, w, d ** -0.5)
+           *(t.data_ptr() for t in (q, k, v, rh, rw, rel, o)), b * heads, n, d, w, d ** -0.5)
     window_rel_attention_fwd.launches += 1
     return o
 
