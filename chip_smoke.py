@@ -29,8 +29,9 @@ Phases (any failure raises, so the exit code is non-zero):
    neighbouring column, a B2b / B14 dq pass that skips the last key tile):
    each must move some output by more than its bound, and each output's
    bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of the B2b / B14 backward on the same inputs must give the
-   same bits. Times from CUDA events after a warm-up (20 calls at the
+   two launches of the B2b / B14 forward and backward on the same inputs
+   must give the same bits, and B14's expander group words must equal
+   their plain version's. Times from CUDA events after a warm-up (20 calls at the
    global shapes of B2b, B14 and B13); for B11, B12, B2b, B14 and B7's
    gather and scatter also the PyTorch call that
    computes the same function (timed only, never a path); for B13 SDPA on
@@ -86,14 +87,16 @@ Phases (any failure raises, so the exit code is non-zero):
    peak device memory. Then the same at batch 1 under attn_impl 'rowbias'
    and 'pallas_rp' and at batch 2 under 'rowbias' (B2b / B14 forward and
    backward in every block, the plain tail; no control pair), each gated
-   on its gradient groups and its loss terms pooled over GATE_BATCHES
-   batches; their one-batch loss ratios are printed, not gated. Last, at
-   batch 1 under 'window' (B13's forward in every block, its backward the
-   plain augmented recompute; the plain paths 'window_plain'), gated the
-   same way but for its gradient groups, which are gated pooled over
-   POOLED_GRADS batches at the first step's weights (one batch reads sound
-   paths anywhere in 0.45-1.62; PERF.md §6), with each path's peak
-   memory.
+   on its loss terms and its gradient groups pooled over GATE_BATCHES
+   batches at the first step's weights (one batch reads sound paths
+   anywhere in 0.41-2.42 over two sets of 16, tools/grad_spread.py --impl
+   rowbias; PERF.md §6); their one-batch ratios are printed, not gated.
+   Last, at batch 1 under
+   'window' (B13's forward in every block, its backward the plain
+   augmented recompute; the plain paths 'window_plain'), gated the same
+   way but for its gradient groups, which are gated pooled over
+   POOLED_GRADS batches (one batch reads sound paths anywhere in
+   0.45-1.62; PERF.md §6), with each path's peak memory.
 6. eval: ``SysLearner.evaluate_seg`` (the same full-width config, bf16,
    batch 1) on EVAL_IMAGES seeded 1024^2 images with synthetic gt, with the
    134 COCO panoptic class embeddings (80 HashWord-tokenized templates a
@@ -308,7 +311,8 @@ def decode_tail_valid(*args):
 
 RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 # Kernels whose outputs must not change from launch to launch (no atomics).
-DETERMINISTIC = ("flash_rowbias_bwd", "flash_relpos_bwd")
+DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
+                 "flash_relpos_bwd")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -337,6 +341,48 @@ def _rb_tail_unmasked(a):
     s = torch.cat([s, s.new_zeros(*s.shape[:-1], pad)], -1)
     p = torch.softmax(s, -1)[..., :k.shape[-2]].to(v.dtype)
     return p @ v, torch.logsumexp(s, -1)
+
+
+def _rb_fwd_plain(a):
+    """(o, lse) of B2b's (6 arguments) or B14's (7) forward plain version."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_rowbias_fwd_plain(*a) if len(a) == 6 else relpos_fwd_plain(*a)
+
+
+def _rb_alpha_skipped(a, tile: int = 1):
+    """B2b's / B14's forward whose online softmax skips the rescale by
+    alpha = exp(m_old - m_new) at key tile ``tile``: the kernel's one pass
+    (64-key tiles, p = exp(s - m) rounded to bf16 per tile, fp32 sums)
+    with the running sum and output of the tiles before it left as they
+    were where that tile raises a row's max."""
+    from iuvl_tpu_torch.ops.rel_pos_attention import rowbias_scores
+
+    q, k, v, relh, relw = a[:5]
+    eh, ew = (a[5], a[6]) if len(a) == 7 else (None, None)
+    s = rowbias_scores(q, k, relh, relw, relw.shape[-1], eh, ew)
+    m = torch.full_like(s[..., :1], float("-inf"))
+    l_ = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:-1], v.shape[-1], device=s.device)
+    for i, k0 in enumerate(range(0, s.shape[-1], 64)):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = 1.0 if i == tile else torch.exp(m - m_new)
+        l_ = l_ * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ v[..., k0:k0 + 64, :].float()
+        m = m_new
+    return (acc / l_).to(v.dtype), (m + torch.log(l_)).squeeze(-1)
+
+
+def _rb_last_strip_unwritten(a):
+    """The resident forward with a window's last 16-row strip (its last N %
+    16 rows) never written: (o, lse) of the plain version, those rows 0."""
+    o, lse = (x.clone() for x in _rb_fwd_plain(a))
+    r0 = (o.shape[-2] - 1) // 16 * 16
+    o[..., r0:, :] = 0
+    lse[..., r0:] = 0
+    return o, lse
 
 
 def _rb_last_row_missed(a):
@@ -386,6 +432,26 @@ def _rb_dq_misses_last_key_tile(a):
     return tuple(out)
 
 
+def _rb_fwd_faults(n: int) -> dict:
+    """The planted faults of B2b's / B14's forward at N keys."""
+    faults = {"relh dropped": _zero(3), "relw dropped": _zero(4),
+              "heads 0/1 swapped in v": _swap(2, 1, 1),
+              "alpha's rescale skipped at key tile 1": _planted(_rb_alpha_skipped)}
+    if n % 64:
+        faults["the masked tail tile left unmasked"] = _planted(_rb_tail_unmasked)
+    return faults
+
+
+def _rb_relw_neighbour(w: int, dev) -> dict:
+    """At w 64 (relw held in registers a lane): B2b's relw[q, c ^ 1] for
+    relw[q, c], the neighbouring column's register."""
+    if w != 64:
+        return {}
+    i = torch.arange(w, device=dev) ^ 1
+    return {"relw from the neighbouring column":
+            lambda a: a[:4] + (a[4][..., i].contiguous(),) + a[5:]}
+
+
 def rowbias_cases(t, rs, dev):
     """B2b's and B14's cases, forward and backward, at the windowed shape
     (25 windows x 12 heads of N 196, h = w = 14, d 64) and the global one
@@ -407,18 +473,19 @@ def rowbias_cases(t, rs, dev):
         qs = q * d ** -0.5
         eh, ew = onehot_expanders((side, side), torch.bfloat16, dev)
         o, lse = fa.flash_rowbias_fwd_plain(qs, k, v, relh, relw, side)
-        fwd_faults = {"relh dropped": _zero(3), "relw dropped": _zero(4),
-                      "heads 0/1 swapped in v": _swap(2, 1, 1)}
-        if n % 64:
-            fwd_faults["the masked tail tile left unmasked"] = _planted(_rb_tail_unmasked)
+        fwd_faults = _rb_fwd_faults(n)
+        if n <= 256:  # the resident kernel: a block a (window, head) pair
+            fwd_faults["the last strip of a window not written"] = _planted(
+                _rb_last_strip_unwritten)
         bwd_faults = {"wrong lse (+0.05)": _planted(_rb_wrong_lse),
                       "drelh misses the last grid row": _planted(_rb_last_row_missed),
                       "heads 0/1 swapped in do": _swap(7, 1, 1),
                       "the dq pass skips the last key tile":
                           _planted(_rb_dq_misses_last_key_tile)}
         rel_bwd_faults = {**bwd_faults, "heads 0/1 swapped in do": _swap(9, 1, 1)}
+        rb_fwd_faults = {**fwd_faults, **_rb_relw_neighbour(side, dev)}
         cases += [
-            (f"flash_rowbias_fwd@{tag}", (qs, k, v, relh, relw, side), fwd_faults, iters),
+            (f"flash_rowbias_fwd@{tag}", (qs, k, v, relh, relw, side), rb_fwd_faults, iters),
             (f"flash_rowbias_bwd@{tag}", (qs, k, v, relh, relw, o, lse, do, side), bwd_faults,
              iters),
             (f"flash_relpos_fwd@{tag}", (qs, k, v, relh, relw, eh, ew),
@@ -685,6 +752,45 @@ def decode_tail_case(rs: np.random.RandomState, dev, tp: int = 16, tv: int = 7):
             dec.tail_weights(), 8, tv)
 
 
+def rowbias_general_cases(dev):
+    """The forward's general path, on its own seeded draws: B2b and B14 at
+    d 80 on the 64 x 64 grid (ViT-H's head dim, 2 heads), and B14 with dense
+    random expanders (every 16-row group in use) at N 200 (h 8, w 25: the
+    resident kernel) and N 300 (h 200, w 296, h + w = 496: the streaming
+    kernel, the expander rows by plain loads, N % 8 = 4), N not a
+    multiple of 64 (160 pairs at N 200: the resident kernel takes a grid
+    of a block an SM or more); relh, relw and the expanders scaled so the
+    bias has about unit spread."""
+    from iuvl_tpu_torch.ops.rel_pos_attention import (onehot_expanders, rel_pos_features,
+                                                      rel_pos_tables)
+
+    rs = np.random.RandomState(SEED + 9)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * std).to(
+            dev, torch.bfloat16)
+
+    d, side = 80, 64
+    q, k, v = (t(1, 2, side * side, d) for _ in range(3))
+    rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD), t(2 * side - 1, d, std=BIAS_STD),
+                            (side, side))
+    relh, relw = rel_pos_features(q, rh, rw)
+    qs = q * d ** -0.5
+    eh, ew = onehot_expanders((side, side), torch.bfloat16, dev)
+    cases = [("flash_rowbias_fwd@global_d80", (qs, k, v, relh, relw, side),
+              {**_rb_fwd_faults(side * side), **_rb_relw_neighbour(side, dev)}, 20),
+             ("flash_relpos_fwd@global_d80", (qs, k, v, relh, relw, eh, ew),
+              {**_rb_fwd_faults(side * side), "eh dropped": _zero(5)}, 20)]
+    for bh, n, h, w in ((160, 200, 8, 25), (2, 300, 200, 296)):
+        q, k, v = (t(1, bh, n, 64) for _ in range(3))
+        faults = {**_rb_fwd_faults(n), "eh dropped": _zero(5)}
+        cases.append((f"flash_relpos_fwd@dense{n}",
+                      (q * 0.125, k, v, t(1, bh, n, h), t(1, bh, n, w),
+                       t(h, n, std=(h + w) ** -0.5), t(w, n, std=(h + w) ** -0.5)),
+                      faults, 10))
+    return cases
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
@@ -829,7 +935,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # B16 past 32 slots (C3): prompts of 34 and 50 points (40 and 56
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
-        for tp in (48, 64)]
+        for tp in (48, 64)] + rowbias_general_cases(dev)
 
 
 # B16's planted faults, at any slot count.
@@ -1125,6 +1231,15 @@ def kernel_phase(dev) -> list[dict]:
             if not same:
                 failed.append(f"{name}: two launches on the same inputs differ")
             del again
+        if base == "flash_relpos_fwd":  # B14's group words against their plain version
+            from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+            words = fa.expander_groups(*args[5:7])
+            same = torch.equal(words, fa.expander_groups_plain(*args[5:7]))
+            log(f"kernel {name}: expander group words {words.tolist()[:4]}... equal to the "
+                f"plain version's {same}")
+            if not same:
+                failed.append(f"{name}: expander_groups differs from its plain version")
         if name.startswith("deform_bwd_glue"):
             glue_outs[name] = out
         ref = as_tuple(plain(*args))
@@ -1628,8 +1743,10 @@ def per_step(impl: str, batch: int) -> dict:
 # impl's rounding points ('plain' has those of every route but B13's).
 PLAIN_OF = {"window": "window_plain"}
 # Phases whose gradient gate pools over this many batches at the first step's
-# weights (loss_gate) instead of reading the first step's batch alone.
-POOLED_GRADS = {"window": 6}
+# weights (loss_gate) instead of reading the first step's batch alone: there a
+# one-ulp change in 0.1% of the attention's outputs moves one batch's ratio
+# by 2x (tools/grad_spread.py; PERF.md §6).
+POOLED_GRADS = {"window": 6, "rowbias": GATE_BATCHES, "pallas_rp": GATE_BATCHES}
 GROUPS = ("image_encoder.", "pixel_decoder.", "predictor.")
 
 
@@ -1919,8 +2036,9 @@ def loss_gate(models: dict, crits: dict, text, batches: list, grad_batches: int 
     spreads over about 0.4-2.5 (PERF.md, Findings), so one batch's ten
     values per term are no gate. On the first ``grad_batches`` batches the
     backward runs too, and each parameter group's gradient is gated the
-    same way, pooled over them (under 'window' a sound bf16 path's
-    one-batch gradient ratio reads 0.45-1.62: PERF.md §6)."""
+    same way, pooled over them (a sound bf16 path's one-batch gradient
+    ratio reads 0.45-1.62 under 'window', 0.41-2.42 under 'rowbias' /
+    'pallas_rp': PERF.md §6)."""
     from iuvl_tpu_torch.losses.matcher import batched_hungarian
     from iuvl_tpu_torch.ops.point_sample import given_draws
     from iuvl_tpu_torch.train.train_step import split_seg_outputs

@@ -27,14 +27,41 @@
 // tiles, each warp a 16-row strip; the last tile of either side is masked
 // (rows past N load as zero, keys past N score -inf, queries past N have
 // p = 0), so N need not be a multiple of 64 (196 in the windows).
-// - Forward: a block per query tile keeps its running output in shared
-//   memory (fp32, rescaled per row by the online softmax's alpha). B2b adds
-//   the bias from the query tile's relh and relw rows in shared memory as it
-//   reads the scores (two adds a score). B14 adds relh eh + relw ew as one
-//   more tensor-core product into the score accumulators, depth h + w
-//   padded to 16, skipping the 16-row groups of the expander tile that are
-//   zero for this key tile (with one-hot expanders 3 of 8 skipped at N 4096): the
-//   tile loads in 16-byte pieces and sets a bit per group in use.
+// - Forward: one online pass over 64-key tiles with s, p and the output
+//   sums in registers (mma.sync m16n8k16, mma.cuh): a warp owns a 16-query
+//   strip; the max and sum of a row come from its four lanes by quad
+//   shuffles; alpha rescales m, l and the output sums in registers; p is
+//   packed to bf16 straight into the A operand of p v. B2b adds its bias in
+//   the accumulator layout: at w 64 (a key tile is one grid row) relw is a
+//   fixed set of 32 registers a lane and relh one value a row a tile; at
+//   other w both are looked up in the strip's relh | relw rows in shared
+//   memory. B14 adds relh eh + relw ew as one more tensor-core product over
+//   the 16-row groups of the expander tile in use (5 of 8 at N 4096 with
+//   one-hot expanders): rb_nz_kernel (iuvl_relpos_groups) writes those
+//   groups, a word a 64-key tile, once for the forward and the backward of
+//   a call, and only they are loaded.
+//   * N > 256 (the global grid): a block of four warps owns a 64-query
+//     tile; K and V come by cp.async into a two-stage ring, the next tile's
+//     copy in flight while this one is used, one block barrier a tile.
+//     B14's E tile is one stage, copied while the warps compute q k^T and
+//     waited for behind a second barrier: with two, B14 ran two blocks an
+//     SM and took 0.547 ms at the global shape, with one three and 0.472
+//     (tools/kernel_ab.py on the card).
+//   * N <= 256 (the windows), where the (window, head) pairs are at least
+//     the SM count: a block owns a whole pair: its K, V (and for B14 every
+//     key's expander rows) land once, then each warp walks the pair's
+//     16-row strips (13 at N 196) with no further block barrier: 300
+//     blocks in one wave, not 1200 query tiles, a quarter of them 4 rows.
+//     B14 keeps a strip's relh | relw fragments in registers there (h + w
+//     <= 64, else it streams). Fewer pairs stream as 64-query tiles.
+//   Measured (ptxas on the card, d 64; no spills): the streaming kernel
+//   168 registers and 54,272 bytes of shared memory a block (B2b at w 64),
+//   152 and 72,704 (B14, h + w 128); the resident one 124 and 63,488 (B2b),
+//   147 and 73,728 (B14) at N 196: 3 blocks, 12 warps an SM
+//   (__launch_bounds__(128, 3)). On the card (H100 SXM, 700 W; PERF.md) the
+//   global forward takes 0.244 ms (B2b) and 0.48 (B14, the expander product
+//   5 groups of 16 deep beside q k^T's 64) against 0.052 / 0.104 ms bounds;
+//   windowed 0.073 / 0.058 ms of device time.
 // - Backward: two passes, as the TPU kernel's dkv and dq pallas_calls. (A
 //   one-pass design that adds dq and the bias cotangents with fp32 atomics
 //   runs as slow with those adds made plain stores, 12.24 against 12.49 ms
@@ -76,7 +103,8 @@
 //   once as is and once transposed), 0.38 the dq pass.
 //
 // Rounding points follow the TPU kernels: s, the bias and the softmax in
-// fp32; the unnormalised p = exp(s - m) rounded to bf16 for p v; o =
+// fp32 (B2b sums (q k + relw) + relh); the unnormalised p = exp(s - m)
+// rounded to bf16 for p v, per 64-key tile; o =
 // bf16(acc / l); lse = m + log(l); in the backward p = exp(s - lse) in
 // fp32, ds rounded to bf16 before the products dq, dk and the bias
 // cotangents, dv from bf16(p); dk, dv rounded once; dq, drelh and drelw
@@ -89,281 +117,14 @@ namespace {
 
 constexpr int kRT = 128;      // threads: 4 warps, each a 16-row strip
 constexpr int kT = 64;        // query / key tile
-constexpr int kLdP = kT + 8;  // bf16 probability rows, expander rows
-
-// Shared-memory layout of the forward: D the head dim (q, k, v, o), ka
-// the bias depth h + w rounded up to 16.
-template <int D>
-struct RbSmem {
-  static constexpr int kLdT = D + 8;
-  static constexpr size_t kTile = kT * kLdT * sizeof(bf16);
-  static size_t ra(int ka) { return kT * (ka + 8) * sizeof(bf16); }
-  static size_t e(int ka) { return ka * kLdP * sizeof(bf16); }
-  // forward: Q, K, V, RA, E, S, P, O, m, l
-  // The forward also stages p @ v (D wide) in its score rows.
-  static constexpr int kLdF = (D > kT ? D : kT) + 4;
-  static size_t fwd(int ka) {
-    return 3 * kTile + ra(ka) + e(ka) + kT * kLdF * sizeof(float) + kT * kLdP * sizeof(bf16) +
-           kT * (D + 4) * sizeof(float) + 2 * kT * sizeof(float);
-  }
-};
-
-// Copy rows [r0, r0 + kT) of a (n, D) bf16 matrix into shared rows of
-// stride ld; rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int r0, int n) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < kT * (D / 8); i += kRT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        r0 + r < n ? *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c)
-                   : zero;
-  }
-}
-
-// RA[r][a] = relh[r0 + r][a] for a < h, relw[r0 + r][a - h] for h <= a <
-// h + w, 0 past h + w or past n: the query tile's bias features.
-__device__ __forceinline__ void load_ra(bf16* ra, int ka, const bf16* relh, const bf16* relw,
-                                        int r0, int n, int h, int w) {
-  const int ld = ka + 8;
-  for (int i = threadIdx.x; i < kT * ka; i += kRT) {
-    const int r = i / ka, a = i % ka;
-    bf16 val = to_bf(0.f);
-    if (r0 + r < n) {
-      if (a < h) val = relh[static_cast<size_t>(r0 + r) * h + a];
-      else if (a < h + w) val = relw[static_cast<size_t>(r0 + r) * w + a - h];
-    }
-    ra[r * ld + a] = val;
-  }
-}
-
-// E[a][c] for the keys k0 + c of the tile: eh[a][key] (a < h), ew[a - h][key]
-// (h <= a < h + w), 0 past h + w or past n. Without expanders (B2b) the
-// one-hot rows that the indices describe: key / w == a, key % w == a - h.
-// Sets bit g of *nz (shared, zeroed by the caller) where rows 16g..16g+15
-// hold a non-zero bit pattern: the groups the products cannot skip.
-template <bool kExp>
-__device__ __forceinline__ void load_e(bf16* e, int ka, const bf16* eh, const bf16* ew, int k0,
-                                       int n, int h, int w, int* nz) {
-  int bits = 0;
-  if (kExp && n % 8 == 0) {  // 16-byte pieces: the expander rows are 16-byte aligned
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int i = threadIdx.x; i < ka * (kT / 8); i += kRT) {
-      const int a = i / (kT / 8), c = (i % (kT / 8)) * 8, key = k0 + c;
-      uint4 val = zero;
-      if (key < n && a < h + w)
-        val = *reinterpret_cast<const uint4*>(
-            (a < h ? eh + static_cast<size_t>(a) * n : ew + static_cast<size_t>(a - h) * n) +
-            key);
-      *reinterpret_cast<uint4*>(e + a * kLdP + c) = val;
-      if (val.x | val.y | val.z | val.w) bits |= 1 << (a / 16);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ka * kT; i += kRT) {
-      const int a = i / kT, c = i % kT, key = k0 + c;
-      float val = 0.f;
-      if (key < n) {
-        if (kExp) {
-          if (a < h) val = to_f(eh[static_cast<size_t>(a) * n + key]);
-          else if (a < h + w) val = to_f(ew[static_cast<size_t>(a - h) * n + key]);
-        } else {
-          if (a < h) val = key / w == a ? 1.f : 0.f;
-          else if (a < h + w) val = key % w == a - h ? 1.f : 0.f;
-        }
-      }
-      e[a * kLdP + c] = to_bf(val);
-      if (val != 0.f) bits |= 1 << (a / 16);
-    }
-  }
-  if (bits) atomicOr(nz, bits);
-}
-
-// ------------------------------------------------------------ forward --
-template <int D, bool kExp>
-__global__ void __launch_bounds__(kRT) rb_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ relh, const bf16* __restrict__ relw, const bf16* __restrict__ eh,
-    const bf16* __restrict__ ew, bf16* __restrict__ o, float* __restrict__ lse, int n, int h,
-    int w, int ka) {
-  using L = RbSmem<D>;
-  constexpr int kLdT = L::kLdT, kLdO = D + 4, kLdS = L::kLdF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kT * kLdT;
-  bf16* Vs = Ks + kT * kLdT;
-  bf16* RA = Vs + kT * kLdT;
-  bf16* E = RA + kT * (ka + 8);
-  float* S = reinterpret_cast<float*>(E + ka * kLdP);
-  bf16* P = reinterpret_cast<bf16*>(S + kT * kLdS);
-  float* O = reinterpret_cast<float*>(P + kT * kLdP);
-  float* m_s = O + kT * kLdO;
-  float* l_s = m_s + kT;
-  __shared__ int nz[2];  // the expander groups in use, by key-tile parity
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kT, r0 = warp * 16;
-  const int lda = ka + 8;
-  const bf16* kh = k + bh * n * D;
-  const bf16* vh = v + bh * n * D;
-  load_rows<D>(Qs, kLdT, q + bh * n * D, q0, n);
-  load_ra(RA, ka, relh + bh * n * h, relw + bh * n * w, q0, n, h, w);
-  for (int i = threadIdx.x; i < kT * kLdO; i += kRT) O[i] = 0.f;
-  if (threadIdx.x < kT) {
-    m_s[threadIdx.x] = kNegInf;
-    l_s[threadIdx.x] = 0.f;
-  }
-  if (threadIdx.x < 2) nz[threadIdx.x] = 0;
-
-  for (int k0 = 0; k0 < n; k0 += kT) {
-    const int par = (k0 / kT) & 1;
-    __syncthreads();  // the previous K, V (and E) tiles and their flags are consumed
-    if (threadIdx.x == 0) nz[par ^ 1] = 0;  // the next tile's flags
-    load_rows<D>(Ks, kLdT, kh, k0, n);
-    load_rows<D>(Vs, kLdT, vh, k0, n);
-    if (kExp) load_e<true>(E, ka, eh, ew, k0, n, h, w, &nz[par]);
-    __syncthreads();
-    const int groups = kExp ? nz[par] : 0;
-#pragma unroll
-    for (int ct = 0; ct < kT / 16; ++ct) {
-      FragC sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, Qs + r0 * kLdT + kk, kLdT);
-        FragBc fb;  // B[d][key] = K[key][d]
-        wmma::load_matrix_sync(fb, Ks + ct * 16 * kLdT + kk, kLdT);
-        wmma::mma_sync(sc, fa, fb, sc);
-      }
-      if (kExp) {  // + [relh | relw] [eh ; ew] over the non-zero groups
-        for (int g = 0; g < ka / 16; ++g) {
-          if (!(groups >> g & 1)) continue;
-          FragA fa;
-          wmma::load_matrix_sync(fa, RA + r0 * lda + g * 16, lda);
-          FragBr fb;  // B[a][key] = E[a][key]
-          wmma::load_matrix_sync(fb, E + g * 16 * kLdP + ct * 16, kLdP);
-          wmma::mma_sync(sc, fa, fb, sc);
-        }
-      }
-      wmma::store_matrix_sync(S + r0 * kLdS + ct * 16, sc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      float s[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j, key = k0 + c;
-        s[j] = S[r * kLdS + c];
-        if (!kExp && key < n) {  // (q.k + relw) + relh, as the TPU kernel sums them
-          const int g = key / w;
-          s[j] = (s[j] + to_f(RA[r * lda + h + key - g * w])) + to_f(RA[r * lda + g]);
-        }
-        if (key >= n) s[j] = kNegInf;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      P[r * kLdP + lane] = to_bf(p0);
-      P[r * kLdP + lane + 32] = to_bf(p1);
-      const float alpha = expf(m_prev - m_new);
-      const float psum = warp_sum(p0 + p1);
-      for (int c = lane; c < D; c += 32) O[r * kLdO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + psum;
-      }
-    }
-    __syncwarp();
-    // p @ v for the warp's rows, staged in its (now free) score rows.
-#pragma unroll
-    for (int ct = 0; ct < D / 16; ++ct) {
-      FragC oc;
-      wmma::fill_fragment(oc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kT; kk += 16) {
-        FragA pa;
-        wmma::load_matrix_sync(pa, P + r0 * kLdP + kk, kLdP);
-        FragBr vb;  // B[key][c] = V[key][c]
-        wmma::load_matrix_sync(vb, Vs + kk * kLdT + ct * 16, kLdT);
-        wmma::mma_sync(oc, pa, vb, oc);
-      }
-      wmma::store_matrix_sync(S + r0 * kLdS + ct * 16, oc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int r = r0 + e / D, c = e % D;
-      O[r * kLdO + c] += S[r * kLdS + c];
-    }
-    __syncwarp();
-  }
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int r = r0 + e / D, c = e % D;
-    if (q0 + r < n) o[(bh * n + q0 + r) * D + c] = to_bf(O[r * kLdO + c] / fmaxf(l_s[r], 1e-30f));
-  }
-  if (lane < 16 && q0 + r0 + lane < n) {
-    const int r = r0 + lane;
-    lse[bh * n + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
-  }
-}
-
-// delta[row] = sum_c do[row, c] * o[row, c] in fp32: one warp a row.
-template <int D>
-__global__ void rb_delta_kernel(const bf16* __restrict__ d_o, const bf16* __restrict__ o,
-                                float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * D;
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += to_f(d_o[base + c]) * to_f(o[base + c]);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
-}
-
-// ----------------------------------------------------------- backward --
-// Two passes, as the TPU kernel's dq and dkv pallas_calls: a block per key
-// tile for dk, dv; a block per query tile for dq and the bias cotangents.
-// Each output element is summed in one block, in a fixed order, and
-// written once: no atomics, no zeroed accumulators, the same bits on every
-// run. Both passes compute s and dp (7 N^2 d products in all, against the
-// one-pass design's 5).
+constexpr int kLdP = kT + 8;  // expander rows
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The dq pass's bias and bias cotangents: B2b at w == 64 (relw and the
-// drelw sums in registers, drelh a row sum a key tile); B2b at other w (the
-// bias read from the RA rows, the cotangents as the product ds e^T with the
-// one-hot e that the indices describe, rb_onehot_kernel); B14 (both as
-// products with the expander tile).
-enum DrelMode { kDrelW64 = 0, kDrelIdx = 1, kDrelExp = 2 };
-
-template <int D>
-struct BwdSmem {
-  static constexpr int kLd = D + 8;
-  static constexpr size_t kTile = kT * kLd * sizeof(bf16);
-  __host__ __device__ static size_t ra(int ka) { return kT * (ka + 8) * sizeof(bf16); }
-  __host__ __device__ static size_t e(int ka) { return ka * kLdP * sizeof(bf16); }
-  // dk/dv pass: K, V, E (B14), then two stages of {Q, dO, RA, lse, delta}.
-  __host__ __device__ static size_t dkv_stage(int ka) {
-    return 2 * kTile + ra(ka) + 2 * kT * sizeof(float);
-  }
-  __host__ __device__ static size_t dkv(int ka, bool exp) {
-    return 2 * kTile + (exp ? e(ka) : 0) + 2 * dkv_stage(ka);
-  }
-  // dq pass: Q, dO, RA, then two stages of {K, V, E (not at w 64)}.
-  __host__ __device__ static size_t dq_stage(int ka, bool exp) {
-    return 2 * kTile + (exp ? e(ka) : 0);
-  }
-  __host__ __device__ static size_t dq(int ka, bool exp) {
-    return 2 * kTile + ra(ka) + 2 * dq_stage(ka, exp);
-  }
-};
-
-// RA rows [q0, q0 + kT) (see load_ra) by cp.async when relh and relw rows
-// are whole 16-byte pieces, else by plain loads; columns [h + w, ka) are
-// left as they are (zeroed once by the caller).
+// RA[r][a] (pitch ka + 8) for the query rows q0 + r, r < kT: relh[row][a]
+// (a < h), relw[row][a - h] (h <= a < h + w), 0 past n (the query tile's
+// bias features). By cp.async when relh and relw rows are whole 16-byte
+// pieces, else by plain loads; columns [h + w, ka + 8) are left as they
+// are (zero_ra_pad).
 __device__ __forceinline__ void stage_ra(bf16* ra, int ka, const bf16* relh, const bf16* relw,
                                          int q0, int n, int h, int w) {
   const int ld = ka + 8;
@@ -407,14 +168,17 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int
   }
 }
 
-// E for the keys [k0, k0 + kT) (see load_e) without the group flags: by
-// cp.async when the expander rows are 16-byte aligned (n % 8 == 0), else by
-// plain loads.
+// E[a][c] (pitch kLdP) for the keys k0 + c of the tile: eh[a][key] (a <
+// h), ew[a - h][key] (h <= a < h + w), 0 past h + w or past n; only the
+// 16-row groups g with bit g of `groups` set (the rest left as they are).
+// By cp.async when the expander rows are 16-byte aligned (n % 8 == 0),
+// else by plain loads.
 __device__ __forceinline__ void stage_e(bf16* e, int ka, const bf16* eh, const bf16* ew, int k0,
-                                        int n, int h, int w) {
+                                        int n, int h, int w, int groups = -1) {
   if (n % 8 == 0) {
     for (int i = threadIdx.x; i < ka * (kT / 8); i += kRT) {
       const int a = i / (kT / 8), c = (i % (kT / 8)) * 8, key = k0 + c;
+      if (!(groups >> (a >> 4) & 1)) continue;
       const bool in = key < n && a < h + w;
       const bf16* src = a < h ? eh + static_cast<size_t>(a) * n
                               : ew + static_cast<size_t>(in ? a - h : 0) * n;
@@ -423,6 +187,7 @@ __device__ __forceinline__ void stage_e(bf16* e, int ka, const bf16* eh, const b
   } else {
     for (int i = threadIdx.x; i < ka * kT; i += kRT) {
       const int a = i / kT, c = i % kT, key = k0 + c;
+      if (!(groups >> (a >> 4) & 1)) continue;
       bf16 val = to_bf(0.f);
       if (key < n && a < h + w)
         val = a < h ? eh[static_cast<size_t>(a) * n + key]
@@ -459,18 +224,444 @@ __global__ void __launch_bounds__(kRT) rb_nz_kernel(const bf16* __restrict__ eh,
   if (threadIdx.x == 0) bits_s = 0;
   __syncthreads();
   const int k0 = blockIdx.x * kT;
+  auto row = [&](int a) {
+    return a < h ? eh + static_cast<size_t>(a) * n : ew + static_cast<size_t>(a - h) * n;
+  };
   int bits = 0;
-  for (int i = threadIdx.x; i < (h + w) * kT; i += kRT) {
-    const int a = i / kT, key = k0 + i % kT;
-    if (key >= n) continue;
-    const bf16 val = a < h ? eh[static_cast<size_t>(a) * n + key]
-                           : ew[static_cast<size_t>(a - h) * n + key];
-    if (to_f(val) != 0.f) bits |= 1 << (a / 16);
+  if (n % 8 == 0) {  // 16-byte pieces; a value is non-zero where a bit but its sign is
+    for (int i = threadIdx.x; i < (h + w) * (kT / 8); i += kRT) {
+      const int a = i / (kT / 8), key = k0 + (i % (kT / 8)) * 8;
+      if (key >= n) continue;
+      const uint4 val = *reinterpret_cast<const uint4*>(row(a) + key);
+      if ((val.x | val.y | val.z | val.w) & 0x7fff7fffu) bits |= 1 << (a / 16);
+    }
+  } else {
+    for (int i = threadIdx.x; i < (h + w) * kT; i += kRT) {
+      const int a = i / kT, key = k0 + i % kT;
+      if (key < n && to_f(row(a)[key]) != 0.f) bits |= 1 << (a / 16);
+    }
   }
   if (bits) atomicOr(&bits_s, bits);
   __syncthreads();
   if (threadIdx.x == 0) nz[blockIdx.x] = bits_s;
 }
+
+// ------------------------------------------------------------ forward --
+// One online pass over the key tiles, 64 keys a step. Scores, p and the
+// output accumulators stay in registers (mma.sync m16n8k16, mma.cuh): a
+// warp owns a 16-query strip, 32 fp32 scores and D / 2 fp32 output sums a
+// lane; the max and sum of a row come from its four lanes by quad shuffles.
+constexpr int kResidentMax = 256;  // N up to this: one block a (window, head)
+constexpr int kResidentKa = 64;    // B14's resident kernel: h + w up to this
+
+// The streaming kernel's bias: B2b at w == 64 (a key tile is one grid row:
+// relw[q, key % w] fixed registers a lane, relh[q, key / w] one value a row
+// a tile), B2b at other w (both read from the block's RA rows), B14 (the
+// product RA E over the expander groups in use).
+enum FwdBias { kBiasW64 = 0, kBiasIdx = 1, kBiasExp = 2 };
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kLd = D + 8;
+  static constexpr size_t kTile = kT * kLd * sizeof(bf16);
+  // Streaming: two stages of K and V (the Q tile lands in K's second stage
+  // first), RA, and for B14 one E tile.
+  static size_t stream(int ka, bool exp) {
+    return 4 * kTile + kT * (ka + 8) * sizeof(bf16) + (exp ? ka * kLdP * sizeof(bf16) : 0);
+  }
+  // Resident: K and V (rows padded to 16); B14 the expander rows of every
+  // key (pitch rows + 8), B2b each warp's strip of relh | relw rows.
+  static size_t resident(int n, int h, int w, int ka, bool exp) {
+    const size_t rows = (n + 15) / 16 * 16;
+    return (2 * rows * kLd + (exp ? ka * (rows + 8) : 4 * 16 * (h + w))) * sizeof(bf16);
+  }
+};
+
+// s = -inf for the keys past n (the masked last tile).
+__device__ __forceinline__ void mask_past(float (&s)[8][4], int k0, int n) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (k0 + 8 * j + 2 * (lane & 3) + e >= n) s[j][e] = s[j][e + 2] = kNegInf;
+}
+
+// B2b's bias looked up: s = (s + relw[row, key % w]) + relh[row, key / w],
+// as the TPU kernel sums them, -inf past n. R: the strip's first row of
+// relh | relw (relh at columns [0, h), relw at [h, h + w)), pitch ld.
+__device__ __forceinline__ void bias_lookup(float (&s)[8][4], const bf16* R, int ld, int k0,
+                                            int n, int h, int w, float inv_w) {
+  const int lane = threadIdx.x & 31, lo = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + 2 * (lane & 3) + e;
+      if (key >= n) {
+        s[j][e] = s[j][e + 2] = kNegInf;
+        continue;
+      }
+      const int g = div_w(key, w, inv_w), c = h + key - g * w;
+      s[j][e] = (s[j][e] + to_f(R[lo * ld + c])) + to_f(R[lo * ld + g]);
+      s[j][e + 2] = (s[j][e + 2] + to_f(R[(lo + 8) * ld + c])) + to_f(R[(lo + 8) * ld + g]);
+    }
+}
+
+// One 64-key tile of the online softmax for the lane's two rows: m, l and
+// the output sums rescaled by alpha = exp(m_old - m_new), s replaced by the
+// unnormalised p = exp(s - m_new) in fp32 (l sums it so; p v rounds it).
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 8][4]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * u], s[j][2 * u + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[u], mx), ml = m_new * kLog2e;
+    const float alpha = ex2((m[u] - m_new) * kLog2e);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * u; e < 2 * u + 2; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], kLog2e, -ml));
+        sum += s[j][e];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[u] = l[u] * alpha + sum;
+    m[u] = m_new;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][2 * u] *= alpha;
+      o[j][2 * u + 1] *= alpha;
+    }
+  }
+}
+
+// o += bf16(p) v over keys [16 p, 16 p + 16) of the key tile Vt (pitch ld),
+// p < pairs: p packed straight into the A operand.
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[8][4],
+                                        const bf16* Vt, int ld, int pairs) {
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp) {
+    if (kp >= pairs) break;
+    uint32_t a[4];
+    acc_to_a(a, p[2 * kp], p[2 * kp + 1]);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t b[4];
+      ldb_cols(b, Vt, ld, dn * 16, kp * 16);  // B[key][c] = V[key][c]
+      mma16816(o[2 * dn], a, b[0], b[1]);
+      mma16816(o[2 * dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o = bf16(acc / l) and lse = m + log l for the strip's rows row0 .. row0 +
+// 15 of one (batch, head); rows past n dropped.
+template <int D>
+__device__ __forceinline__ void store_fwd(bf16* o, float* lse, float (&acc)[D / 8][4],
+                                          const float (&m)[2], const float (&l)[2], int row0,
+                                          int n) {
+  const int lane = threadIdx.x & 31;
+  const float lc[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] / lc[e >> 1];
+  store_strip_rows<D>(o, acc, row0, n);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = row0 + (lane >> 2) + 8 * u;
+      if (row < n) lse[row] = m[u] + logf(lc[u]);
+    }
+  }
+}
+
+// --- streaming (N > 256: the global grid): a block of four warps owns a
+// 64-query tile; K and V come by cp.async into a two-stage ring, the next
+// tile's copy in flight while this one is used, one block barrier a tile.
+// B14's E tile (only the groups in use) is one stage: its copy is issued
+// after that barrier and lands while the warps compute q k^T, behind a
+// second barrier (two E stages would hold the block to two an SM).
+template <int D, int kBias>
+__global__ void __launch_bounds__(kRT, 3) rb_fwd_stream_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ relh, const bf16* __restrict__ relw, const bf16* __restrict__ eh,
+    const bf16* __restrict__ ew, const int* __restrict__ nz, bf16* __restrict__ o,
+    float* __restrict__ lse, int n, int h, int w, int ka) {
+  constexpr int kLd = D + 8, kTileE = kT * kLd;
+  constexpr bool kExp = kBias == kBiasExp;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // 2 stages
+  bf16* Vs = Ks + 2 * kTileE;                 // 2 stages
+  bf16* RA = Vs + 2 * kTileE;                 // kT x (ka + 8)
+  const int lda = ka + 8;
+  bf16* E = RA + kT * lda;  // B14: ka x kLdP
+  bf16* Qs = Ks + kTileE;   // K's second stage, until every warp holds its q fragments
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, lo = lane >> 2;
+  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.x * kT, r0 = warp * 16;
+  const bf16* kh = k + bh * n * D;
+  const bf16* vh = v + bh * n * D;
+  const int tiles = (n + kT - 1) / kT;
+  auto issue = [&](int it) {
+    const int st = it & 1, k0 = it * kT;
+    cp_rows<D>(Ks + st * kTileE, kLd, kh, k0, kT, n, tid, kRT);
+    cp_rows<D>(Vs + st * kTileE, kLd, vh, k0, kT, n, tid, kRT);
+  };
+  cp_rows<D>(Qs, kLd, q + bh * n * D, q0, kT, n, tid, kRT);
+  if (kExp) zero_ra_pad(RA, ka, h, w);
+  stage_ra(RA, ka, relh + bh * n * h, relw + bh * n * w, q0, n, h, w);
+  issue(0);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float rwr[kBias == kBiasW64 ? 8 : 1][4];  // w 64: relw[row, c] at the lane's columns c
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float oacc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  const float inv_w = 1.f / w;
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // key tile it landed; every warp is done with the other stage
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) lda_rows(qf[kk], Qs, kLd, r0, kk * 16);
+      if constexpr (kBias == kBiasW64) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            rwr[j][e] =
+                to_f(RA[(r0 + lo + 8 * (e >> 1)) * lda + h + 8 * j + 2 * (lane & 3) + (e & 1)]);
+      }
+      __syncthreads();  // every warp holds its q fragments: K's second stage is free
+    }
+    const int groups = kExp ? nz[it] : 0;  // the expander groups in use
+    if (kExp) {
+      stage_e(E, ka, eh, ew, it * kT, n, h, w, groups);
+      cp_async_commit();
+    }
+    if (it + 1 < tiles) issue(it + 1);
+    cp_async_commit();
+    const int st = it & 1, k0 = it * kT;
+    float s[8][4];
+    strip_scores<D>(s, qf, Ks + st * kTileE, kLd, 4);
+    if constexpr (kBias == kBiasExp) {  // s += RA E over the groups in use
+      cp_async_wait<1>();
+      __syncthreads();  // this tile's E landed
+      for (int g = 0; g < ka / 16; ++g) {
+        if (!(groups >> g & 1)) continue;
+        uint32_t ra[4];
+        lda_rows(ra, RA, lda, r0, g * 16);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t b[4];
+          ldb_cols(b, E, kLdP, p * 16, g * 16);  // B[a][key] = E[a][key]
+          mma16816(s[2 * p], ra, b[0], b[1]);
+          mma16816(s[2 * p + 1], ra, b[2], b[3]);
+        }
+      }
+      mask_past(s, k0, n);
+    } else if constexpr (kBias == kBiasW64) {  // key tile it is grid row it; n = 64 h
+      const float rh0 = to_f(RA[(r0 + lo) * lda + it]), rh1 = to_f(RA[(r0 + lo + 8) * lda + it]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = (s[j][e] + rwr[j][e]) + (e < 2 ? rh0 : rh1);
+    } else {
+      bias_lookup(s, RA + r0 * lda, lda, k0, n, h, w, inv_w);
+    }
+    softmax_tile<D>(s, m, l, oacc);
+    pv_tile<D>(oacc, s, Vs + st * kTileE, kLd, 4);
+  }
+  store_fwd<D>(o + bh * n * D, lse + bh * n, oacc, m, l, q0 + r0, n);
+}
+
+// Every key's expander rows for the resident kernel: e[a][key] (pitch lde)
+// = eh[a][key] (a < h), ew[a - h][key] (h <= a < h + w), 0 past h + w or
+// past n, for a < ka and key < rows; two keys a load where n is even.
+__device__ __forceinline__ void load_e_all(bf16* e, int lde, int ka, const bf16* eh,
+                                           const bf16* ew, int n, int h, int w, int rows) {
+  auto src = [&](int a) {
+    return a < h ? eh + static_cast<size_t>(a) * n : ew + static_cast<size_t>(a - h) * n;
+  };
+  if (n % 2 == 0) {
+    const int half = rows / 2;
+    for (int i = threadIdx.x; i < ka * half; i += kRT) {
+      const int a = i / half, key = (i % half) * 2;
+      const uint32_t val = key < n && a < h + w
+                               ? *reinterpret_cast<const uint32_t*>(src(a) + key) : 0u;
+      *reinterpret_cast<uint32_t*>(e + a * lde + key) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ka * rows; i += kRT) {
+      const int a = i / rows, key = i % rows;
+      e[a * lde + key] = key < n && a < h + w ? src(a)[key] : to_bf(0.f);
+    }
+  }
+}
+
+// --- resident (N <= 256: the 14 x 14 windows): a block owns a whole
+// (window, head) pair. Its K, V (and for B14 every key's expander rows)
+// land once; then each warp walks the pair's 16-row strips with no further
+// block barrier, the keys in 64-key steps of the online softmax. B14 holds
+// a strip's RA fragments in registers (h + w <= 64); B2b reads a strip's
+// relh | relw rows from the warp's own shared rows.
+template <int D, bool kExp>
+__global__ void __launch_bounds__(kRT, 3) rb_fwd_resident_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ relh, const bf16* __restrict__ relw, const bf16* __restrict__ eh,
+    const bf16* __restrict__ ew, const int* __restrict__ nz, bf16* __restrict__ o,
+    float* __restrict__ lse, int n, int h, int w, int ka) {
+  constexpr int kLd = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int rows = (n + 15) / 16 * 16, lde = rows + 8, hw = h + w;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, lo = lane >> 2;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + rows * kLd;
+  bf16* E = Vs + rows * kLd;                   // B14: ka x lde
+  bf16* R = Vs + rows * kLd + warp * 16 * hw;  // B2b: 16 x hw, the warp's own
+  const size_t bh = blockIdx.x;
+  const bf16* qh = q + bh * n * D;
+  const bf16* rhh = relh + bh * n * h;
+  const bf16* rwh = relw + bh * n * w;
+  cp_rows<D>(Ks, kLd, k + bh * n * D, 0, rows, n, tid, kRT);
+  cp_rows<D>(Vs, kLd, v + bh * n * D, 0, rows, n, tid, kRT);
+  cp_async_commit();
+  if (kExp) load_e_all(E, lde, ka, eh, ew, n, h, w, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int tiles = (n + kT - 1) / kT;
+  const float inv_w = 1.f / w;
+  auto ra_at = [&](int row, int a) {  // RA[row][a]: relh | relw, 0 past h + w or n
+    if (row >= n || a >= hw) return 0.f;
+    return to_f(a < h ? rhh[static_cast<size_t>(row) * h + a]
+                      : rwh[static_cast<size_t>(row) * w + a - h]);
+  };
+  for (int row0 = warp * 16; row0 < n; row0 += 4 * 16) {
+    uint32_t qf[D / 16][4];  // A fragments straight from device memory
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + lo + (e & 1) * 8, c = kk * 16 + 2 * (lane & 3) + (e >> 1) * 8;
+        qf[kk][e] = row < n ? *reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(row) *
+                                                                          D + c)
+                            : 0u;
+      }
+    uint32_t raf[kExp ? kResidentKa / 16 : 1][4];  // B14: the strip's RA fragments
+    if constexpr (kExp) {
+#pragma unroll
+      for (int g = 0; g < kResidentKa / 16; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + lo + (e & 1) * 8, a = g * 16 + 2 * (lane & 3) + (e >> 1) * 8;
+          raf[g][e] = g < ka / 16 ? pack_bf16(ra_at(row, a), ra_at(row, a + 1)) : 0u;
+        }
+    } else {
+      __syncwarp();  // the previous strip's rows are read
+      for (int i = lane; i < 16 * hw; i += 32) {
+        const int r = i / hw, a = i % hw;
+        R[i] = to_bf(ra_at(row0 + r, a));
+      }
+      __syncwarp();
+    }
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float oacc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int k0 = kt * kT, pairs = min(4, (rows - k0) / 16);
+      float s[8][4];
+      strip_scores<D>(s, qf, Ks + k0 * kLd, kLd, pairs);
+      if constexpr (kExp) {  // s += RA E over the groups in use
+        const int groups = nz[kt];
+#pragma unroll
+        for (int g = 0; g < kResidentKa / 16; ++g) {
+          if (!(groups >> g & 1)) continue;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            if (p >= pairs) break;
+            uint32_t b[4];
+            ldb_cols(b, E, lde, k0 + p * 16, g * 16);  // B[a][key] = E[a][key]
+            mma16816(s[2 * p], raf[g], b[0], b[1]);
+            mma16816(s[2 * p + 1], raf[g], b[2], b[3]);
+          }
+        }
+        mask_past(s, k0, n);
+      } else {
+        bias_lookup(s, R, hw, k0, n, h, w, inv_w);
+      }
+      softmax_tile<D>(s, m, l, oacc);
+      pv_tile<D>(oacc, s, Vs + k0 * kLd, kLd, pairs);
+    }
+    store_fwd<D>(o + bh * n * D, lse + bh * n, oacc, m, l, row0, n);
+  }
+}
+
+// ----------------------------------------------------------- backward --
+// Two passes, as the TPU kernel's dq and dkv pallas_calls: a block per key
+// tile for dk, dv; a block per query tile for dq and the bias cotangents.
+// Each output element is summed in one block, in a fixed order, and
+// written once: no atomics, no zeroed accumulators, the same bits on every
+// run. Both passes compute s and dp (7 N^2 d products in all, against the
+// one-pass design's 5).
+
+// delta[row] = sum_c do[row, c] * o[row, c] in fp32: one warp a row.
+template <int D>
+__global__ void rb_delta_kernel(const bf16* __restrict__ d_o, const bf16* __restrict__ o,
+                                float* __restrict__ delta, int rows) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += to_f(d_o[base + c]) * to_f(o[base + c]);
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// The dq pass's bias and bias cotangents: B2b at w == 64 (relw and the
+// drelw sums in registers, drelh a row sum a key tile); B2b at other w (the
+// bias read from the RA rows, the cotangents as the product ds e^T with the
+// one-hot e that the indices describe, rb_onehot_kernel); B14 (both as
+// products with the expander tile).
+enum DrelMode { kDrelW64 = 0, kDrelIdx = 1, kDrelExp = 2 };
+
+template <int D>
+struct BwdSmem {
+  static constexpr int kLd = D + 8;
+  static constexpr size_t kTile = kT * kLd * sizeof(bf16);
+  __host__ __device__ static size_t ra(int ka) { return kT * (ka + 8) * sizeof(bf16); }
+  __host__ __device__ static size_t e(int ka) { return ka * kLdP * sizeof(bf16); }
+  // dk/dv pass: K, V, E (B14), then two stages of {Q, dO, RA, lse, delta}.
+  __host__ __device__ static size_t dkv_stage(int ka) {
+    return 2 * kTile + ra(ka) + 2 * kT * sizeof(float);
+  }
+  __host__ __device__ static size_t dkv(int ka, bool exp) {
+    return 2 * kTile + (exp ? e(ka) : 0) + 2 * dkv_stage(ka);
+  }
+  // dq pass: Q, dO, RA, then two stages of {K, V, E (not at w 64)}.
+  __host__ __device__ static size_t dq_stage(int ka, bool exp) {
+    return 2 * kTile + (exp ? e(ka) : 0);
+  }
+  __host__ __device__ static size_t dq(int ka, bool exp) {
+    return 2 * kTile + ra(ka) + 2 * dq_stage(ka, exp);
+  }
+};
 
 // --- dk/dv pass: a block per 64-key tile, looping over the query tiles;
 // warp w owns keys k0 + 16 w .. +15 and works on s^T, dp^T (keys as rows).
@@ -854,21 +1045,61 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-template <int D, bool kExp>
-int rb_forward(const void* q, const void* k, const void* v, const void* relh, const void* relw,
-               const void* eh, const void* ew, void* o, void* lse, int bh, int n, int h, int w,
-               void* stream) {
-  const int ka = (h + w + 15) / 16 * 16;
-  if (ka / 16 > 31) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = RbSmem<D>::fwd(ka);
-  if (int err = set_smem(rb_fwd_kernel<D, kExp>, smem)) return err;
-  rb_fwd_kernel<D, kExp><<<dim3((n + kT - 1) / kT, bh), kRT, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+// The card's SM count (the current device's, read once).
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <int D, int kBias>
+int launch_stream(const void* q, const void* k, const void* v, const void* relh,
+                  const void* relw, const void* eh, const void* ew, const int* nz, void* o,
+                  void* lse, int bh, int n, int h, int w, int ka, cudaStream_t s) {
+  const size_t smem = FwdSmem<D>::stream(ka, kBias == kBiasExp);
+  if (int err = set_smem(rb_fwd_stream_kernel<D, kBias>, smem)) return err;
+  rb_fwd_stream_kernel<D, kBias><<<dim3((n + kT - 1) / kT, bh), kRT, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(relh), static_cast<const bf16*>(relw),
-      static_cast<const bf16*>(eh), static_cast<const bf16*>(ew), static_cast<bf16*>(o),
+      static_cast<const bf16*>(eh), static_cast<const bf16*>(ew), nz, static_cast<bf16*>(o),
       static_cast<float*>(lse), n, h, w, ka);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kExp>
+int rb_forward(const void* q, const void* k, const void* v, const void* relh, const void* relw,
+               const void* eh, const void* ew, void* nz, void* o, void* lse, int bh, int n,
+               int h, int w, void* stream) {
+  const int ka = (h + w + 15) / 16 * 16;
+  if (ka / 16 > 31) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* groups = static_cast<const int*>(nz);
+  // Resident where the pairs fill the card (a block an SM or more); fewer
+  // run faster as 64-query tiles. (tools/kernel_ab.py builds a copy with
+  // IUVL_RB_FWD_NO_RESIDENT to time the streaming kernel on the windows.)
+  const size_t smem = FwdSmem<D>::resident(n, h, w, ka, kExp);
+#ifndef IUVL_RB_FWD_NO_RESIDENT
+  if (n <= kResidentMax && (!kExp || ka <= kResidentKa) && smem <= kSmemMax &&
+      bh >= sm_count()) {
+    if (int err = set_smem(rb_fwd_resident_kernel<D, kExp>, smem)) return err;
+    rb_fwd_resident_kernel<D, kExp><<<bh, kRT, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(relh), static_cast<const bf16*>(relw),
+        static_cast<const bf16*>(eh), static_cast<const bf16*>(ew), groups,
+        static_cast<bf16*>(o), static_cast<float*>(lse), n, h, w, ka);
+    return static_cast<int>(cudaGetLastError());
+  }
+#endif
+  if (kExp) return launch_stream<D, kBiasExp>(q, k, v, relh, relw, eh, ew, groups, o, lse, bh, n,
+                                              h, w, ka, s);
+  if (w == kT) return launch_stream<D, kBiasW64>(q, k, v, relh, relw, eh, ew, groups, o, lse,
+                                                 bh, n, h, w, ka, s);
+  return launch_stream<D, kBiasIdx>(q, k, v, relh, relw, eh, ew, groups, o, lse, bh, n, h, w,
+                                    ka, s);
 }
 
 struct BwdArgs {
@@ -908,8 +1139,6 @@ int rb_backward(const void* q, const void* k, const void* v, const void* relh, c
     if (int err = static_cast<int>(cudaGetLastError())) return err;
     eh = onehot;
     ew = static_cast<const bf16*>(onehot) + static_cast<size_t>(h) * n;
-  }
-  if (eh) {
     rb_nz_kernel<<<tiles, kRT, 0, s>>>(static_cast<const bf16*>(eh), static_cast<const bf16*>(ew),
                                        static_cast<int*>(nz), n, h, w, ka);
     if (int err = static_cast<int>(cudaGetLastError())) return err;
@@ -955,19 +1184,36 @@ extern "C" int iuvl_rowbias_fwd(const void* q, const void* k, const void* v, con
                                 const void* relw, void* o, void* lse, int bh, int n, int d,
                                 int h, int w, void* stream) {
   if (h * w != n) return static_cast<int>(cudaErrorInvalidValue);
-  IUVL_RB_DISPATCH(rb_forward, false, q, k, v, relh, relw, nullptr, nullptr, o, lse, bh, n, h,
-                   w, stream)
+  IUVL_RB_DISPATCH(rb_forward, false, q, k, v, relh, relw, nullptr, nullptr, nullptr, o, lse,
+                   bh, n, h, w, stream)
 }
 
+// B14's expander groups in use, once a call for its forward and backward:
+// nz (int32, one word a 64-key tile) bit g where rows 16 g .. 16 g + 15 of
+// [eh ; ew] hold a non-zero value in the tile's keys.
+extern "C" int iuvl_relpos_groups(const void* eh, const void* ew, void* nz, int n, int h,
+                                  int w, void* stream) {
+  const int ka = (h + w + 15) / 16 * 16;
+  if (ka / 16 > 31) return static_cast<int>(cudaErrorInvalidValue);
+  rb_nz_kernel<<<(n + kT - 1) / kT, kRT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(eh), static_cast<const bf16*>(ew), static_cast<int*>(nz), n, h,
+      w, ka);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B14's forward also takes nz, the group words iuvl_relpos_groups wrote.
 extern "C" int iuvl_relpos_fwd(const void* q, const void* k, const void* v, const void* relh,
-                               const void* relw, const void* eh, const void* ew, void* o,
-                               void* lse, int bh, int n, int d, int h, int w, void* stream) {
-  IUVL_RB_DISPATCH(rb_forward, true, q, k, v, relh, relw, eh, ew, o, lse, bh, n, h, w, stream)
+                               const void* relw, const void* eh, const void* ew, void* nz,
+                               void* o, void* lse, int bh, int n, int d, int h, int w,
+                               void* stream) {
+  IUVL_RB_DISPATCH(rb_forward, true, q, k, v, relh, relw, eh, ew, nz, o, lse, bh, n, h, w,
+                   stream)
 }
 
 // The backward: o and lse from the forward, do (BH, N, d) bf16; scratch:
-// delta (BH, N) fp32, nz int32 (one word a 64-key tile), and for B2b onehot
-// ((h + w) N bf16, used where w != 64); outputs dq, dk, dv (BH, N, d), drelh
+// delta (BH, N) fp32, and for B2b onehot ((h + w) N bf16, used where w !=
+// 64) and nz int32 (one word a 64-key tile; B14 takes the words
+// iuvl_relpos_groups wrote); outputs dq, dk, dv (BH, N, d), drelh
 // (BH, N, h), drelw (BH, N, w), bf16, each written once (no zeroing needed).
 extern "C" int iuvl_rowbias_bwd(const void* q, const void* k, const void* v, const void* relh,
                                 const void* relw, const void* o, const void* lse,

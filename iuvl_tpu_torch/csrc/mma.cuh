@@ -1,6 +1,6 @@
 // Register-level tensor-core helpers for the attention kernels that keep
 // their scores in registers (B13 window_attention.cu, the B2b / B14
-// backward in flash_attention_rowbias.cu).
+// forward and backward in flash_attention_rowbias.cu).
 //
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) with its fragments loaded
 // by ldmatrix from padded shared-memory rows. In a warp, lane t holds:
@@ -104,6 +104,27 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// s[j] = q k^T for a warp's 16-row strip (A fragments qf) against keys
+// [16 p, 16 p + 16) of the key tile Kt (pitch ld), p < pairs (a full tile
+// has 4 pairs); s[2 p .. 2 p + 1] of the pairs past stay 0.
+template <int D>
+__device__ __forceinline__ void strip_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
+                                             const bf16* Kt, int ld, int pairs) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p >= pairs) break;
+      uint32_t b[4];
+      ldb_rows(b, Kt, ld, p * 16, kk * 16);
+      mma16816(s[2 * p], qf[kk], b[0], b[1]);
+      mma16816(s[2 * p + 1], qf[kk], b[2], b[3]);
+    }
+  }
 }
 
 // 16-byte cp.async that writes zeros (reads nothing) when !valid.

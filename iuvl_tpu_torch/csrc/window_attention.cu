@@ -142,26 +142,6 @@ __global__ void __launch_bounds__(kWThreads) rel_features_kernel(
 // A lane's two rows of its warp's strip: lo = lane / 4, hi = lo + 8; its
 // columns of 8-column tile j: 8 j + 2 (lane % 4) + {0, 1}.
 
-// s[j] = q k^T for the strip against keys [16 p, 16 p + 16) of the key tile
-// Kt (pitch ld), p < pairs (a full tile has 4 pairs).
-template <int D>
-__device__ __forceinline__ void strip_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
-                                             const bf16* Kt, int ld, int pairs) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      if (p >= pairs) break;
-      uint32_t b[4];
-      ldb_rows(b, Kt, ld, p * 16, kk * 16);
-      mma16816(s[2 * p], qf[kk], b[0], b[1]);
-      mma16816(s[2 * p + 1], qf[kk], b[2], b[3]);
-    }
-  }
-}
-
 // s = (s * scale + relh[row, key / w]) + relw[row, key % w], -inf past n;
 // RH, RW the strip's rows (pitch w) in shared memory.
 __device__ __forceinline__ void bias_lookup(float (&s)[8][4], const float* RH, const float* RW,

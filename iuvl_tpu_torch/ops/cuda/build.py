@@ -59,7 +59,8 @@ SIGNATURES = {
     "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),
     "iuvl_decode_tail": (P,) + (I,) * 5 + (P,),
     "iuvl_rowbias_fwd": (P,) * 7 + (I,) * 5 + (P,),
-    "iuvl_relpos_fwd": (P,) * 9 + (I,) * 5 + (P,),
+    "iuvl_relpos_groups": (P,) * 3 + (I,) * 3 + (P,),
+    "iuvl_relpos_fwd": (P,) * 10 + (I,) * 5 + (P,),
     "iuvl_rowbias_bwd": (P,) * 16 + (I,) * 5 + (P,),
     "iuvl_relpos_bwd": (P,) * 17 + (I,) * 5 + (P,),
     "iuvl_window_attention": (P,) * 7 + (I,) * 4 + (F, P),

@@ -267,18 +267,49 @@ def flash_rowbias_fwd(q, k, v, relh, relw, w: int):
 flash_rowbias_fwd.launches = 0
 
 
-def flash_relpos_fwd(q, k, v, relh, relw, eh, ew):
+def expander_groups_plain(eh, ew):
+    """Plain version of :func:`expander_groups`: int32 (ceil(N / 64),), bit
+    g of word t set where rows 16 g .. 16 g + 15 of [eh ; ew] hold a
+    non-zero value among keys 64 t .. 64 t + 63."""
+    e = torch.cat([eh, ew]) != 0
+    n, rows = e.shape[-1], -(-e.shape[0] // 16) * 16
+    e = torch.nn.functional.pad(e, (0, -n % 64, 0, rows - e.shape[0]))
+    used = e.reshape(rows // 16, 16, -1, 64).any(-1).any(1)  # (groups, tiles)
+    weights = 2 ** torch.arange(rows // 16, dtype=torch.int64, device=e.device)
+    return (used.long() * weights[:, None]).sum(0).to(torch.int32)
+
+
+def expander_groups(eh, ew):
+    """B14's expander groups in use, as its forward and backward kernels
+    read them: ``iuvl_relpos_groups`` for CUDA tensors (eh (h, N), ew (w,
+    N) bf16, h + w <= 496), :func:`expander_groups_plain` for CPU tensors."""
+    if eh.device.type == "cpu":
+        return expander_groups_plain(eh, ew)
+    (h, n), w = eh.shape, ew.shape[0]
+    if h + w > 496:
+        raise ValueError(f"expander_groups: h + w = {h + w} over 496")
+    for name, e, rows in (("eh", eh, h), ("ew", ew, w)):
+        require("expander_groups", name, e, torch.bfloat16, (rows, n), eh.device)
+    nz = torch.empty(((n + 63) // 64,), dtype=torch.int32, device=eh.device)
+    launch("iuvl_relpos_groups", eh.device, eh.data_ptr(), ew.data_ptr(), nz.data_ptr(), n, h, w)
+    return nz
+
+
+def flash_relpos_fwd(q, k, v, relh, relw, eh, ew, nz=None):
     """B14's forward: the CUDA kernel for CUDA tensors (bf16, head dim 64
     or 80, any N, eh (h, N) and ew (w, N) bf16 with h + w <= 496), the
-    plain version for CPU tensors. Results as
+    plain version for CPU tensors. ``nz``: :func:`expander_groups` of eh,
+    ew (computed here when not given). Results as
     :func:`flash_rowbias_fwd_plain`."""
     if q.device.type == "cpu":
         return flash_rowbias_fwd_plain(q, k, v, relh, relw, relw.shape[-1], eh, ew)
     bh, n, d, h, w = _require_rowbias("flash_relpos_fwd", q, k, v, relh, relw, eh, ew)
     o, lse = torch.empty_like(v), torch.empty(q.shape[:-1], dtype=torch.float32,
                                               device=q.device)
+    nz = expander_groups(eh, ew) if nz is None else nz
+    require("flash_relpos_fwd", "nz", nz, torch.int32, ((n + 63) // 64,), q.device)
     launch("iuvl_relpos_fwd", q.device,
-           *(t_.data_ptr() for t_ in (q, k, v, relh, relw, eh, ew, o, lse)), bh, n, d, h, w)
+           *(t_.data_ptr() for t_ in (q, k, v, relh, relw, eh, ew, nz, o, lse)), bh, n, d, h, w)
     flash_relpos_fwd.launches += 1
     return o, lse
 
@@ -286,16 +317,21 @@ def flash_relpos_fwd(q, k, v, relh, relw, eh, ew):
 flash_relpos_fwd.launches = 0
 
 
-def _rowbias_bwd(name, q, k, v, relh, relw, o, lse, do, eh=None, ew=None):
+def _rowbias_bwd(name, q, k, v, relh, relw, o, lse, do, eh=None, ew=None, nz=None):
     bh, n, d, h, w = _require_rowbias(name, q, k, v, relh, relw, eh, ew,
                                       (("o", o), ("lse", lse), ("do", do)))
     dev = q.device
     # Scratch: delta; for B2b the one-hot expanders its dq pass multiplies
-    # by (where w != 64); the expander groups in use, a word a 64-key tile.
+    # by (where w != 64) and their groups in use, a word a 64-key tile
+    # (B14: its expanders' groups, nz).
     scratch = (torch.empty(lse.shape, dtype=torch.float32, device=dev),)
     if eh is None:
-        scratch += (torch.empty((h + w, n), dtype=torch.bfloat16, device=dev),)
-    scratch += (torch.empty(((n + 63) // 64,), dtype=torch.int32, device=dev),)
+        scratch += (torch.empty((h + w, n), dtype=torch.bfloat16, device=dev),
+                    torch.empty(((n + 63) // 64,), dtype=torch.int32, device=dev))
+    else:
+        nz = expander_groups(eh, ew) if nz is None else nz
+        require(name, "nz", nz, torch.int32, ((n + 63) // 64,), dev)
+        scratch += (nz,)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drelh, drelw = torch.empty_like(relh), torch.empty_like(relw)
     ins = (q, k, v, relh, relw) + ((eh, ew) if eh is not None else ()) + (o, lse, do)
@@ -320,12 +356,13 @@ def flash_rowbias_bwd(q, k, v, relh, relw, o, lse, do, w: int):
 flash_rowbias_bwd.launches = 0
 
 
-def flash_relpos_bwd(q, k, v, relh, relw, eh, ew, o, lse, do):
+def flash_relpos_bwd(q, k, v, relh, relw, eh, ew, o, lse, do, nz=None):
     """B14's backward: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Results as :func:`flash_rowbias_bwd_plain`."""
+    for CPU tensors. ``nz`` as for :func:`flash_relpos_fwd`. Results as
+    :func:`flash_rowbias_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_rowbias_bwd_plain(q, k, v, relh, relw, o, lse, do, relw.shape[-1], eh, ew)
-    out = _rowbias_bwd("flash_relpos_bwd", q, k, v, relh, relw, o, lse, do, eh, ew)
+    out = _rowbias_bwd("flash_relpos_bwd", q, k, v, relh, relw, o, lse, do, eh, ew, nz)
     flash_relpos_bwd.launches += 1
     return out
 
@@ -339,22 +376,24 @@ class _RowbiasAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, relh, relw, eh, ew, w):
+        nz = None
         if eh is None:
             o, lse = flash_rowbias_fwd(q, k, v, relh, relw, w)
-        else:
-            o, lse = flash_relpos_fwd(q, k, v, relh, relw, eh, ew)
+        else:  # the expander groups once, for the forward and the backward
+            nz = expander_groups(eh, ew)
+            o, lse = flash_relpos_fwd(q, k, v, relh, relw, eh, ew, nz)
         ctx.w = w
-        ctx.save_for_backward(q, k, v, relh, relw, eh, ew, o, lse)
+        ctx.save_for_backward(q, k, v, relh, relw, eh, ew, o, lse, nz)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, relh, relw, eh, ew, o, lse = ctx.saved_tensors
+        q, k, v, relh, relw, eh, ew, o, lse, nz = ctx.saved_tensors
         do = do.to(v.dtype).contiguous()
         if eh is None:
             grads = flash_rowbias_bwd(q, k, v, relh, relw, o, lse, do, ctx.w)
         else:
-            grads = flash_relpos_bwd(q, k, v, relh, relw, eh, ew, o, lse, do)
+            grads = flash_relpos_bwd(q, k, v, relh, relw, eh, ew, o, lse, do, nz)
         return (*grads, None, None, None)
 
 

@@ -251,3 +251,61 @@ def test_encoder_gradient_under_pallas_rp_matches_jax(interpret):
     for name, p in tm.image_encoder.named_parameters():
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
         _grad_close(p.grad, ref["image_encoder." + name], name)
+
+
+@pytest.mark.parametrize("kind, n, hw, d, seed", [
+    ("relpos_dense", 20, (3, 9), 16, 41), ("relpos_dense", 150, (5, 11), 16, 42),
+    ("rowbias", 16, (4, 4), 80, 43), ("relpos", 16, (4, 4), 80, 44)])
+def test_forward_general_path_plain_matches_the_pallas_kernel(kind, n, hw, d, seed, interpret):
+    """o and lse of B14's plain version with dense random expanders (every
+    expander row in use, N not a multiple of the kernels' tiles and not h
+    w) and of B2b's / B14's at head dim 80 (ViT-H's) against JAX's forward
+    in interpret mode: the cases the card's kernel phase adds for the
+    forward's general path."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    q, k, v = (rs.randn(2, 2, n, d).astype(np.float32) for _ in range(3))
+    qs = q * d ** -0.5
+    if kind == "relpos_dense":
+        relh, relw = rs.randn(2, 2, n, h).astype(np.float32), rs.randn(2, 2, n, w).astype(
+            np.float32)
+        eh, ew = ((rs.randn(a, n) * (h + w) ** -0.5).astype(np.float32) for a in (h, w))
+    else:
+        rph, rpw = ((rs.randn(2 * a - 1, d) * 0.1).astype(np.float32) for a in hw)
+        relh, relw = (np.asarray(x) for x in _features(q, rph, rpw, hw))
+        eh, ew = _expanders(hw)
+    if kind == "rowbias":
+        ref = jfa._flash_rb_forward(qs, k, v, relh, relw, w, 8, 8, return_lse=True)
+        got = tfa.flash_rowbias_fwd(_t(qs), _t(k), _t(v), _t(relh), _t(relw), w)
+    else:
+        ref = jfa._flash_rp_forward(qs, k, v, relh, relw, eh, ew, return_lse=True)
+        got = tfa.flash_relpos_fwd(_t(qs), _t(k), _t(v), _t(relh), _t(relw), _t(eh), _t(ew))
+    for name, g, r in zip(("o", "lse"), got, ref):
+        _close(g, r, name, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind, h, w, n", [
+    ("onehot", 14, 14, 196), ("onehot", 64, 64, 4096), ("onehot", 3, 7, 21),
+    ("dense", 8, 25, 200), ("dense", 200, 296, 300), ("sparse", 5, 11, 130)])
+def test_expander_groups_plain_matches_brute_force(kind, h, w, n):
+    """The group words B14's forward and backward read (bit g of word t:
+    rows 16 g .. 16 g + 15 of [eh ; ew] non-zero among keys 64 t .. 64 t +
+    63), through the wrapper on CPU tensors, against a reading of every
+    value: one-hot expanders (the windows, the global grid, a grid whose
+    rows are not 16-row groups), dense random ones, and random ones with
+    most values zero, a few -0.0 among them (a zero as the kernel reads
+    it)."""
+    rs = np.random.RandomState(h + w + n)
+    if kind == "onehot":
+        eh, ew = (x.float() for x in trpa.onehot_expanders((h, w), torch.bfloat16, "cpu"))
+    else:
+        eh, ew = (torch.from_numpy(rs.randn(a, n).astype(np.float32)) for a in (h, w))
+        if kind == "sparse":
+            eh, ew = (torch.where(torch.from_numpy(rs.rand(*e.shape) < 0.97),
+                                  torch.tensor(-0.0), e) for e in (eh, ew))
+    got = tfa.expander_groups(eh.to(torch.bfloat16), ew.to(torch.bfloat16))
+    e = torch.cat([eh, ew]).numpy()
+    want = [sum(1 << g for g in range(-(-(h + w) // 16))
+                if (e[16 * g:16 * g + 16, 64 * t:64 * t + 64] != 0).any())
+            for t in range(-(-n // 64))]
+    assert got.dtype == torch.int32 and got.tolist() == want

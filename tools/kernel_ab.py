@@ -1,25 +1,32 @@
-"""This tree's B13 and B2b / B14 backward against a parent tree's, on one
-card, in one process: build this tree's kernels (printing ptxas's
-registers and spills for the two sources), compile the parent's
-``window_attention.cu`` and ``flash_attention_rowbias.cu`` alone with
-``nvcc`` (and a copy of the parent's backward with its global atomic adds
-made plain stores, where it has any), then at ViT-B's windowed and global
-shapes (and two grids that reach the other code paths) hold each against
-the plain version (relative L2), check that two
-launches of this tree's backward give the same bits, time this tree's,
-the parent's and the plain version (CUDA events, 20 calls after a
-warm-up), and split this tree's device time by kernel (torch.profiler).
+"""This tree's B2b / B14 forward against a parent tree's, on one card, in
+one process: build this tree's kernels (printing ptxas's registers and
+spills of the B2b / B14 and B13 kernels), compile the parent's
+``flash_attention_rowbias.cu`` alone with ``nvcc`` (its ptxas summary too),
+then at ViT-B's windowed and global shapes, ViT-H's global shape (d 80) and
+grids that reach the other code paths (a 32 x 32 grid; N 200 and 300 with
+dense random expanders, one of them with h + w = 496) hold each forward
+against the plain version (relative L2 of o and lse), check that two
+launches of this tree's forward give the same bits, time the parent, this
+tree, this tree and the parent in turn (CUDA events, 20 calls after a
+warm-up), the plain version and SDPA on the materialised bias, and split
+one call's device time by kernel with each launch's registers and shared
+memory as the profiler's trace records them. Where this tree runs its
+resident forward (N <= 256, a block an SM or more), a copy of its source
+built with the resident kernel compiled out (IUVL_RB_FWD_NO_RESIDENT) is
+held and timed beside it: the streaming kernel on the same windows.
 
     git archive <parent> iuvl_tpu_torch/csrc | tar -x -C _chip/parent
-    python3 tools/kernel_ab.py --parent _chip/parent
+    set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent 2>&1 \
+        | tee chiprun_out/kernel_ab.log
 
-The parent's entry points must have the signatures they had before the
-two-pass backward (``iuvl_rowbias_bwd`` with fp32 accumulators). Needs one
+The parent's forward entry points must have the signatures PARENT_SIGS
+gives them (``iuvl_relpos_fwd`` without the group-word scratch). Needs one
 CUDA card.
 """
 
 import argparse
 import ctypes
+import json
 import re
 import shutil
 import subprocess
@@ -35,16 +42,20 @@ sys.path.insert(0, str(ROOT))
 
 from iuvl_tpu_torch.ops.cuda import build  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
-from iuvl_tpu_torch.ops.cuda import window_attention as wa  # noqa: E402
-from iuvl_tpu_torch.ops.rel_pos_attention import (  # noqa: E402
-    onehot_expanders, rel_pos_features, rel_pos_tables)
+from iuvl_tpu_torch.ops.rel_pos_attention import onehot_expanders  # noqa: E402
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-PARENT_SIGS = {"iuvl_window_attention": [P] * 6 + [I] * 4 + [F, P],
-               "iuvl_rowbias_bwd": [P] * 13 + [I] * 5 + [P],
-               "iuvl_relpos_bwd": [P] * 15 + [I] * 5 + [P]}
-KERNELS = ("rb_bwd", "rb_nz", "rb_delta", "window_stream", "window_resident", "window_attn_kernel",
-           "rel_features")
+P, I = ctypes.c_void_p, ctypes.c_int
+PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
+               "iuvl_relpos_fwd": [P] * 9 + [I] * 5 + [P]}
+KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident")
+# (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
+# grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
+# streaming), N 200 and 300 with dense expanders (h + w 33 and 496; 12 and
+# 2 heads, fewer than the SMs: the streaming kernels; B2b only where N = h
+# w).
+SHAPES = (("window", 300, 196, 14, 14, 64, False), ("global", 12, 4096, 64, 64, 64, False),
+          ("global_d80", 16, 4096, 64, 64, 80, False), ("side32", 12, 1024, 32, 32, 64, False),
+          ("dense200", 12, 200, 8, 25, 64, True), ("dense300", 2, 300, 200, 296, 64, True))
 
 
 def ms(fn, iters=20):
@@ -66,7 +77,7 @@ def rel(a, b):
 
 
 def ptxas_summary(log: str, label: str) -> None:
-    """Registers and spills of the kernels of the two sources in ``log``."""
+    """Registers, shared memory and spills of the kernels named in KERNELS."""
     name = None
     demangle = shutil.which("c++filt")
     for line in log.splitlines():
@@ -80,42 +91,33 @@ def ptxas_summary(log: str, label: str) -> None:
             print(f"ptxas {label} {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def compile_parent(parent: Path, work: Path) -> dict:
-    """The parent's two sources, and its backward with atomics as stores,
-    each a shared library of its own."""
-    csrc = parent / "iuvl_tpu_torch/csrc"
-    rb = (csrc / "flash_attention_rowbias.cu").read_text()
-    stores = re.sub(r"atomicAdd\((\w+) \+ ([^,]+), ([^;]+)\);", r"\1[\2] = \3;", rb)
-    srcs = {"window": (csrc / "window_attention.cu").read_text(), "rowbias": rb}
-    if stores != rb:
-        srcs["rowbias_stores"] = stores
-    procs = {}
-    for name, text in srcs.items():
-        cu = work / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-I", str(csrc), "-o",
-             str(work / f"{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"parent {name}: {err[-4000:]}")
-        if name != "rowbias_stores":
-            ptxas_summary(err, "parent")
-        lib = ctypes.CDLL(str(work / f"{name}.so"))
-        for fn, argtypes in PARENT_SIGS.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+def compile_rowbias(tree: Path, work: Path, label: str = "parent", sigs=None, defines=()):
+    """A tree's flash_attention_rowbias.cu alone as a shared library (the
+    parent's by default; ``defines``: -D macros), its forward entries typed
+    by ``sigs`` (PARENT_SIGS by default)."""
+    csrc = tree / "iuvl_tpu_torch/csrc"
+    out = work / f"{label}_rowbias.so"
+    proc = subprocess.run(
+        [build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", *(f"-D{m}" for m in defines),
+         "-I", str(csrc), "-o", str(out), str(csrc / "flash_attention_rowbias.cu")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{label} build: {proc.stderr[-4000:]}")
+    if label == "parent":
+        ptxas_summary(proc.stderr, label)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in (sigs or PARENT_SIGS).items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
-def profile(fn, calls=10) -> str:
-    """Device ms a call of each kernel that ``fn`` launches."""
+
+def kernel_split(fn, work: Path, calls=5) -> str:
+    """Device ms a call of each kernel ``fn`` launches, with the launch's
+    registers a thread, shared memory a block and grid (torch.profiler's
+    chrome trace)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -123,13 +125,20 @@ def profile(fn, calls=10) -> str:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.sub(r"\(.*", "", ev.key.replace("iuvl::(anonymous namespace)::", ""))
-            rows.append(f"{name[:60]} {dev_us / 1e3 / calls:.4f}")
-    return "; ".join(rows)
+    path = work / "trace.json"
+    prof.export_chrome_trace(str(path))
+    rows = {}
+    for ev in json.loads(path.read_text()).get("traceEvents", []):
+        if ev.get("cat") != "kernel":
+            continue
+        name = re.sub(r"\(.*", "", ev["name"].replace("iuvl::(anonymous namespace)::", ""))
+        a = ev.get("args", {})
+        r = rows.setdefault(name[:70], dict(
+            us=0.0, info=f"{a.get('registers per thread')} regs, "
+                         f"{a.get('shared memory')} B smem, grid {a.get('grid')}"))
+        r["us"] += float(ev.get("dur", 0))
+    return "; ".join(f"{name} {r['us'] / 1e3 / calls:.4f} ms ({r['info']})"
+                     for name, r in rows.items())
 
 
 def main() -> int:
@@ -143,7 +152,12 @@ def main() -> int:
     t0 = time.perf_counter()
     work = Path(tempfile.mkdtemp())
     build.library()
-    libs = compile_parent(args.parent.resolve(), work)
+    lib = compile_rowbias(args.parent.resolve(), work)
+    # This tree with the resident forward compiled out: the streaming kernel
+    # on the windows, to time against the resident one.
+    stream_lib = compile_rowbias(ROOT, work, "stream", {
+        fn: build.SIGNATURES[fn] for fn in PARENT_SIGS}, ("IUVL_RB_FWD_NO_RESIDENT",))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"build {time.perf_counter() - t0:.1f} s")
     ptxas_summary((build.BUILD_DIR / "ptxas.log").read_text(), "this tree")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -158,76 +172,79 @@ def main() -> int:
         return (torch.randn(*shape, device=dev, generator=gen) * std).to(torch.bfloat16)
 
     bad = []
-    # ViT-B's windows and global grid; a 32 x 32 grid (ViT-B at 512^2: B13's
-    # streaming kernel with looked-up bias, B2b's one-hot dq pass); an 80 x
-    # 80 grid at d 80 (h + w > 128: the dq pass in two group launches).
-    for tag, bh, side, d in (("window", 300, 14, 64), ("global", 12, 64, 64),
-                             ("side32", 12, 32, 64), ("side80_d80", 16, 80, 80)):
-        n = side * side
-        q, k, v, do = (t(1, bh, n, d) for _ in range(4))
-        rh, rw = rel_pos_tables(t(2 * side - 1, d, std=0.3), t(2 * side - 1, d, std=0.3),
-                                (side, side))
-        rhb, rwb = rh.to(torch.bfloat16), rw.to(torch.bfloat16)
-
-        def b13_parent():
-            o = torch.empty_like(q)
-            assert libs["window"].iuvl_window_attention(*ptr(q, k, v, rhb, rwb, o), bh, n, d,
-                                                        side, d ** -0.5, stream()) == 0
-            return o
-
-        new = lambda: wa.window_rel_attention_fwd(q, k, v, rhb, rwb)  # noqa: E731
-        ref = wa.window_rel_attention_fwd_plain(q, k, v, rhb, rwb)
-        e_new, e_par = rel(new(), ref), rel(b13_parent(), ref)
-        if not e_new <= 1e-3:
-            bad.append(f"B13@{tag} rel_l2 {e_new}")
-        print(f"B13@{tag}: rel_l2 {e_new:.3e} (parent {e_par:.3e}); ms {ms(new):.4f}, parent "
-              f"{ms(b13_parent):.4f}, plain "
-              f"{ms(lambda: wa.window_rel_attention_fwd_plain(q, k, v, rhb, rwb), 5):.4f}",
-              flush=True)
-        print(f"B13@{tag} device ms a call: {profile(new)}", flush=True)
-
-        relh, relw = rel_pos_features(q, rh, rw)
-        qs = q * d ** -0.5
-        eh, ew = onehot_expanders((side, side), torch.bfloat16, dev)
-        o, lse = fa.flash_rowbias_fwd_plain(qs, k, v, relh, relw, side)
-        for kind in ("rowbias", "relpos"):
+    for tag, bh, n, h, w, d, dense in SHAPES:
+        q, k, v = (t(1, bh, n, d) for _ in range(3))
+        q = q * d ** -0.5
+        relh, relw = t(1, bh, n, h, std=2.4), t(1, bh, n, w, std=2.4)
+        if dense:
+            eh, ew = t(h, n, std=(h + w) ** -0.5), t(w, n, std=(h + w) ** -0.5)
+        else:
+            eh, ew = onehot_expanders((h, w), torch.bfloat16, dev)
+        kinds = ("rowbias", "relpos") if h * w == n else ("relpos",)
+        for kind in kinds:
             if kind == "rowbias":
-                a = (qs, k, v, relh, relw, o, lse, do, side)
-                kern, plain = fa.flash_rowbias_bwd, fa.flash_rowbias_bwd_plain
-                ins = (qs, k, v, relh, relw, o, lse, do)
+                new = lambda: fa.flash_rowbias_fwd(q, k, v, relh, relw, w)  # noqa: E731
+                ins = (q, k, v, relh, relw)
+                bias = (relh.float().repeat_interleave(w, -1)
+                        + relw.float().repeat(1, 1, 1, h)).to(q.dtype)
             else:
-                a = (qs, k, v, relh, relw, eh, ew, o, lse, do)
-                kern = fa.flash_relpos_bwd
-                plain = lambda *x: fa.flash_rowbias_bwd_plain(  # noqa: E731
-                    *x[:5], *x[7:], side, x[5], x[6])
-                ins = (qs, k, v, relh, relw, eh, ew, o, lse, do)
+                new = lambda: fa.flash_relpos_fwd(q, k, v, relh, relw, eh, ew)  # noqa: E731
+                ins = (q, k, v, relh, relw, eh, ew)
+                bias = (relh.float() @ eh.float() + relw.float() @ ew.float()).to(q.dtype)
+            want = fa.flash_rowbias_fwd_plain(q, k, v, relh, relw, w,
+                                              *((eh, ew) if kind == "relpos" else ()))
 
-            def parent(lib):
-                dq_acc = torch.zeros(bh, n, d, device=dev)
-                drel = torch.zeros(bh, n, 2 * side, device=dev)
-                delta = torch.empty(bh, n, device=dev)
-                dk, dv = torch.empty_like(k), torch.empty_like(v)
-                fn = getattr(lib, f"iuvl_{kind}_bwd")
-                assert fn(*ptr(*ins, delta, dq_acc, drel, dk, dv), bh, n, d, side, side,
-                          stream()) == 0
-                return (dq_acc.to(torch.bfloat16), dk, dv, drel[..., :side].to(torch.bfloat16),
-                        drel[..., side:].to(torch.bfloat16))
+            nz = (fa.expander_groups(eh, ew),) if kind == "relpos" else ()
 
-            got, again, want = kern(*a), kern(*a), plain(*a)
+            def parent(lib=lib, extra=()):
+                o = torch.empty_like(v)
+                lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
+                assert getattr(lib, f"iuvl_{kind}_fwd")(*ptr(*ins, *extra, o, lse), bh, n, d, h,
+                                                        w, stream()) == 0
+                return o, lse
+
+            got, again, par = new(), new(), parent()
             errs = [rel(x, y) for x, y in zip(got, want)]
+            e_par = [rel(x, y) for x, y in zip(par, want)]
             same = all(torch.equal(x, y) for x, y in zip(got, again))
-            e_par = [rel(x, y) for x, y in zip(parent(libs["rowbias"]), want)]
-            if not all(e <= 1e-3 for e in errs) or not same:
-                bad.append(f"{kind}_bwd@{tag} rel_l2 {errs}, bit-equal {same}")
-            times = {"ms": ms(lambda: kern(*a)), "parent": ms(lambda: parent(libs["rowbias"]))}
-            if "rowbias_stores" in libs:
-                times["parent, atomics as stores"] = ms(lambda: parent(libs["rowbias_stores"]))
-            times["plain"] = ms(lambda: plain(*a), 5)
-            print(f"{kind}_bwd@{tag}: rel_l2 dq dk dv drelh drelw "
-                  + " ".join(f"{e:.3e}" for e in errs) + " (parent "
-                  + " ".join(f"{e:.3e}" for e in e_par) + f"); two launches bit-equal {same}; "
-                  + ", ".join(f"{key} {val:.4f}" for key, val in times.items()), flush=True)
-            print(f"{kind}_bwd@{tag} device ms a call: {profile(lambda: kern(*a))}", flush=True)
+            if not (errs[0] <= 1e-2 and errs[1] <= 1e-5) or not same:
+                bad.append(f"{kind}_fwd@{tag} rel_l2 o, lse {errs}, bit-equal {same}")
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            # Where this tree runs the resident kernel, its streaming one too:
+            # parent, this, streaming, streaming, this, parent.
+            resident = n <= 256 and bh >= sms
+            streaming = lambda: parent(stream_lib, nz)  # noqa: E731
+            t_par = [ms(parent)]
+            t_new, t_str = [ms(new)], []
+            if resident:
+                st = streaming()
+                e_st = [rel(x, y) for x, y in zip(st, want)]
+                print(f"{kind}_fwd@{tag} streaming kernel: rel_l2 o {e_st[0]:.3e} lse "
+                      f"{e_st[1]:.3e}; bit-equal to the resident kernel "
+                      f"{all(torch.equal(x, y) for x, y in zip(st, got))}", flush=True)
+                t_str = [ms(streaming), ms(streaming)]
+            t_new.append(ms(new))
+            t_par.append(ms(parent))
+            times = {"ms": sum(t_new) / 2, "parent": sum(t_par) / 2,
+                     **({"streaming": sum(t_str) / 2} if t_str else {}),
+                     "plain": ms(lambda: fa.flash_rowbias_fwd_plain(
+                         q, k, v, relh, relw, w, *((eh, ew) if kind == "relpos" else ())), 5),
+                     "sdpa": ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=1.0))}
+            print(f"{kind}_fwd@{tag} (bh {bh}, N {n}, h {h}, w {w}, d {d}"
+                  f"{', dense' if dense else ''}): rel_l2 o {errs[0]:.3e} lse {errs[1]:.3e} "
+                  f"(parent {e_par[0]:.3e}, {e_par[1]:.3e}); two launches bit-equal {same}; "
+                  f"ms this tree {t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} "
+                  f"{t_par[1]:.4f}; " + ", ".join(f"{key} {val:.4f}" for key, val in times.items()),
+                  flush=True)
+            print(f"{kind}_fwd@{tag} device split, this tree: {kernel_split(new, work)}",
+                  flush=True)
+            print(f"{kind}_fwd@{tag} device split, parent: {kernel_split(parent, work)}",
+                  flush=True)
+            if resident:
+                print(f"{kind}_fwd@{tag} device split, streaming: "
+                      f"{kernel_split(streaming, work)}", flush=True)
+            del bias, want, got, again, par
+        torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
     print("FAILED: " + "; ".join(bad) if bad else "kernel_ab: all within bounds")
     return 1 if bad else 0
