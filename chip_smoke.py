@@ -16,9 +16,12 @@ Phases (any failure raises, so the exit code is non-zero):
    decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
    slots, and again at 48 and 64 slots; B2b and B14, forward and backward,
    and B13 at the windowed shape (300 (window, head) pairs of N 196) and
-   the global one (12 heads of N 4096), each shape a row of its own; B17,
-   which no path runs, at the shape of B7's d_value scatter and at a skewed
-   case). Every output's relative L2 error must stay within its own bound
+   the global one (12 heads of N 4096), each shape a row of its own; B11's
+   forward and backward, each a row, on the augmented q, k of a global
+   block at ViT-B 1024^2 and 800^2 (N 2500: masked last tiles), the
+   forward also at ViT-H's serving shape; B17, which no path runs, at the
+   shape of B7's d_value scatter and at a skewed case). Every output's
+   relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
    rel-pos or PE term dropped, heads, tokens or slots swapped, a wrong lse,
    a reduction that misses its last 16 rows, a tap at the wrong row, the
@@ -26,14 +29,17 @@ Phases (any failure raises, so the exit code is non-zero):
    a point dropped, an index one cell off, weights rounded per point
    instead of per cell, the slot mask dropped, the final attention reading
    keys1, a softmax merge missing a split, B13's relw read from the
-   neighbouring column, a B2b / B14 dq pass that skips the last key tile):
+   neighbouring column, a B2b / B14 / B11 dq pass that skips the last key
+   tile, alpha not applied at a key tile, a dk/dv strip left unwritten,
+   B17's partial sums of a destination that spans blocks dropped):
    each must move some output by more than its bound, and each output's
    bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of the B2b / B14 forward and backward on the same inputs
-   must give the same bits, and B14's expander group words must equal
+   two launches of the B2b / B14 / B11 forward and backward and of B17 on
+   the same inputs must give the same bits, and B14's expander group words must equal
    their plain version's. Times from CUDA events after a warm-up (20 calls at the
-   global shapes of B2b, B14 and B13); for B11, B12, B2b, B14 and B7's
-   gather and scatter also the PyTorch call that
+   global shapes of B2b, B14 and B13); for B11 (SDPA forward, and forward
+   + backward), B12, B2b, B14 and B7's gather and scatter also the
+   PyTorch call that
    computes the same function (timed only, never a path); for B13 SDPA on
    the materialised bias, for B17 ``index_add_``. Then the global-block grad
    switch: the training route (B11 + projection) against the serving route
@@ -193,6 +199,9 @@ KERNEL_BOUNDS = {
     # B17: the same fp32 sums of the same rows, in another order.
     "segmented_scatter_add": {"out": 1e-6},
 }
+# Rows whose bounds are another kernel's (B11's forward and backward: its
+# outputs' bounds).
+BOUNDS_OF = {"flash_attention_fwd": "flash_attention", "flash_attention_bwd": "flash_attention"}
 GRAD_SWITCH_BOUND = 1e-2  # B11 + projection vs B2: two bf16 roundings of one function
 # A bf16 path's distance from the fp32 path: the kernels may be this many
 # times as far off as the plain versions (sound: about 1).
@@ -215,7 +224,9 @@ SOURCES = {  # kernel -> (CUDA source, the TPU function it replaces)
     "i2t_block_step": ("twoway_attention.cu", PALLAS + "twoway_attention.py:163"),
     "window_block_backward": ("window_block_bwd.cu", PALLAS + "window_block.py:273"),
     "block_tail_backward": ("mlp_block_bwd.cu", PALLAS + "mlp_block.py:212"),
-    "flash_attention": ("flash_attention_train.cu", PALLAS + "flash_attention.py:193"),
+    # B11 (flash_attention, :193): its forward with lse and its backward.
+    "flash_attention_fwd": ("flash_attention_train.cu", PALLAS + "flash_attention.py:365"),
+    "flash_attention_bwd": ("flash_attention_train.cu", PALLAS + "flash_attention.py:257"),
     "tap_scatter": ("tap_scatter.cu", PALLAS + "tap_scatter.py:39"),
     # B7: the flat core of the JAX package (XLA, not Pallas), per level.
     "ms_deform_level_fwd": ("msdeform.cu", MSDEFORM + ":489"),  # _flat_level_fwd_impl
@@ -284,22 +295,6 @@ def as_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
 
 
-def flash_fwd_bwd(q, k, v, do):
-    """One call of the B11 wrapper pair, as the global block's training
-    route makes it: forward with lse, then backward."""
-    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
-
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    return (o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do))
-
-
-def flash_fwd_bwd_plain(q, k, v, do):
-    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
-
-    o, lse = fa.flash_attention_fwd_plain(q, k, v)
-    return (o, lse, *fa.flash_attention_bwd_plain(q, k, v, o, lse, do))
-
-
 def decode_tail_valid(*args):
     """B16's wrapper with the tokens cut to the valid slots (the pad slots'
     rows are computed but never read)."""
@@ -312,7 +307,8 @@ def decode_tail_valid(*args):
 RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 # Kernels whose outputs must not change from launch to launch (no atomics).
 DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
-                 "flash_relpos_bwd")
+                 "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
+                 "segmented_scatter_add")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -352,15 +348,20 @@ def _rb_fwd_plain(a):
 
 def _rb_alpha_skipped(a, tile: int = 1):
     """B2b's / B14's forward whose online softmax skips the rescale by
-    alpha = exp(m_old - m_new) at key tile ``tile``: the kernel's one pass
-    (64-key tiles, p = exp(s - m) rounded to bf16 per tile, fp32 sums)
-    with the running sum and output of the tiles before it left as they
-    were where that tile raises a row's max."""
+    alpha at key tile ``tile`` (:func:`_alpha_skipped`)."""
     from iuvl_tpu_torch.ops.rel_pos_attention import rowbias_scores
 
     q, k, v, relh, relw = a[:5]
     eh, ew = (a[5], a[6]) if len(a) == 7 else (None, None)
-    s = rowbias_scores(q, k, relh, relw, relw.shape[-1], eh, ew)
+    return _alpha_skipped(rowbias_scores(q, k, relh, relw, relw.shape[-1], eh, ew), v, tile)
+
+
+def _alpha_skipped(s, v, tile: int = 1):
+    """(o, lse) of a forward on the fp32 scores s whose online softmax skips
+    the rescale by alpha = exp(m_old - m_new) at key tile ``tile``: the
+    kernels' one pass (64-key tiles, p = exp(s - m) rounded to bf16 per
+    tile, fp32 sums) with the running sum and output of the tiles before it
+    left as they were where that tile raises a row's max."""
     m = torch.full_like(s[..., :1], float("-inf"))
     l_ = torch.zeros_like(m)
     acc = torch.zeros(*s.shape[:-1], v.shape[-1], device=s.device)
@@ -527,8 +528,10 @@ def kernels():
         "block_tail_backward": ((mb.block_tail_backward,), mb.block_tail_backward,
                                 mb.block_tail_backward_plain,
                                 ("dxa", "dscale", "dbias", "dw1", "db1", "dw2", "db2")),
-        "flash_attention": ((fa.flash_attention_fwd, fa.flash_attention_bwd), flash_fwd_bwd,
-                            flash_fwd_bwd_plain, ("o", "lse", "dq", "dk", "dv")),
+        "flash_attention_fwd": ((fa.flash_attention_fwd,), fa.flash_attention_fwd,
+                                fa.flash_attention_fwd_plain, ("o", "lse")),
+        "flash_attention_bwd": ((fa.flash_attention_bwd,), fa.flash_attention_bwd,
+                                fa.flash_attention_bwd_plain, ("dq", "dk", "dv")),
         "tap_scatter": ((ts.tap_scatter,), ts.tap_scatter, ts.tap_scatter_plain, ("acc",)),
         "ms_deform_level_fwd": one(md.ms_deform_level_fwd, md.ms_deform_level_fwd_plain),
         "deform_gather_rows": one(md.deform_gather_rows, md.deform_gather_rows_plain, "g4"),
@@ -791,6 +794,90 @@ def rowbias_general_cases(dev):
     return cases
 
 
+def _flash_alpha_skipped(a):
+    """B11's forward whose online softmax skips alpha at key tile 1."""
+    q, k, v = a
+    return _alpha_skipped(q.float() @ k.float().transpose(-1, -2), v)
+
+
+def _flash_wrong_lse(a):
+    """B11's backward given lse + 0.05."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_attention_bwd_plain(*a[:4], a[4] + 0.05, a[5])
+
+
+def _flash_dq_misses_last_key_tile(a):
+    """B11's backward whose dq pass skips the last 64-key tile (the masked
+    one where N % 64 != 0): dq of the plain version without that tile's
+    ds; dk, dv sound."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k, v, o, lse, do = a
+    _, dk, dv = fa.flash_attention_bwd_plain(*a)
+    p = torch.exp(q.float() @ k.float().transpose(-1, -2) - lse.unsqueeze(-1))
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = (p * (do.float() @ v.float().transpose(-1, -2) - delta)).to(q.dtype).float()
+    del p
+    ds[..., (k.shape[-2] - 1) // 64 * 64:] = 0
+    return (ds @ k.float()).to(q.dtype), dk, dv
+
+
+def _flash_strip_unwritten(a):
+    """B11's backward whose dk/dv pass never writes a warp's last 16-key
+    strip (its last N % 16 keys where that is not 0): dk, dv of the plain
+    version, those rows 0."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+
+    dq, dk, dv = (x.clone() for x in fa.flash_attention_bwd_plain(*a))
+    r0 = (dk.shape[-2] - 1) // 16 * 16
+    dk[..., r0:, :] = 0
+    dv[..., r0:, :] = 0
+    return dq, dk, dv
+
+
+def flash_train_cases(t, main, dev):
+    """B11's forward and backward on the rel-pos-augmented q, k of a global
+    block, as its routes hand them: ``main`` (ViT-B 1024^2: 12 heads of N
+    4096, d_qk 192, d_v 64; the training route), ViT-H 1024^2 (16 heads,
+    d_qk 208 padded to 224, d_v 80; the serving route, forward only) and
+    ViT-B 800^2 (N 2500, d_qk 164 padded to 192: masked last tiles); the
+    backward at the plain forward's o and lse with a random cotangent."""
+    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
+    from iuvl_tpu_torch.ops.rel_pos_attention import augment_qk_rel_pos, rel_pos_tables
+
+    cases = []
+    for tag, heads, side, d, bwd in (("vit_b_1024", 12, 64, 64, True),
+                                     ("vit_h_1024", 16, 64, 80, False),
+                                     ("vit_b_800", 12, 50, 64, True)):
+        if tag == "vit_b_1024":
+            q_aug, k_aug, v, do = main
+        else:
+            n = side * side
+            q, k, v = (t(1, heads, n, d) for _ in range(3))
+            rh, rw = rel_pos_tables(t(2 * side - 1, d, std=BIAS_STD),
+                                    t(2 * side - 1, d, std=BIAS_STD), (side, side))
+            q_aug, k_aug = augment_qk_rel_pos(q, k, rh, rw)
+            do = t(1, heads, n, d) if bwd else None
+        cases.append((f"flash_attention_fwd@{tag}", (q_aug, k_aug, v),
+                      {"heads 0/1 swapped in v": _swap(2, 1, 1),
+                       "relh dropped from q_aug": _zero_cols(0, d, d + side),
+                       "alpha not applied at key tile 1": _planted(_flash_alpha_skipped),
+                       "wrong lse (+0.05)": _planted(lambda a: (
+                           lambda o, lse: (o, lse + 0.05))(*fa.flash_attention_fwd_plain(*a)))},
+                      10))
+        if bwd:
+            o, lse = fa.flash_attention_fwd_plain(q_aug, k_aug, v)
+            cases.append((f"flash_attention_bwd@{tag}", (q_aug, k_aug, v, o, lse, do),
+                          {"wrong lse (+0.05)": _planted(_flash_wrong_lse),
+                           "heads 0/1 swapped in do": _swap(5, 1, 1),
+                           "the dq pass skips the last key tile":
+                               _planted(_flash_dq_misses_last_key_tile),
+                           "the last dk/dv strip unwritten": _planted(_flash_strip_unwritten)},
+                          5))
+    return cases
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
@@ -907,10 +994,6 @@ def kernel_cases(rs: np.random.RandomState, dev):
          {"db2 misses the last 16 rows": _tile_missed(6, 2, 16), "LN bias dropped": _zero(4),
           "b1 dropped": _zero(6), "dscale misses the last 16 rows": _tile_missed(1, 2, 16)},
          5),
-        ("flash_attention", flash_train,
-         {"wrong lse (+0.05)": "lse", "heads 0/1 swapped in do": _swap(3, 1, 1),
-          "heads 0/1 swapped in v": _swap(2, 1, 1),
-          "relh dropped from q_aug": _zero_cols(0, d, 2 * d)}, 3),
         ("tap_scatter", scatter,
          {"rows one cell off": _shift(0, 1, span - 1), "taps 0/1 swapped": _swap(1, 2, 1)},
          10),
@@ -935,7 +1018,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # B16 past 32 slots (C3): prompts of 34 and 50 points (40 and 56
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
-        for tp in (48, 64)] + rowbias_general_cases(dev)
+        for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev)
 
 
 # B16's planted faults, at any slot count.
@@ -985,6 +1068,23 @@ def window_cases(t, dev):
     return cases
 
 
+def _seg_span_dropped(a):
+    """B17 dropping the partial sums that pass 2 adds: the plain version
+    without the rows of each first-pass block's first run where that run
+    began in an earlier block (a destination spanning blocks)."""
+    from iuvl_tpu_torch.ops.cuda import seg_scatter as ss
+
+    contrib, idx, n_out = a
+    order = torch.argsort(idx, stable=True)
+    key = idx[order]
+    rows_a = ss.block_rows(contrib.shape[1])
+    start = torch.arange(key.numel(), device=key.device) // rows_a * rows_a
+    drop = (start > 0) & (key == key[(start - 1).clamp(min=0)])
+    kept = contrib.clone()
+    kept[order[drop]] = 0
+    return (ss.segmented_scatter_add_plain(kept, idx, n_out),)
+
+
 def seg_scatter_cases(rs, scatter_dv):
     """B17 at the shape of B7's d_value scatter in the batch-2 train step
     (the res3 level's 688,128 (head, query, point) rows of 4 x 64 into the
@@ -1001,7 +1101,9 @@ def seg_scatter_cases(rs, scatter_dv):
             torch.zeros(3000, dtype=torch.int32, device=contrib.device), 512)
     return [(f"segmented_scatter_add@{tag}", args,
              {"misses the last 16 rows": _tile_missed(0, 0, 16),
-              "rows one destination off": _shift(1, 1, args[2] - 1)}, iters)
+              "rows one destination off": _shift(1, 1, args[2] - 1),
+              "a spanning destination's partial sum dropped": _planted(_seg_span_dropped)},
+             iters)
             for tag, args, iters in (("d_value", d_value, 10), ("skewed", skew, 10))]
 
 
@@ -1082,10 +1184,11 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         flops = 22 * nw * n * c * c + 12 * nw * n * n * c
     elif name == "block_tail_backward":
         flops = 10 * args[0].shape[0] * args[0].shape[1] * args[5].shape[0]
-    elif name == "flash_attention":
+    elif name.startswith("flash_attention_"):
+        # Forward: q k^T and p v; backward: s once from the lse, dp, dq, dk, dv.
         b, h, n, dqk = args[0].shape
         dv = args[2].shape[-1]
-        flops = b * h * 2 * n * n * ((dqk + dv) + (3 * dqk + 2 * dv))
+        flops = b * h * 2 * n * n * ((dqk + dv) if name.endswith("_fwd") else (3 * dqk + 2 * dv))
     elif name.startswith(("flash_rowbias", "flash_relpos")):
         # Forward: q k^T and p v, 4 N^2 d a head; backward: s once from the
         # lse, dp, dq, dk, dv, 10 N^2 d. B14's expander products add 2 N^2
@@ -1126,11 +1229,14 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
 
 def library_call(name: str, args):
     """The one PyTorch call that computes the same function, where one
-    exists (timed only): SDPA forward + backward for B11, ``index_add_``
-    for B12. None for the rest: no single call fuses their projections,
-    rel-pos terms, norms or backward."""
-    if name == "flash_attention":
-        q, k, v, do = (a.detach().requires_grad_(i < 3) for i, a in enumerate(args))
+    exists (timed only): SDPA forward, and forward + backward, for B11's
+    forward and backward; ``index_add_`` for B12. None for the rest: no
+    single call fuses their projections, rel-pos terms, norms or backward."""
+    if name == "flash_attention_fwd":
+        return lambda: torch.nn.functional.scaled_dot_product_attention(*args, scale=1.0)
+    if name == "flash_attention_bwd":
+        q, k, v = (a.detach().requires_grad_() for a in args[:3])
+        do = args[5]
 
         def call():
             q.grad = k.grad = v.grad = None
@@ -1220,7 +1326,7 @@ def kernel_phase(dev) -> list[dict]:
     for name, args, faults, iters in kernel_cases(np.random.RandomState(SEED), dev):
         base, _, shape = name.partition("@")  # a kernel checked at two shapes: name@shape
         _, kern, plain, names = table[base]
-        bounds = KERNEL_BOUNDS[base]
+        bounds = KERNEL_BOUNDS[BOUNDS_OF.get(base, base)]
         out = as_tuple(kern(*args))
         torch.cuda.synchronize()
         if base in DETERMINISTIC:
@@ -1260,13 +1366,7 @@ def kernel_phase(dev) -> list[dict]:
         del ref32
         fault_errs = {}
         for fault, plant in faults.items():
-            if plant == "lse":  # B11: the backward given a wrong lse
-                from iuvl_tpu_torch.ops.cuda import flash_attention as fa
-
-                o, lse = fa.flash_attention_fwd_plain(*args[:3])
-                planted = (o, lse + 0.05, *fa.flash_attention_bwd_plain(*args[:3], o,
-                                                                        lse + 0.05, args[3]))
-            elif isinstance(plant, tuple) and plant[0] == "calc":
+            if isinstance(plant, tuple) and plant[0] == "calc":
                 planted = plant[1](args)
             elif isinstance(plant, tuple):
                 _, j, move = plant
@@ -1342,7 +1442,7 @@ def grad_switch_phase(dev) -> None:
         f"(bound {GRAD_SWITCH_BOUND:g}); B2 launches {counts_serve['flash_attention_rowbias_proj']}"
         f" then {counts['flash_attention_rowbias_proj']}, B11 forward "
         f"{fa.flash_attention_fwd.launches}")
-    if not (counts_serve["flash_attention_rowbias_proj"] == 1 and counts["flash_attention"] == 1
+    if not (counts_serve["flash_attention_rowbias_proj"] == 1 and counts["flash_attention_fwd"] == 1
             and counts["flash_attention_rowbias_proj"] == 1):
         raise RuntimeError(f"grad switch: routes not taken as expected: {counts}")
     if not err <= GRAD_SWITCH_BOUND:
@@ -1720,7 +1820,8 @@ def request(r, model, plain, rs, dev, per_request, totals, timing, label="kernel
 # the flat core: the B7 forward once per layer and level (6 x 3), the
 # gather, B8 and the scatter once per layer, level and image.
 PER_STEP = {1: {"window_attention_block": 8, "block_tail": 12, "window_block_backward": 8,
-                "block_tail_backward": 12, "flash_attention": 8, "tap_scatter": 10}}
+                "block_tail_backward": 12, "flash_attention_fwd": 4, "flash_attention_bwd": 4,
+                "tap_scatter": 10}}
 PER_STEP[2] = {**PER_STEP[1], "ms_deform_level_fwd": 18, "deform_gather_rows": 36,
                "deform_bwd_glue_q": 36, "deform_scatter_dv": 36}
 DEFORM_STEP = {k: v for k, v in PER_STEP[2].items() if k not in PER_STEP[1]}
@@ -1917,11 +2018,8 @@ def train_phase(dev, batch: int, steps: int, control: bool, impl: str = "auto") 
 
 def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict,
                         impl: str = "auto") -> None:
-    from iuvl_tpu_torch.ops.cuda import flash_attention as fa
-
     log(f"train step {step} kernels ({impl}): launches "
-        f"{({k: v for k, v in counts.items() if v})} (B11 forward "
-        f"{fa.flash_attention_fwd.launches}, backward {fa.flash_attention_bwd.launches})")
+        f"{({k: v for k, v in counts.items() if v})}")
     for name, got in counts.items():
         want = per_step.get(name, 0)
         if got != want:
@@ -1929,11 +2027,6 @@ def check_step_launches(step: int, counts: dict, totals: dict, per_step: dict,
                                f"expected {want}")
         if name in totals:
             totals[name] += got
-    if impl == "auto" and (fa.flash_attention_fwd.launches != 4
-                           or fa.flash_attention_bwd.launches != 4):
-        raise RuntimeError(f"train step {step}: B11 forward/backward calls "
-                           f"{fa.flash_attention_fwd.launches}/{fa.flash_attention_bwd.launches}"
-                           ", expected 4/4")
 
 
 LOSS_TERMS = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice")
@@ -2111,15 +2204,15 @@ def loss_gate(models: dict, crits: dict, text, batches: list, grad_batches: int 
 # d_qk 128 in training. ViT-B at 800^2: N 2500 (B11 at d_qk 164, masked last
 # tiles; B3 and B10 at T 2500), 16 padded windows.
 SHAPE_CASES = (
-    ("vit_h 1024", "vit_h", 1024, {"window_attention_block": 1, "flash_attention": 1,
+    ("vit_h 1024", "vit_h", 1024, {"window_attention_block": 1, "flash_attention_fwd": 1,
                                    "block_tail": 2}),
     ("vit_b 512", "vit_b", 512, {"window_attention_block": 1,
                                  "flash_attention_rowbias_proj": 1, "block_tail": 2}),
-    ("vit_b 800", "vit_b", 800, {"window_attention_block": 1, "flash_attention": 1,
+    ("vit_b 800", "vit_b", 800, {"window_attention_block": 1, "flash_attention_fwd": 1,
                                  "block_tail": 2}),
 )
-TRAIN_ROUTE = {"window_attention_block": 1, "window_block_backward": 1, "flash_attention": 2,
-               "block_tail": 2, "block_tail_backward": 2}
+TRAIN_ROUTE = {"window_attention_block": 1, "window_block_backward": 1, "flash_attention_fwd": 1,
+               "flash_attention_bwd": 1, "block_tail": 2, "block_tail_backward": 2}
 SHAPE_PATHS = {"kernels": ("auto", torch.bfloat16), "plain_bf16": ("plain", torch.bfloat16),
                "plain_fp32": ("plain", torch.float32)}
 

@@ -1,6 +1,8 @@
 // Register-level tensor-core helpers for the attention kernels that keep
 // their scores in registers (B13 window_attention.cu, the B2b / B14
-// forward and backward in flash_attention_rowbias.cu).
+// forward and backward in flash_attention_rowbias.cu, B11's in
+// flash_attention_train.cu), and the online softmax of a 64-key tile
+// that the forwards share.
 //
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) with its fragments loaded
 // by ldmatrix from padded shared-memory rows. In a warp, lane t holds:
@@ -23,6 +25,8 @@
 
 namespace iuvl {
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -161,6 +165,94 @@ __device__ __forceinline__ void store_strip_rows(bf16* out, const float (&x)[D /
     if (hi < n)
       *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(hi) * D + c) =
           pack_bf16(x[j][2], x[j][3]);
+  }
+}
+
+// s = -inf for the keys past n (the masked last tile).
+__device__ __forceinline__ void mask_past(float (&s)[8][4], int k0, int n) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (k0 + 8 * j + 2 * (lane & 3) + e >= n) s[j][e] = s[j][e + 2] = kNegInf;
+}
+
+// One 64-key tile of the online softmax for the lane's two rows: m, l and
+// the output sums rescaled by alpha = exp(m_old - m_new), s replaced by the
+// unnormalised p = exp(s - m_new) in fp32 (l sums it so; p v rounds it);
+// the exponentials by ex2.approx, or by expf where kExact.
+template <int D, bool kExact = false>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 8][4]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * u], s[j][2 * u + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[u], mx), ml = m_new * kLog2e;
+    const float alpha = kExact ? expf(m[u] - m_new) : ex2((m[u] - m_new) * kLog2e);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * u; e < 2 * u + 2; ++e) {
+        s[j][e] = kExact ? expf(s[j][e] - m_new) : ex2(fmaf(s[j][e], kLog2e, -ml));
+        sum += s[j][e];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[u] = l[u] * alpha + sum;
+    m[u] = m_new;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][2 * u] *= alpha;
+      o[j][2 * u + 1] *= alpha;
+    }
+  }
+}
+
+// o += bf16(p) v over keys [16 p, 16 p + 16) of the key tile Vt (pitch ld),
+// p < pairs: p packed straight into the A operand.
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[8][4],
+                                        const bf16* Vt, int ld, int pairs) {
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp) {
+    if (kp >= pairs) break;
+    uint32_t a[4];
+    acc_to_a(a, p[2 * kp], p[2 * kp + 1]);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t b[4];
+      ldb_cols(b, Vt, ld, dn * 16, kp * 16);  // B[key][c] = V[key][c]
+      mma16816(o[2 * dn], a, b[0], b[1]);
+      mma16816(o[2 * dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o = bf16(acc / l) and lse = m + log l for the strip's rows row0 .. row0 +
+// 15 of one (batch, head); rows past n dropped.
+template <int D>
+__device__ __forceinline__ void store_fwd(bf16* o, float* lse, float (&acc)[D / 8][4],
+                                          const float (&m)[2], const float (&l)[2], int row0,
+                                          int n) {
+  const int lane = threadIdx.x & 31;
+  const float lc[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] / lc[e >> 1];
+  store_strip_rows<D>(o, acc, row0, n);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = row0 + (lane >> 2) + 8 * u;
+      if (row < n) lse[row] = m[u] + logf(lc[u]);
+    }
   }
 }
 

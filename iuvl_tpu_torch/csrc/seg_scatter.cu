@@ -13,53 +13,210 @@
 // that each fall in one 512-row output window, and summed each chunk as a
 // (block, chunk) one-hot matmul on the MXU into the VMEM-resident window,
 // zeroing a window on its first chunk. A one-hot product is wasted work on
-// the card; what carries over is the sort. The wrapper sorts the rows by
-// destination (torch.argsort, as JAX's own argsort runs outside its
-// kernel) and finds each destination's segment [starts[d], starts[d + 1])
-// of the sorted order. Then each block owns kDest consecutive destination
-// rows and, for each, sums its segment's rows in fp32 registers: the
-// threads split as (row lane, 8-column group), 256 / (W / 8) row lanes each
-// reading every lanes-th row of the segment through the sort's permutation
-// in 16-byte pieces; the lanes' sums meet in shared memory and the block writes the
-// output row once. No atomics, no zeroing pass: an empty segment writes
-// zeros. A destination's rows are summed by one block, so a skewed
-// distribution (every row into one destination) serialises on one SM.
+// the card; what carries over is the sort: the wrapper sorts the rows by
+// destination (torch.argsort, stable, as JAX's own argsort runs outside
+// its kernel) and hands the kernel idx and the sorted order; the kernel
+// reads each row's destination through the order itself.
+//
+// The work is split by pieces of the sorted order, not by destination, so
+// that no block sums a long segment alone (every row into one destination
+// is 3000 rows on one SM otherwise). Pass 1: a block takes block_rows
+// consecutive sorted rows (16 a lane group where that fits 1024 rows); its
+// threads split as (lane group, 8-column group), W / 8 threads a lane group
+// covering a row in 16-byte pieces, each lane group summing its own 16 rows
+// in order in fp32 registers. A destination's run of rows that lies inside
+// one lane group's rows is written there; the partial sums of a run that
+// crosses lane groups meet in shared memory and the lane group where the
+// run starts adds them in order and writes the row; a run that crosses the
+// block's end leaves its block's partial sum in a small scratch (two rows
+// a block: the run the block starts with, the run it ends with), and pass
+// 2 adds those in block order for the block where the run starts and
+// writes the row. The destinations between two consecutive sorted rows
+// (the key gaps) are written as zeros by the lane group of the later row;
+// those before the first row and after the last by pass 2, across its
+// grid. Every output row is written once, with no atomics and no zeroing
+// pass, each sum in one fixed order: two launches give the same bits.
 #include "common.cuh"
 
 namespace iuvl {
 namespace {
 
 constexpr int kSThreads = 256;
-constexpr int kDest = 16;  // destination rows a block
+constexpr int kMaxRows = 1024;  // sorted rows a block at most
 
-__global__ void __launch_bounds__(kSThreads) seg_scatter_kernel(
-    const bf16* __restrict__ contrib, const int* __restrict__ order,
-    const int* __restrict__ starts, float* __restrict__ out, int n_out, int width) {
-  __shared__ __align__(16) float part[kSThreads * 8];  // lanes x width: 8 values a thread
-  const int groups = width / 8, lanes = kSThreads / groups;
+// A run's partial sum of 8 columns, as two float4.
+__device__ __forceinline__ void put8(float* dst, const float (&a)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a[0], a[1], a[2], a[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(a[4], a[5], a[6], a[7]);
+}
+
+__device__ __forceinline__ void add8(float (&a)[8], const float* src) {
+  const float4 x = reinterpret_cast<const float4*>(src)[0];
+  const float4 y = reinterpret_cast<const float4*>(src)[1];
+  a[0] += x.x, a[1] += x.y, a[2] += x.z, a[3] += x.w;
+  a[4] += y.x, a[5] += y.y, a[6] += y.z, a[7] += y.w;
+}
+
+// scratch: part[block][2][width] fp32 (0: the partial of the run the block
+// starts with, when it began before the block; 1: of the run it ends with,
+// when that run began in the block and goes past it), then two ints a
+// block: the destination of partial 1 (-1: none) and whether the block's
+// first run also goes past the block.
+__global__ void __launch_bounds__(kSThreads) seg_pass1_kernel(
+    const bf16* __restrict__ contrib, const int* __restrict__ idx,
+    const long long* __restrict__ order, float* __restrict__ out, float* __restrict__ part,
+    int* __restrict__ flags, int rows, int n_out, int width, int block_rows) {
+  __shared__ int skey[kMaxRows + 2];  // skey[1 + i]: the destination of sorted row b0 + i
+  __shared__ int srow[kMaxRows];      // the contrib row of sorted row b0 + i
+  __shared__ __align__(16) float first[kSThreads * 8], last[kSThreads * 8];
+  __shared__ int s_own, s_thru;
+  const int groups = width / 8, lanes = kSThreads / groups, chunk = block_rows / lanes;
   const int lane = threadIdx.x / groups, grp = threadIdx.x % groups;
-  const int d0 = blockIdx.x * kDest;
-  for (int d = d0; d < min(d0 + kDest, n_out); ++d) {
+  const int b0 = blockIdx.x * block_rows, nb = min(block_rows, rows - b0);
+  // The block's rows, and the destinations of the rows just before and
+  // after them (-1 and n_out past either end: no destination equals them).
+  for (int i = threadIdx.x; i < nb; i += kSThreads) {
+    const int r = static_cast<int>(order[b0 + i]);
+    srow[i] = r;
+    skey[1 + i] = idx[r];
+  }
+  if (threadIdx.x == 0) {
+    skey[0] = b0 > 0 ? idx[order[b0 - 1]] : -1;
+    skey[1 + nb] = b0 + nb < rows ? idx[order[b0 + nb]] : n_out;
+    s_own = -1;
+    s_thru = 0;
+  }
+  __syncthreads();
+  const int* key = skey + 1;  // key[-1 .. nb]
+  const int col = grp * 8;
+  const int cs = lane * chunk, ce = min(cs + chunk, nb);
+  // Pass 1a: each lane group sums its rows [cs, ce) run by run.
+  if (cs < ce) {
     float acc[8] = {};
-    const int end = starts[d + 1];
-#pragma unroll 4
-    for (int i = starts[d] + lane; i < end; i += lanes) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          contrib + static_cast<size_t>(order[i]) * width + grp * 8);
-      const bf16* x = reinterpret_cast<const bf16*>(&raw);
+    bool is_first = true;
+    for (int i0 = cs; i0 < ce; i0 += 8) {
+      uint4 raw[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += to_f(x[j]);
+      for (int u = 0; u < 8; ++u)
+        if (i0 + u < ce)
+          raw[u] = *reinterpret_cast<const uint4*>(
+              contrib + static_cast<size_t>(srow[i0 + u]) * width + col);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u;
+        if (i >= ce) break;
+        const int kp = key[i - 1], kc = key[i];
+        if (i > cs && kc != kp) {  // the run of kp ended at row i
+          const bool before = is_first && key[cs - 1] == kp;
+          if (!before) put8(out + static_cast<size_t>(kp) * width + col, acc);
+          else put8(first + lane * width + col, acc);
+          is_first = false;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+        }
+        // Empty destinations between the previous row's and this one's.
+        if (b0 + i > 0)
+          for (int d = kp + 1; d < kc; ++d) {
+            float* o = out + static_cast<size_t>(d) * width + col;
+            reinterpret_cast<float4*>(o)[0] = reinterpret_cast<float4*>(o)[1] =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        const bf16* x = reinterpret_cast<const bf16*>(&raw[u]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += to_f(x[j]);
+      }
     }
-    float4* mine = reinterpret_cast<float4*>(part + lane * width + grp * 8);
-    mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    __syncthreads();
-    for (int c = threadIdx.x; c < width; c += kSThreads) {
-      float s = 0.f;
-      for (int l = 0; l < lanes; ++l) s += part[l * width + c];
-      out[static_cast<size_t>(d) * width + c] = s;
+    const int kl = key[ce - 1];
+    const bool before = is_first && key[cs - 1] == kl, after = key[ce] == kl;
+    if (!before && !after) put8(out + static_cast<size_t>(kl) * width + col, acc);
+    else put8((is_first ? first : last) + lane * width + col, acc);
+  }
+  __syncthreads();
+  // Pass 1b: runs that cross lane groups. Lane group m: its rows [m chunk,
+  // ...); single: one run; before / after: its first / last run goes on
+  // from the previous / into the next rows.
+  const int used = (nb + chunk - 1) / chunk;
+  auto end_of = [&](int m) { return min((m + 1) * chunk, nb); };
+  auto single = [&](int m) { return key[m * chunk] == key[end_of(m) - 1]; };
+  auto after = [&](int m) { return key[end_of(m)] == key[end_of(m) - 1]; };
+  if (lane < used) {
+    const bool before0 = key[cs - 1] == key[cs];
+    // The run this lane group ends with, where it starts here and goes on.
+    if (after(lane) && !(single(lane) && before0)) {
+      float tot[8];
+      const float* mine = (single(lane) ? first : last) + lane * width + col;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tot[j] = mine[j];
+      int m = lane + 1;
+      for (; m < used; ++m) {
+        add8(tot, first + m * width + col);
+        if (!(single(m) && after(m))) break;
+      }
+      const int kl = key[ce - 1];
+      if (m < used) {
+        put8(out + static_cast<size_t>(kl) * width + col, tot);
+      } else {  // goes past the block: pass 2 finishes it
+        put8(part + (static_cast<size_t>(blockIdx.x) * 2 + 1) * width + col, tot);
+        if (grp == 0) s_own = kl;
+      }
     }
-    __syncthreads();  // part is read before the next destination writes it
+    // The run the block starts with, where it began in an earlier block.
+    if (lane == 0 && before0) {
+      float tot[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tot[j] = first[col + j];
+      int m = 0;
+      bool thru = false;
+      while (single(m) && after(m)) {
+        if (m + 1 == used) {
+          thru = true;
+          break;
+        }
+        ++m;
+        add8(tot, first + m * width + col);
+      }
+      put8(part + static_cast<size_t>(blockIdx.x) * 2 * width + col, tot);
+      if (grp == 0) s_thru = thru;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flags[2 * blockIdx.x] = s_own;
+    flags[2 * blockIdx.x + 1] = s_thru;
+  }
+}
+
+// Pass 2: block b < blocks finishes the run its pass-1 block ended with
+// (partial 1, then partial 0 of the blocks it runs through, in order); the
+// whole grid writes zeros for the destinations before the first sorted row
+// and after the last (every row when there are none).
+__global__ void __launch_bounds__(kSThreads) seg_pass2_kernel(
+    const int* __restrict__ idx, const long long* __restrict__ order, float* __restrict__ out,
+    const float* __restrict__ part, const int* __restrict__ flags, int rows, int n_out,
+    int width, int blocks) {
+  const int b = blockIdx.x;
+  if (b < blocks && flags[2 * b] >= 0) {
+    const int dest = flags[2 * b];
+    for (int c = threadIdx.x * 4; c < width; c += kSThreads * 4) {
+      float4 t = *reinterpret_cast<const float4*>(part + (static_cast<size_t>(b) * 2 + 1) * width
+                                                  + c);
+      for (int m = b + 1; m < blocks; ++m) {
+        const float4 x = *reinterpret_cast<const float4*>(part + static_cast<size_t>(m) * 2 *
+                                                          width + c);
+        t.x += x.x, t.y += x.y, t.z += x.z, t.w += x.w;
+        if (!flags[2 * m + 1]) break;
+      }
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(dest) * width + c) = t;
+    }
+  }
+  const int lead = rows > 0 ? idx[order[0]] : n_out;
+  const int tail0 = rows > 0 ? idx[order[rows - 1]] + 1 : n_out;
+  const size_t w4 = width / 4, n_lead = static_cast<size_t>(lead) * w4;
+  const size_t total = n_lead + static_cast<size_t>(n_out - tail0) * w4;
+  for (size_t i = static_cast<size_t>(b) * kSThreads + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * kSThreads) {
+    const size_t at = i < n_lead ? i : i - n_lead + static_cast<size_t>(tail0) * w4;
+    reinterpret_cast<float4*>(out)[at] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -68,17 +225,32 @@ __global__ void __launch_bounds__(kSThreads) seg_scatter_kernel(
 
 using namespace iuvl;
 
-// contrib (R, W) bf16; order (R,) int32, the rows sorted by destination;
-// starts (n_out + 1,) int32, destination d's rows order[starts[d] ..
-// starts[d + 1]); out (n_out, W) fp32, every row written. W % 8 == 0 and
-// W / 8 divides 256.
-extern "C" int iuvl_seg_scatter(const void* contrib, const void* order, const void* starts,
-                                void* out, int rows, int n_out, int width, void* stream) {
-  if (width < 8 || width % 8 || kSThreads % (width / 8) || n_out < 1 || rows < 0)
+// contrib (R, W) bf16; idx (R,) int32 in [0, n_out); order (R,) int64, the
+// rows sorted by destination (stable); out (n_out, W) fp32, every row
+// written; scratch fp32, 2 W + 2 values for each block of block_rows sorted
+// rows (ceil(R / block_rows) blocks). W % 8 == 0, W / 8 divides 256, and
+// block_rows is a multiple of 256 / (W / 8) and at most 1024.
+extern "C" int iuvl_seg_scatter(const void* contrib, const void* idx, const void* order,
+                                void* out, void* scratch, int rows, int n_out, int width,
+                                int block_rows, void* stream) {
+  if (width < 8 || width % 8 || kSThreads % (width / 8) || n_out < 1 || rows < 0 ||
+      block_rows < 1 || block_rows > kMaxRows || block_rows % (kSThreads / (width / 8)))
     return static_cast<int>(cudaErrorInvalidValue);
-  seg_scatter_kernel<<<(n_out + kDest - 1) / kDest, kSThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(contrib), static_cast<const int*>(order),
-      static_cast<const int*>(starts), static_cast<float*>(out), n_out, width);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + block_rows - 1) / block_rows;
+  float* part = static_cast<float*>(scratch);
+  int* flags = reinterpret_cast<int*>(part + static_cast<size_t>(blocks) * 2 * width);
+  const auto* ord = static_cast<const long long*>(order);
+  if (blocks > 0) {
+    seg_pass1_kernel<<<blocks, kSThreads, 0, s>>>(static_cast<const bf16*>(contrib),
+                                                 static_cast<const int*>(idx), ord,
+                                                 static_cast<float*>(out), part, flags, rows,
+                                                 n_out, width, block_rows);
+    if (int err = static_cast<int>(cudaGetLastError())) return err;
+  }
+  const int grid2 = blocks > 64 ? blocks : 64;  // the zeros' rows spread over at least 64
+  seg_pass2_kernel<<<grid2, kSThreads, 0, s>>>(
+      static_cast<const int*>(idx), ord, static_cast<float*>(out), part, flags, rows, n_out,
+      width, blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,7 +74,6 @@ namespace {
 constexpr int kWT = 64;            // key tile; a streaming block's query tile
 constexpr int kWThreads = 128;     // 4 warps, each a 16-row strip
 constexpr int kResidentMax = 256;  // N up to this: one block a (window, head)
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ----------------------------------------------------- relh and relw --
 // rel[bh][q][t][a]: t 0 relh (grid row g = q / w), t 1 relw (grid column g

@@ -9,6 +9,8 @@ plain path the gate compares with).
     python3 tools/grad_spread.py --impl window [--batches 6]
     python3 tools/grad_spread.py --impl rowbias [--batches 16] [--parent _chip/parent] \
         [--data-seed S] [--forward-check]
+    python3 tools/grad_spread.py --impl auto [--batches 16] [--parent _chip/parent] \
+        [--variant NAME=MACRO ...] [--data-seed S] [--forward-check]
 
 ``window``: the kernels ('window': B13); B13's plain version
 ('window_plain', the yardstick); the unfused route's other rounding
@@ -16,16 +18,23 @@ points ('plain'). ``rowbias``: the kernels under 'rowbias' (B2b) and
 'pallas_rp' (B14); with ``--parent``, the same two with a parent tree's
 forward kernel in place of this tree's (its ``flash_attention_rowbias.cu``
 built alone as tools/kernel_ab.py builds it; the backward is this tree's);
-the unfused route's plain version ('plain', the yardstick). Both: the
-control pair (the yardstick's bf16 and fp32 on weights x (1 + 2^-9 u)).
-Each path's masks are scored at the same points, with the first fp32
-path's assignments. ``--data-seed``: every batch drawn from that seed
-instead (a set disjoint from the smoke's). ``--forward-check`` (rowbias):
-first, B2b's and B14's forward on the first batch's own inputs against
-the fp64 function (forward_check). Needs one CUDA card.
+the unfused route's plain version ('plain', the yardstick). ``auto``: the
+kernels under 'auto' (B11 on the global blocks); with ``--parent``, the
+same with a parent tree's B11 (forward and backward) in place of this
+tree's; with each ``--variant``, this tree's B11 source built with that
+-D macro; 'plain' the yardstick. All: the control pair (the yardstick's
+bf16 and fp32 on weights x (1 + 2^-9 u)). Each path's masks are scored at
+the same points, with the first fp32 path's assignments; beside the
+gradient groups, the three loss terms (their 10 layers' values, as
+chip_smoke.py's loss gate reads them) pooled over the batches.
+``--data-seed``: every batch drawn from that seed instead (a set disjoint
+from the smoke's). ``--forward-check``: first, B2b's and B14's forward
+(rowbias) or B11's (auto) on the first batch's own inputs against the
+fp64 function (forward_check, b11_forward_check). Needs one CUDA card.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -48,6 +57,10 @@ from iuvl_tpu_torch.ops.point_sample import given_draws  # noqa: E402
 from iuvl_tpu_torch.train.train_step import split_seg_outputs  # noqa: E402
 
 
+def cs_root() -> Path:
+    return Path(cs.__file__).resolve().parent
+
+
 def parent_forward(lib, kind: str):
     """A stand-in for the wrapper ``flash_{kind}_fwd`` that calls the
     parent's C entry."""
@@ -62,6 +75,80 @@ def parent_forward(lib, kind: str):
         assert err == 0, f"parent iuvl_{kind}_fwd: CUDA error {err}"
         return o, lse
     return fwd
+
+
+def b11_stand_ins(lib) -> dict:
+    """Stand-ins for the B11 wrappers ``flash_attention_fwd`` / ``_bwd``
+    that call a separately built B11 library (a parent's or a variant's)."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def fwd(q, k, v):
+        bh, n, pad = fa._require_flash("b11", q, k, v)
+        qp, kp = fa._pad_last(q, pad), fa._pad_last(k, pad)
+        o = torch.empty_like(v)
+        lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+        err = lib.iuvl_flash_fwd(*(t.data_ptr() for t in (qp, kp, v, o, lse)), bh, n, pad,
+                                 v.shape[-1], stream())
+        assert err == 0, f"iuvl_flash_fwd: CUDA error {err}"
+        return o, lse
+
+    def bwd(q, k, v, o, lse, do):
+        bh, n, pad = fa._require_flash("b11", q, k, v)
+        qp, kp = fa._pad_last(q, pad), fa._pad_last(k, pad)
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+        dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(v)
+        err = lib.iuvl_flash_bwd(*(t.data_ptr() for t in (qp, kp, v, o, lse, do, delta, dq, dk,
+                                                          dv)), bh, n, pad, v.shape[-1], stream())
+        assert err == 0, f"iuvl_flash_bwd: CUDA error {err}"
+        return dq[..., :q.shape[-1]], dk[..., :q.shape[-1]], dv
+
+    fwd.launches = bwd.launches = 0
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+
+
+def b11_forward_check(model, image, text, libs: dict) -> None:
+    """B11's forward on the path's own inputs: every call of the first
+    batch's forward under 'auto' (autograd recording: the training route)
+    recorded, then this tree's kernel, each of ``libs`` (name -> library)
+    and the plain version held against the fp64 function of the same bf16
+    inputs (o: relative L2; lse: relative L2 and largest error), and the
+    share of o's elements whose bits differ from this tree's."""
+    calls, wrapper = [], fa.flash_attention_fwd
+
+    def record(*a):
+        calls.append(tuple(x.detach().clone() for x in a))
+        return wrapper(*a)
+
+    record.launches = 0
+    with torch.enable_grad(), cs._patched(fa, "flash_attention_fwd", record):
+        model.forward_seg(image, text)
+    acc = {}
+    for q, k, v in calls:
+        s = q.double() @ k.double().transpose(-1, -2)
+        ref = (torch.softmax(s, -1) @ v.double(), torch.logsumexp(s, -1))
+        del s
+        outs = {"kernel": fa.flash_attention_fwd(q, k, v),
+                "plain": fa.flash_attention_fwd_plain(q, k, v),
+                **{name: b11_stand_ins(lib)["flash_attention_fwd"](q, k, v)
+                   for name, lib in libs.items()}}
+        for name, out in outs.items():
+            for x, got, want in zip(("o", "lse"), out, ref):
+                e = acc.setdefault(f"{name} {x}", [0.0, 0.0, 0.0])
+                diff = got.double() - want
+                e[0] += float((diff ** 2).sum())
+                e[1] += float((want ** 2).sum())
+                e[2] = max(e[2], float(diff.abs().max()))
+            if name != "kernel":
+                b = acc.setdefault(f"{name} o bits differ from the kernel's", [0, 0])
+                b[0] += int((out[0] != outs["kernel"][0]).sum())
+                b[1] += out[0].numel()
+        del ref, outs
+    print(f"forward check auto (B11), {len(calls)} calls of batch 0 "
+          f"({tuple(calls[0][0].shape)}), rel L2 to the fp64 function: " + "; ".join(
+              f"{name} {e[0] / e[1]:.4e}" if len(e) == 2 else
+              f"{name} {e[0] ** 0.5 / e[1] ** 0.5:.4e} (largest {e[2]:.3e})"
+              for name, e in acc.items()), flush=True)
+    torch.cuda.empty_cache()
 
 
 def exact_forward(q, k, v, relh, relw, eh, ew):
@@ -142,13 +229,16 @@ def forward_check(models: dict, image, text, lib) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--impl", choices=("window", "rowbias"), required=True)
+    ap.add_argument("--impl", choices=("window", "rowbias", "auto"), required=True)
     ap.add_argument("--batches", type=int, default=6)
-    ap.add_argument("--parent", type=Path, help="rowbias: a tree holding the parent's csrc")
+    ap.add_argument("--parent", type=Path,
+                    help="rowbias, auto: a tree holding the parent's csrc")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="auto: NAME=MACRO[,MACRO...], this tree's B11 built with -DMACRO")
     ap.add_argument("--data-seed", type=int,
                     help="draw every batch from this seed (a set disjoint from the smoke's)")
     ap.add_argument("--forward-check", action="store_true",
-                    help="rowbias: hold the forwards to fp64 on the first batch's inputs")
+                    help="hold the forwards to fp64 on the first batch's inputs")
     args = ap.parse_args()
     smi = cs.device_phase()
     dev = torch.device("cuda", 0)
@@ -161,18 +251,33 @@ def main() -> None:
     del base
     yard, fp32 = f"{ref}_bf16", f"{ref}_fp32"
     paths = {fp32: (ref32, weights, None)}  # name -> (config, weights, its fp32 path)
-    patches = {}  # name -> (wrapper, its stand-in)
-    kernels = ("window",) if args.impl == "window" else ("rowbias", "pallas_rp")
+    patches = {}  # name -> {wrapper: its stand-in}
+    kernels = {"window": ("window",), "auto": ("auto",)}.get(args.impl, ("rowbias", "pallas_rp"))
     for impl in kernels:
         paths[impl] = (dataclasses.replace(cfg, attn_impl=impl), weights, fp32)
     lib = None
     if args.parent and args.impl == "rowbias":
         import kernel_ab
 
-        lib = kernel_ab.compile_rowbias(args.parent.resolve(), Path(tempfile.mkdtemp()))
+        lib = kernel_ab.compile_source(args.parent.resolve(), Path(tempfile.mkdtemp()), "rowbias")
         for impl, kind in (("rowbias", "rowbias"), ("pallas_rp", "relpos")):
             paths[f"{impl}_parent_fwd"] = (paths[impl][0], weights, fp32)
-            patches[f"{impl}_parent_fwd"] = (f"flash_{kind}_fwd", parent_forward(lib, kind))
+            patches[f"{impl}_parent_fwd"] = {f"flash_{kind}_fwd": parent_forward(lib, kind)}
+    b11_libs = {}  # auto: name -> a separately built B11 library
+    if args.impl == "auto":
+        import kernel_ab
+
+        work = Path(tempfile.mkdtemp())
+        sigs = {fn: kernel_ab.build.SIGNATURES[fn] for fn in kernel_ab.ENTRIES["flash"]}
+        if args.parent:
+            b11_libs["parent_b11"] = kernel_ab.compile_source(args.parent.resolve(), work, "flash")
+        for spec in args.variant:
+            name, macro = spec.split("=", 1)
+            b11_libs[name] = kernel_ab.compile_source(cs_root(), work, "flash", name, sigs,
+                                                      tuple(macro.split(",")))
+        for name, blib in b11_libs.items():
+            paths[f"auto_{name}"] = (paths["auto"][0], weights, fp32)
+            patches[f"auto_{name}"] = b11_stand_ins(blib)
     paths[yard] = (cfg, weights, fp32)
     if args.impl == "window":
         paths["plain_bf16"] = (dataclasses.replace(cfg, attn_impl="plain"), weights, fp32)
@@ -198,9 +303,13 @@ def main() -> None:
              for _ in range(args.batches - len(data))]
     if args.forward_check and args.impl == "rowbias":
         forward_check(models, data[0][0], text, lib)
+    if args.forward_check and args.impl == "auto":
+        b11_forward_check(models["auto"], data[0][0], text, b11_libs)
     groups = cs.GROUPS
     # pooled rel L2 over the batches: sqrt(sum |g - r|^2) / sqrt(sum |r|^2)
     sq = {name: {g: [0.0, 0.0] for g in groups} for name, (_, _, r) in paths.items() if r}
+    # each path's loss terms, their 10 layers' values a batch
+    loss_vals = {name: {term: [] for term in cs.LOSS_TERMS} for name in paths}
     for i, (image, targets, draws) in enumerate(data):
         grads, assignments = {}, None
         for name, m in models.items():
@@ -208,18 +317,30 @@ def main() -> None:
                                 impl=m.cfg.kernels_impl)
             m.zero_grad(set_to_none=True)
             draw = given_draws(draws)
-            wrapper, stand_in = patches.get(name, ("flash_rowbias_fwd", fa.flash_rowbias_fwd))
-            with cs._patched(fa, wrapper, stand_in):
+            with contextlib.ExitStack() as stack:
+                for wrapper, stand_in in patches.get(name, {}).items():
+                    stack.enter_context(cs._patched(fa, wrapper, stand_in))
                 obj = split_seg_outputs(m.forward_seg(image, text), m.cfg.num_queries)
-            costs, kept = crit.collect_costs(obj, targets, draw, cs.MATCH_POINTS)
-            if assignments is None:  # the first fp32 path's
-                assignments = batched_hungarian(costs)
-            sum(crit.losses_from_assignments(kept, assignments, targets, draw).values()).backward()
+                costs, kept = crit.collect_costs(obj, targets, draw, cs.MATCH_POINTS)
+                if assignments is None:  # the first fp32 path's
+                    assignments = batched_hungarian(costs)
+                losses = crit.losses_from_assignments(kept, assignments, targets, draw)
+                for term in cs.LOSS_TERMS:
+                    loss_vals[name][term] += [float(v.detach()) for k, v in sorted(losses.items())
+                                              if k.startswith(term + "_")]
+                sum(losses.values()).backward()
+            del losses
             grads[name] = {g: torch.cat([p.grad.float().flatten() for n, p in m.named_parameters()
                                          if n.startswith(g) and p.grad is not None])
                            for g in groups}
             m.zero_grad(set_to_none=True)
             torch.cuda.empty_cache()
+        if i == 0:  # the first step's batch alone, as chip_smoke.py's one-batch gate reads it
+            for term in cs.LOSS_TERMS:
+                last = {name: torch.tensor(v[term][-10:]) for name, v in loss_vals.items()}
+                errs = {name: cs.rel_l2(last[name], last[paths[name][2]]) for name in sq}
+                print(f"batch 0 alone, loss {term}: ratio to {yard} " + "; ".join(
+                    f"{name} {e / errs[yard]:.3f}" for name, e in errs.items()), flush=True)
         base = [cs.rel_l2(grads[yard][g], grads[fp32][g]) for g in groups]
         line = []
         for name, acc in sq.items():
@@ -232,6 +353,12 @@ def main() -> None:
         print(f"batch {i}: gradient groups {groups}, rel L2 to fp32 over {yard}'s: "
               + "; ".join(line), flush=True)
         del grads
+    for term in cs.LOSS_TERMS:
+        vec = {name: torch.tensor(v[term], dtype=torch.float64) for name, v in loss_vals.items()}
+        errs = {name: cs.rel_l2(vec[name], vec[paths[name][2]]) for name in sq}
+        print(f"pooled over {len(data)} batches, loss {term}: ratio to {yard} " + "; ".join(
+            f"{name} {e / errs[yard]:.3f}" for name, e in errs.items()) + " (rel L2 "
+            + "; ".join(f"{name} {e:.3e}" for name, e in errs.items()) + ")", flush=True)
     pooled = {name: [(a / b) ** 0.5 for a, b in acc.values()] for name, acc in sq.items()}
     for name, errs in pooled.items():
         print(f"pooled over {len(data)} batches, {name}: rel L2 "

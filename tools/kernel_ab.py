@@ -1,27 +1,41 @@
-"""This tree's B2b / B14 forward against a parent tree's, on one card, in
-one process: build this tree's kernels (printing ptxas's registers and
-spills of the B2b / B14 and B13 kernels), compile the parent's
-``flash_attention_rowbias.cu`` alone with ``nvcc`` (its ptxas summary too),
-then at ViT-B's windowed and global shapes, ViT-H's global shape (d 80) and
-grids that reach the other code paths (a 32 x 32 grid; N 200 and 300 with
-dense random expanders, one of them with h + w = 496) hold each forward
-against the plain version (relative L2 of o and lse), check that two
-launches of this tree's forward give the same bits, time the parent, this
-tree, this tree and the parent in turn (CUDA events, 20 calls after a
-warm-up), the plain version and SDPA on the materialised bias, and split
-one call's device time by kernel with each launch's registers and shared
-memory as the profiler's trace records them. Where this tree runs its
-resident forward (N <= 256, a block an SM or more), a copy of its source
-built with the resident kernel compiled out (IUVL_RB_FWD_NO_RESIDENT) is
-held and timed beside it: the streaming kernel on the same windows.
+"""This tree's kernels against a parent tree's, on one card, in one
+process, one mode a kernel (``--kernels``, any of them in one run):
+
+- ``rowbias``: the B2b / B14 forward. Compile the parent's
+  ``flash_attention_rowbias.cu`` alone with ``nvcc``, then at ViT-B's
+  windowed and global shapes, ViT-H's global shape (d 80) and grids that
+  reach the other code paths (a 32 x 32 grid; N 200 and 300 with dense
+  random expanders, one of them with h + w = 496) hold each forward against
+  the plain version (relative L2 of o and lse), check that two launches of
+  this tree's forward give the same bits, time the parent, this tree, this
+  tree and the parent in turn, the plain version and SDPA on the
+  materialised bias. Where this tree runs its resident forward (N <= 256, a
+  block an SM or more), a copy of its source built with the resident kernel
+  compiled out (IUVL_RB_FWD_NO_RESIDENT) is held and timed beside it.
+- ``flash``: B11 (``flash_attention_train.cu``), forward and backward
+  each, at the global block's training shape (12 heads of N 4096, d_qk 192,
+  d_v 64), ViT-H's serving shape (16 heads, d_qk 208 padded to 224, d_v
+  80) and ViT-B at 800^2 (N 2500, d_qk 164 padded to 192): rel L2 of o,
+  lse and of dq, dk, dv (at the plain forward's o and lse) to the plain
+  version, two launches bit-equal, times in turns, the plain version, SDPA
+  forward and forward + backward (with the kernel names its trace shows).
+- ``seg_scatter``: B17 (``seg_scatter.cu``) at the shape of B7's d_value
+  scatter (688,128 rows of 256 into 131,072) and the skewed case (3000
+  rows of 64, all into row 0 of 512): the whole wrapper of each tree, its
+  sort included, held to the plain version, two launches bit-equal, times
+  in turns, ``index_add_``, the device time of each launch of a call and
+  the host time of one call.
+
+Each mode prints ptxas's registers, shared memory and spills of its kernels
+for both trees and splits one call's device time by kernel with each
+launch's registers and shared memory as torch.profiler's trace records them.
 
     git archive <parent> iuvl_tpu_torch/csrc | tar -x -C _chip/parent
-    set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent 2>&1 \
-        | tee chiprun_out/kernel_ab.log
+    set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent \
+        --kernels flash seg_scatter 2>&1 | tee chiprun_out/kernel_ab.log
 
-The parent's forward entry points must have the signatures PARENT_SIGS
-gives them (``iuvl_relpos_fwd`` without the group-word scratch). Needs one
-CUDA card.
+The parent's entry points must have the signatures PARENT_SIGS gives them.
+Needs one CUDA card.
 """
 
 import argparse
@@ -35,6 +49,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,12 +57,26 @@ sys.path.insert(0, str(ROOT))
 
 from iuvl_tpu_torch.ops.cuda import build  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import seg_scatter as ss  # noqa: E402
 from iuvl_tpu_torch.ops.rel_pos_attention import onehot_expanders  # noqa: E402
 
 P, I = ctypes.c_void_p, ctypes.c_int
 PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
-               "iuvl_relpos_fwd": [P] * 9 + [I] * 5 + [P]}
-KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident")
+               "iuvl_relpos_fwd": [P] * 10 + [I] * 5 + [P],
+               "iuvl_flash_fwd": [P] * 5 + [I] * 4 + [P],
+               "iuvl_flash_bwd": [P] * 10 + [I] * 4 + [P],
+               # the parent's B17: its wrapper hands it the sorted order
+               # (int32) and each destination's segment start.
+               "iuvl_seg_scatter": [P] * 4 + [I] * 3 + [P]}
+SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
+          "seg_scatter": "seg_scatter.cu"}
+ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
+           "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",)}
+# ptxas lines of these kernels (by name) are printed, and of B11 only the
+# instantiations on the path.
+KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
+           "seg_scatter", "seg_pass")
+FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
 # streaming), N 200 and 300 with dense expanders (h + w 33 and 496; 12 and
@@ -87,31 +116,34 @@ def ptxas_summary(log: str, label: str) -> None:
                 name = subprocess.run([demangle, name], capture_output=True,
                                       text=True).stdout.strip()
                 name = re.sub(r"iuvl::\(anonymous namespace\)::", "", name).split("(")[0]
-        elif name and any(k in name for k in KERNELS) and ("registers" in line or "spill" in line):
+        elif (name and any(k in name for k in KERNELS)
+              and ("flash_" not in name or any(i in name for i in FLASH_PATH))
+              and ("registers" in line or "spill" in line)):
             print(f"ptxas {label} {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def compile_rowbias(tree: Path, work: Path, label: str = "parent", sigs=None, defines=()):
-    """A tree's flash_attention_rowbias.cu alone as a shared library (the
-    parent's by default; ``defines``: -D macros), its forward entries typed
-    by ``sigs`` (PARENT_SIGS by default)."""
+def compile_source(tree: Path, work: Path, kind: str, label: str = "parent", sigs=None,
+                   defines=()):
+    """A tree's source of ``kind`` (SOURCE) alone as a shared library (the
+    parent's by default; ``defines``: -D macros), its entries typed by
+    ``sigs`` (PARENT_SIGS by default); prints its ptxas summary."""
     csrc = tree / "iuvl_tpu_torch/csrc"
-    out = work / f"{label}_rowbias.so"
+    out = work / f"{label}_{kind}.so"
     proc = subprocess.run(
         [build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", *(f"-D{m}" for m in defines),
-         "-I", str(csrc), "-o", str(out), str(csrc / "flash_attention_rowbias.cu")],
+         "-I", str(csrc), "-o", str(out), str(csrc / SOURCE[kind])],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{label} build: {proc.stderr[-4000:]}")
-    if label == "parent":
+    if label != "stream":
         ptxas_summary(proc.stderr, label)
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in (sigs or PARENT_SIGS).items():
+    sigs = sigs or {fn: PARENT_SIGS[fn] for fn in ENTRIES[kind]}
+    for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
     return lib
-
 
 
 def kernel_split(fn, work: Path, calls=5) -> str:
@@ -141,37 +173,52 @@ def kernel_split(fn, work: Path, calls=5) -> str:
                      for name, r in rows.items())
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", type=Path, required=True,
-                    help="a tree holding the parent's iuvl_tpu_torch/csrc")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_ab: needs a CUDA card", file=sys.stderr)
-        return 1
+GEN = None  # the run's seeded CUDA generator (main)
+
+
+def t(*shape, std=1.0):
+    return (torch.randn(*shape, device="cuda", generator=GEN) * std).to(torch.bfloat16)
+
+
+def stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(*ts):
+    return [x.data_ptr() for x in ts]
+
+
+def in_turns(parent, this) -> tuple[list, list]:
+    """Times of parent, this, this, parent (ms a call)."""
+    t_par = [ms(parent)]
+    t_new = [ms(this), ms(this)]
+    t_par.append(ms(parent))
+    return t_par, t_new
+
+
+def host_ms(fn, calls=50) -> float:
+    """Host ms to issue one call (the enqueue, back to back, not synchronised
+    until the end)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    work = Path(tempfile.mkdtemp())
-    build.library()
-    lib = compile_rowbias(args.parent.resolve(), work)
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def rowbias_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """The B2b / B14 forward (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "rowbias")
     # This tree with the resident forward compiled out: the streaming kernel
     # on the windows, to time against the resident one.
-    stream_lib = compile_rowbias(ROOT, work, "stream", {
-        fn: build.SIGNATURES[fn] for fn in PARENT_SIGS}, ("IUVL_RB_FWD_NO_RESIDENT",))
+    stream_lib = compile_source(ROOT, work, "rowbias", "stream", {
+        fn: build.SIGNATURES[fn] for fn in ENTRIES["rowbias"]}, ("IUVL_RB_FWD_NO_RESIDENT",))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"build {time.perf_counter() - t0:.1f} s")
-    ptxas_summary((build.BUILD_DIR / "ptxas.log").read_text(), "this tree")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    ptr = lambda *ts: [x.data_ptr() for x in ts]  # noqa: E731
-
-    def t(*shape, std=1.0):
-        return (torch.randn(*shape, device=dev, generator=gen) * std).to(torch.bfloat16)
-
-    bad = []
     for tag, bh, n, h, w, d, dense in SHAPES:
         q, k, v = (t(1, bh, n, d) for _ in range(3))
         q = q * d ** -0.5
@@ -196,7 +243,7 @@ def main() -> int:
 
             nz = (fa.expander_groups(eh, ew),) if kind == "relpos" else ()
 
-            def parent(lib=lib, extra=()):
+            def parent(lib=lib, extra=nz):
                 o = torch.empty_like(v)
                 lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
                 assert getattr(lib, f"iuvl_{kind}_fwd")(*ptr(*ins, *extra, o, lse), bh, n, d, h,
@@ -245,6 +292,185 @@ def main() -> int:
                       f"{kernel_split(streaming, work)}", flush=True)
             del bias, want, got, again, par
         torch.cuda.empty_cache()
+
+
+# B11's shapes: (tag, heads, N, d_qk, d_v): the global block's training
+# route at ViT-B 1024^2, ViT-H's serving route at 1024^2, ViT-B at 800^2.
+FLASH_SHAPES = (("main", 12, 4096, 192, 64), ("vit_h", 16, 4096, 208, 80),
+                ("n2500", 12, 2500, 164, 64))
+
+
+# This tree's B11 source built again with these -D macros (the backward
+# passes' pieces a tile; ex2.approx for expf): its forward and backward
+# held (the pieces: bit-equal expected) and timed beside this tree's.
+FLASH_VARIANTS = (("sub1", ("IUVL_FLASH_DQ_SUB=1", "IUVL_FLASH_DKV_SUB=1")),
+                  ("sub2", ("IUVL_FLASH_DQ_SUB=2", "IUVL_FLASH_DKV_SUB=2")),
+                  ("approx_exp", ("IUVL_FLASH_EXACT_EXP=0",)))
+
+
+def flash_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B11's forward and backward (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "flash")
+    variants = {name: compile_source(ROOT, work, "flash", name, {
+        fn: build.SIGNATURES[fn] for fn in ENTRIES["flash"]}, macros)
+        for name, macros in FLASH_VARIANTS}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, bh, n, d_qk, d_v in FLASH_SHAPES:
+        q, k = t(1, bh, n, d_qk, std=d_qk ** -0.25), t(1, bh, n, d_qk, std=d_qk ** -0.25)
+        v, do = t(1, bh, n, d_v), t(1, bh, n, d_v)
+        _, _, pad = fa._require_flash("kernel_ab", q, k, v)
+        qp, kp = fa._pad_last(q, pad), fa._pad_last(k, pad)
+
+        def par_fwd(lib=lib):
+            o = torch.empty_like(v)
+            lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+            assert lib.iuvl_flash_fwd(*ptr(qp, kp, v, o, lse), bh, n, pad, d_v, stream()) == 0
+            return o, lse
+
+        o, lse = fa.flash_attention_fwd_plain(q, k, v)
+
+        def par_bwd(lib=lib):
+            delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+            dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(v)
+            assert lib.iuvl_flash_bwd(*ptr(qp, kp, v, o, lse, do, delta, dq, dk, dv), bh, n,
+                                      pad, d_v, stream()) == 0
+            return dq[..., :d_qk], dk[..., :d_qk], dv
+
+        new_fwd = lambda: fa.flash_attention_fwd(q, k, v)  # noqa: E731
+        new_bwd = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            with torch.enable_grad():
+                sdpa(qg, kg, vg, scale=1.0).backward(do)
+
+        for half, new, par, plain, names in (
+                ("fwd", new_fwd, par_fwd, lambda: (o, lse), ("o", "lse")),
+                ("bwd", new_bwd, par_bwd,
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), ("dq", "dk", "dv"))):
+            want = plain()
+            got, again, pgot = new(), new(), par()
+            errs = [rel(x, y) for x, y in zip(got, want)]
+            e_par = [rel(x, y) for x, y in zip(pgot, want)]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            bounds = (5e-3, 1e-5) if half == "fwd" else (5e-3, 5e-3, 1e-3)
+            if not all(e <= b_ for e, b_ in zip(errs, bounds)) or not same:
+                bad.append(f"flash_{half}@{tag} rel_l2 {dict(zip(names, errs))}, bit-equal {same}")
+            t_par, t_new = in_turns(par, new)
+            lib_ms = ms(lambda: sdpa(q, k, v, scale=1.0)) if half == "fwd" else ms(sdpa_fwd_bwd)
+            plain_ms = ms(lambda: fa.flash_attention_fwd_plain(q, k, v) if half == "fwd"
+                          else fa.flash_attention_bwd_plain(q, k, v, o, lse, do), 3)
+            print(f"flash_{half}@{tag} (bh {bh}, N {n}, d_qk {d_qk} -> {pad}, d_v {d_v}): rel_l2 "
+                  + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, errs))
+                  + " (parent " + ", ".join(f"{e:.3e}" for e in e_par)
+                  + f"); two launches bit-equal {same}; ms this tree {t_new[0]:.4f} "
+                  f"{t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
+                  f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; plain {plain_ms:.4f}; "
+                  f"SDPA {'fwd' if half == 'fwd' else 'fwd+bwd'} {lib_ms:.4f}", flush=True)
+            vfn = par_fwd if half == "fwd" else par_bwd
+            for name, vlib in variants.items():
+                var = lambda vlib=vlib: vfn(vlib)  # noqa: E731
+                vsame = all(torch.equal(x, y) for x, y in zip(var(), got))
+                print(f"flash_{half}@{tag} variant {name}: bit-equal to this tree {vsame}; ms "
+                      f"{ms(var):.4f} (this tree {ms(new):.4f}); device split "
+                      f"{kernel_split(var, work)}", flush=True)
+            print(f"flash_{half}@{tag} device split, this tree: {kernel_split(new, work)}",
+                  flush=True)
+            print(f"flash_{half}@{tag} device split, parent: {kernel_split(par, work)}",
+                  flush=True)
+            sd = (lambda: sdpa(q, k, v, scale=1.0)) if half == "fwd" else sdpa_fwd_bwd
+            print(f"flash_{half}@{tag} device split, SDPA: {kernel_split(sd, work)}", flush=True)
+            del want, got, again, pgot
+        del q, k, v, do, qp, kp, o, lse, qg, kg, vg
+        torch.cuda.empty_cache()
+
+
+def seg_cases(dev):
+    """B17's two cases, as chip_smoke.py seg_scatter_cases builds them: the
+    d_value scatter's destinations (8 heads x the 21504 queries of the three
+    levels x 4 points at the res3 level, 128^2, sampling within a few
+    pixels of the reference points) with random rows, and the skewed case."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+
+    rs = np.random.RandomState(0)
+    nh, side, pts = 8, 128, 4
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]
+    jitter = torch.from_numpy(rs.randn(nh, ref.shape[0], pts, 2).astype(np.float32)
+                              * 2.5).to(dev)
+    xy = ref[None, :, None, :] * side - 0.5 + jitter
+    idx, _ = wide_idx_wslot(side, side, xy[..., 0], xy[..., 1])
+    hw = side * side
+    dest = (idx.long() + torch.arange(nh, device=dev).view(nh, 1, 1) * hw).reshape(-1)
+    return (("d_value", t(dest.numel(), 256), dest.to(torch.int32), nh * hw),
+            ("skewed", t(3000, 64), torch.zeros(3000, dtype=torch.int32, device=dev), 512))
+
+
+def seg_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B17, the whole wrapper of each tree (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "seg_scatter")
+    for tag, contrib, idx, n_out in seg_cases(torch.device("cuda")):
+        (rows, width), dev = contrib.shape, contrib.device
+
+        def parent():  # the parent's wrapper, its sort and segment search included
+            order = torch.argsort(idx, stable=True).to(torch.int32)
+            bounds = torch.arange(n_out + 1, device=dev, dtype=torch.int32)
+            starts = torch.searchsorted(idx[order.long()], bounds).to(torch.int32)
+            out = torch.empty((n_out, width), dtype=torch.float32, device=dev)
+            assert lib.iuvl_seg_scatter(*ptr(contrib, order, starts, out), rows, n_out, width,
+                                        stream()) == 0
+            return out
+
+        new = lambda: ss.segmented_scatter_add(contrib, idx, n_out)  # noqa: E731
+        want = ss.segmented_scatter_add_plain(contrib, idx, n_out)
+        got, again, pgot = new(), new(), parent()
+        err, e_par = rel(got, want), rel(pgot, want)
+        same = torch.equal(got, again)
+        if not err <= 1e-6 or not same:
+            bad.append(f"seg_scatter@{tag} rel_l2 {err:.3e}, bit-equal {same}")
+        t_par, t_new = in_turns(parent, new)
+        zeros = lambda: torch.zeros((n_out, width), device=dev).index_add_(  # noqa: E731
+            0, idx, contrib.float())
+        print(f"seg_scatter@{tag} ({rows} rows of {width} into {n_out}): rel_l2 {err:.3e} "
+              f"(parent {e_par:.3e}); two launches bit-equal {same}; ms this tree "
+              f"{t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
+              f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; index_add_ {ms(zeros):.4f}; "
+              f"host ms a call: this {host_ms(new):.4f} parent {host_ms(parent):.4f} "
+              f"index_add_ {host_ms(zeros):.4f}", flush=True)
+        print(f"seg_scatter@{tag} device split, this tree: {kernel_split(new, work)}", flush=True)
+        print(f"seg_scatter@{tag} device split, parent: {kernel_split(parent, work)}", flush=True)
+        print(f"seg_scatter@{tag} device split, index_add_: {kernel_split(zeros, work)}",
+              flush=True)
+        del got, again, pgot, want
+    torch.cuda.empty_cache()
+
+
+MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab}
+
+
+def main() -> int:
+    global GEN
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="a tree holding the parent's iuvl_tpu_torch/csrc")
+    ap.add_argument("--kernels", nargs="+", choices=sorted(MODES), default=["rowbias"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp())
+    build.library()
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    ptxas_summary((build.BUILD_DIR / "ptxas.log").read_text(), "this tree")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    GEN = torch.Generator(device="cuda").manual_seed(0)
+    bad = []
+    for mode in args.kernels:
+        MODES[mode](args.parent.resolve(), work, bad)
     shutil.rmtree(work, ignore_errors=True)
     print("FAILED: " + "; ".join(bad) if bad else "kernel_ab: all within bounds")
     return 1 if bad else 0
