@@ -161,7 +161,8 @@ KERNEL_BOUNDS = {
                               "dbo": 1e-5, "drh": 5e-4, "drw": 5e-4},
     "block_tail_backward": {"dxa": 1e-3, "dscale": 5e-4, "dbias": 5e-4, "dw1": 5e-4,
                             "db1": 5e-4, "dw2": 5e-4, "db2": 1e-5},
-    # fp32 atomics: colliding rows add in no fixed order.
+    # The kernel adds each cell's rows in row order; the plain version's
+    # index_put_ adds colliding rows in its own order.
     "tap_scatter": {"acc": 1e-6},
     # dq, dk inherit the forward's rounding of o through delta = rowsum(do o).
     "flash_attention": {"o": 5e-3, "lse": 1e-5, "dq": 5e-3, "dk": 5e-3, "dv": 1e-3},
@@ -308,7 +309,7 @@ RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 # Kernels whose outputs must not change from launch to launch (no atomics).
 DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
-                 "segmented_scatter_add")
+                 "segmented_scatter_add", "i2t_block_step", "tap_scatter")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -930,6 +931,13 @@ def kernel_cases(rs: np.random.RandomState, dev):
     base, wgts, _, span = _tap_weights(256, 256, coords, f32)
     scatter = (base.to(torch.int32).contiguous(),
                (t(N_TARGETS, MATCH_POINTS, 1, dtype=f32) * wgts).contiguous(), span)
+    # B12 skewed: the same points drawn within about a pixel of the maps'
+    # centre, so that hundreds of rows hit one cell.
+    coords = torch.from_numpy((0.5 + rs.randn(N_TARGETS, MATCH_POINTS, 2) / 256)
+                              .astype(np.float32)).to(dev)
+    base, wgts, _, _ = _tap_weights(256, 256, coords, f32)
+    scatter_skew = (base.to(torch.int32).contiguous(),
+                    (t(N_TARGETS, MATCH_POINTS, 1, dtype=f32) * wgts).contiguous(), span)
     # B7 and B8 at the res3 level (128^2) of the batch-2 train step: 8 heads
     # of 64, the 21504 queries of all three levels x 4 points, sampling within
     # a few pixels of their reference points (as the compass-grid offsets do);
@@ -982,9 +990,8 @@ def kernel_cases(rs: np.random.RandomState, dev):
         ("t2i_stream", t2i,
          {"bv dropped": _zero(6), "pe_wk dropped": _zero(2),
           "heads 0/1 swapped in q": _swap(0, 2, 16)}, 10),
-        ("i2t_block_step", i2t,
-         {"bq dropped": _zero(5), "bo dropped": _zero(7), "pe_wq dropped": _zero(1),
-          "LN bias dropped": _zero(9), "heads 0/1 swapped in kp": _swap(2, 2, 16)}, 10),
+        ("i2t_block_step", i2t, I2T_FAULTS, 10),
+    ] + i2t_cases(t, i2t) + [
         ("window_block_backward", win_bwd,
          {"rel-pos branch dropped": lambda a: a[:5] + (torch.zeros_like(rh),
                                                         torch.zeros_like(rw)) + a[7:],
@@ -994,9 +1001,9 @@ def kernel_cases(rs: np.random.RandomState, dev):
          {"db2 misses the last 16 rows": _tile_missed(6, 2, 16), "LN bias dropped": _zero(4),
           "b1 dropped": _zero(6), "dscale misses the last 16 rows": _tile_missed(1, 2, 16)},
          5),
-        ("tap_scatter", scatter,
-         {"rows one cell off": _shift(0, 1, span - 1), "taps 0/1 swapped": _swap(1, 2, 1)},
-         10),
+    ] + [(name, args, {"rows one cell off": _shift(0, 1, span - 1),
+                       "taps 0/1 swapped": _swap(1, 2, 1)}, 10)
+         for name, args in (("tap_scatter", scatter), ("tap_scatter@skewed", scatter_skew))] + [
         ("ms_deform_level_fwd", deform_fwd,
          {"slot 2 at offset w - 1": _wrong_wrap(md.ms_deform_level_fwd_plain),
           "validity mask dropped": _no_validity(md.ms_deform_level_fwd_plain)}, 10),
@@ -1019,6 +1026,32 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
         for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev)
+
+
+# B5's planted faults; the last one at the prompt's last token (past 16
+# tokens in the T 26 and T 64 cases).
+I2T_FAULTS = {"bq dropped": _zero(5), "bo dropped": _zero(7), "pe_wq dropped": _zero(1),
+              "LN bias dropped": _zero(9), "heads 0/1 swapped in kp": _swap(2, 2, 16),
+              "the last token's vp zeroed": lambda a: a[:3] + (_last_token_zeroed(a[3]),) + a[4:]}
+
+
+def _last_token_zeroed(vp):
+    vp = vp.clone()
+    vp[:, -1] = 0
+    return vp
+
+
+def i2t_cases(t, main):
+    """B5 past the kernel phase's case (256 prompts of 7 tokens on per-prompt
+    keys): block 0's call (keys batch 1, one image embedding for every
+    prompt), and per-prompt keys at T 26 (a 20-click prompt) and T 64."""
+    keys, pe, kp, vp = main[:4]
+    cases = [("i2t_block_step@batch1_t7", (keys[:1].contiguous(),) + main[1:], 10)]
+    for tok in (26, 64):
+        cases.append((f"i2t_block_step@t{tok}",
+                      (keys, pe, t(CHUNK, tok, kp.shape[-1]), t(CHUNK, tok, vp.shape[-1]))
+                      + main[4:], 5))
+    return [(name, args, I2T_FAULTS, iters) for name, args, iters in cases]
 
 
 # B16's planted faults, at any slot count.
@@ -1099,12 +1132,26 @@ def seg_scatter_cases(rs, scatter_dv):
     skew = (torch.from_numpy(rs.randn(3000, 64).astype(np.float32)).to(contrib.device,
                                                                         torch.bfloat16),
             torch.zeros(3000, dtype=torch.int32, device=contrib.device), 512)
+    # C4: the widths and dtypes of JAX's function that the first kernel
+    # refused (random rows into random destinations).
+    widths = []
+    for width, dtype, rows, n_out in SEG_WIDTHS:
+        contrib = torch.from_numpy(rs.randn(rows, width).astype(np.float32)).to(
+            skew[0].device, dtype)
+        idx = torch.from_numpy(rs.randint(0, n_out, rows).astype(np.int32)).to(skew[0].device)
+        widths.append((f"w{width}_{str(dtype).split('.')[-1]}", (contrib, idx, n_out), 10))
     return [(f"segmented_scatter_add@{tag}", args,
              {"misses the last 16 rows": _tile_missed(0, 0, 16),
               "rows one destination off": _shift(1, 1, args[2] - 1),
               "a spanning destination's partial sum dropped": _planted(_seg_span_dropped)},
              iters)
-            for tag, args, iters in (("d_value", d_value, 10), ("skewed", skew, 10))]
+            for tag, args, iters in [("d_value", d_value, 10), ("skewed", skew, 10)] + widths]
+
+
+# (W, dtype, rows, n_out) of the C4 cases.
+SEG_WIDTHS = ((96, torch.bfloat16, 131072, 32768), (768, torch.bfloat16, 65536, 16384),
+              (256, torch.float32, 131072, 32768), (256, torch.float16, 131072, 32768),
+              (97, torch.float32, 131072, 32768))
 
 
 def _fp32(a):
@@ -1176,9 +1223,11 @@ def work(name: str, args, outs) -> tuple[float, float, str]:
         pk, n, cd = args[1].shape
         flops = 4 * pk * n * cd * i + 4 * p * tok * n * i
     elif name == "i2t_block_step":
-        p, n, cd = args[0].shape
-        tok, i = args[2].shape[1:]
-        flops = 4 * p * n * cd * i + 4 * p * n * tok * i
+        # The q-projection once a keys batch (once with batch-1 keys), the
+        # out-projection and the attention a prompt.
+        pk, n, cd = args[0].shape
+        p, tok, i = args[2].shape
+        flops = 2 * (pk + p) * n * cd * i + 4 * p * n * tok * i
     elif name == "window_block_backward":
         nw, n, c = args[0].shape
         flops = 22 * nw * n * c * c + 12 * nw * n * n * c

@@ -60,6 +60,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The current device's SM count and shared memory (an SM's, and a block's
+// opt-in limit), read once a device.
+struct DeviceInfo {
+  int sms, smem_per_sm, smem_per_block;
+};
+inline DeviceInfo device_info() {
+  static DeviceInfo info[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  DeviceInfo& d = info[dev & 63];
+  if (d.sms == 0) {
+    cudaDeviceGetAttribute(&d.smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&d.smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return d;
+}
+
 // Set the dynamic shared-memory limit and launch; returns cudaGetLastError().
 template <typename Kernel, typename... Args>
 int launch_kernel(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {

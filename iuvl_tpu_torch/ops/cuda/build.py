@@ -64,7 +64,7 @@ SIGNATURES = {
     "iuvl_rowbias_bwd": (P,) * 16 + (I,) * 5 + (P,),
     "iuvl_relpos_bwd": (P,) * 17 + (I,) * 5 + (P,),
     "iuvl_window_attention": (P,) * 7 + (I,) * 4 + (F, P),
-    "iuvl_seg_scatter": (P,) * 5 + (I,) * 4 + (P,),
+    "iuvl_seg_scatter": (P,) * 5 + (I,) * 5 + (P,),
 }
 
 

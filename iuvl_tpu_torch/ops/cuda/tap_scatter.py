@@ -2,7 +2,8 @@
 
 Replaces ``iuvl_tpu/ops/pallas/tap_scatter.py:tap_scatter`` (B12). Kernel:
 ``csrc/tap_scatter.cu``, whose header says what bounds it on the card and
-why it adds with fp32 atomics.
+how one launch writes the whole table, each cell's rows summed in row
+order.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ def tap_scatter_plain(base, rows, span: int):
 
 def tap_scatter(base, rows, span: int):
     """Tap scatter: the CUDA kernel for CUDA tensors (int32 base, fp32 rows
-    of 4 lanes), the plain version for CPU tensors. Arguments as
+    of 4 lanes; one launch writes every cell, two launches the same bits),
+    the plain version for CPU tensors. Arguments as
     :func:`tap_scatter_plain`."""
     if base.device.type == "cpu":
         return tap_scatter_plain(base, rows, span)
@@ -34,7 +36,7 @@ def tap_scatter(base, rows, span: int):
     dev = base.device
     require("tap_scatter", "base", base, torch.int32, (n, p), dev)
     require("tap_scatter", "rows", rows, torch.float32, (n, p, 4), dev)
-    acc = torch.zeros((n, span, 4), dtype=torch.float32, device=dev)
+    acc = torch.empty((n, span, 4), dtype=torch.float32, device=dev)
     launch("iuvl_tap_scatter", dev, base.data_ptr(), rows.data_ptr(), acc.data_ptr(), n, p,
            span)
     tap_scatter.launches += 1

@@ -3,8 +3,9 @@
 Replaces ``iuvl_tpu/ops/pallas/twoway_attention.py``: ``t2i_stream`` (B4,
 token -> image) and ``i2t_block_step`` (B5, image -> token with the
 block's residual and LayerNorm). Kernels: ``csrc/twoway_attention.cu``,
-whose header says what bounds them on the card and why the TPU's
-block-diagonal head packing is not carried over.
+whose header says what bounds them on the card, why the TPU's
+block-diagonal head packing is not carried over, and how B5 keeps its
+step in registers.
 
 Both take the prompt-side tensors unpacked, (B, T, I) with the heads as
 16-wide column slices, and the image keys (Bk, N, C) with Bk 1 (one image
@@ -20,6 +21,7 @@ from .build import launch, require
 
 C, I, HEADS = 256, 128, 8
 LN_EPS = 1e-5
+I2T_MAX_TOKENS = 64  # a prompt's tokens that B5's kernel holds in shared memory
 
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -96,17 +98,18 @@ def i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads:
 def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
     """Image -> token block step (attention, out-projection, residual,
     LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
-    (bf16, C 256, I 128, 8 heads, any T, N % 32 == 0; LN params fp32), the
-    plain version for CPU tensors."""
+    (bf16, C 256, I 128, 8 heads, 1 <= T <= 64, N % 32 == 0; LN params
+    fp32), the plain version for CPU tensors."""
     if keys.device.type == "cpu":
         return i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
     b, t, i = kp.shape
     bk_keys, n, c = keys.shape
-    if (c, i, heads) != (C, I, HEADS) or t < 1 or n % 32 or bk_keys not in (1, b):
+    if ((c, i, heads) != (C, I, HEADS) or not 1 <= t <= I2T_MAX_TOKENS or n < 32 or n % 32
+            or bk_keys not in (1, b)):
         raise ValueError(
             f"i2t_block_step kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            "T >= 1, N % 32 == 0)")
+            f"1 <= T <= {I2T_MAX_TOKENS}, N % 32 == 0)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys.device
     args = dict(keys=keys, pe_wq=pe_wq, kp=kp, vp=vp, wq=wq, bq=bq, wo=wo, bo=bo,
                 ln_w=ln_w, ln_b=ln_b)

@@ -246,11 +246,15 @@ def test_t2i_stream_plain_matches_jax_oracle_and_kernel(shared):
         _close(out, merge(jta.t2i_stream(*jargs)))
 
 
-@pytest.mark.parametrize("shared", [True, False], ids=["batch1_keys", "per_prompt_keys"])
-def test_i2t_block_step_plain_matches_jax_oracle_and_kernel(shared):
-    heads, d, per = 2, 8, 8
-    a = _twoway_inputs(shared, seed=9)
-    t = a["kp"].shape[1]
+@pytest.mark.parametrize("shared, t", [
+    pytest.param(True, 5, id="batch1_keys"), pytest.param(False, 5, id="per_prompt_keys"),
+    # Past 16 tokens (a 20-click prompt's 26), where the CUDA kernel holds
+    # the prompt's k and v in more than one 16-token tile.
+    pytest.param(True, 26, id="batch1_keys_t26"), pytest.param(False, 26, id="per_prompt_keys_t26")])
+def test_i2t_block_step_plain_matches_jax_oracle_and_kernel(shared, t):
+    heads, d = 2, 8
+    per = -(-t // 8) * 8  # the packed token slots a head: T rounded up to 8
+    a = _twoway_inputs(shared, t=t, seed=9)
     out = tta.i2t_block_step(*map(_t, (a["keys"], a["pe"], a["kp"], a["vp"], a["wq"].T,
                                        a["bq"], a["wo"].T, a["bo"], a["ln_w"], a["ln_b"])),
                              heads)

@@ -2,8 +2,10 @@
 (``segmented_scatter_add_plain``, and the wrapper, which runs it on CPU
 tensors) against JAX's ``segmented_scatter_add`` with its Pallas kernel in
 interpret mode, at the shapes and tolerances of tests/test_seg_scatter.py:
-three (rows, n_out, block, chunk) cases and the skewed one (every row into
-one destination). Inputs from seeded numpy."""
+three (rows, n_out, block, chunk) cases of 256-wide bf16 rows, rows of
+other widths (96, 768, odd) in fp32 and fp16, which JAX's function takes
+too, and the skewed one (every row into one destination). Inputs from
+seeded numpy."""
 
 from unittest import mock
 
@@ -31,8 +33,10 @@ def interpret_pallas():
 
 def _port(contrib, idx, n_out, block, chunk):
     """(plain version, wrapper on CPU tensors), each summing in its own
-    order (index_put_ with accumulation is not ordered on the CPU)."""
-    c = torch.from_numpy(np.asarray(contrib.astype(jnp.float32))).to(torch.bfloat16)
+    order (index_put_ with accumulation is not ordered on the CPU), on
+    contrib in its own dtype."""
+    dtype = getattr(torch, jnp.dtype(contrib.dtype).name)
+    c = torch.from_numpy(np.asarray(contrib.astype(jnp.float32))).to(dtype)
     i = torch.from_numpy(np.asarray(idx))
     outs = (tss.segmented_scatter_add_plain(c, i, n_out, block=block, chunk=chunk),
             tss.segmented_scatter_add(c, i, n_out, block=block, chunk=chunk))
@@ -40,14 +44,21 @@ def _port(contrib, idx, n_out, block, chunk):
     return [o.numpy() for o in outs]
 
 
-@pytest.mark.parametrize("r,n_out,block,chunk", [
-    (4096, 1024, 256, 128),
-    (5000, 512, 512, 256),   # r not a chunk multiple
-    (700, 2048, 256, 128),   # many empty blocks (must still be zeroed)
+@pytest.mark.parametrize("r,n_out,block,chunk,width,dtype", [
+    pytest.param(4096, 1024, 256, 128, 256, jnp.bfloat16, id="4096-1024-256-128"),
+    # r not a chunk multiple
+    pytest.param(5000, 512, 512, 256, 256, jnp.bfloat16, id="5000-512-512-256"),
+    # many empty blocks (must still be zeroed)
+    pytest.param(700, 2048, 256, 128, 256, jnp.bfloat16, id="700-2048-256-128"),
+    # widths and dtypes past the kernel's first contract (C4)
+    pytest.param(1500, 512, 256, 128, 96, jnp.float32, id="w96-float32"),
+    pytest.param(600, 512, 256, 128, 768, jnp.float16, id="w768-float16"),
+    pytest.param(1500, 1024, 256, 128, 97, jnp.float32, id="w97-float32"),
+    pytest.param(1500, 512, 512, 256, 33, jnp.float16, id="w33-float16"),
 ])
-def test_plain_matches_jax_kernel(interpret_pallas, r, n_out, block, chunk):
+def test_plain_matches_jax_kernel(interpret_pallas, r, n_out, block, chunk, width, dtype):
     rs = np.random.RandomState(r)
-    contrib = jnp.asarray(rs.randn(r, 256), jnp.bfloat16)
+    contrib = jnp.asarray(rs.randn(r, width), dtype)
     idx = jnp.asarray(rs.randint(0, n_out, r), jnp.int32)
     want = jss.segmented_scatter_add(contrib, idx, n_out, block=block, chunk=chunk)
     for got in _port(contrib, idx, n_out, block, chunk):

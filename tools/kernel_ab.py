@@ -24,7 +24,22 @@ process, one mode a kernel (``--kernels``, any of them in one run):
   rows of 64, all into row 0 of 512): the whole wrapper of each tree, its
   sort included, held to the plain version, two launches bit-equal, times
   in turns, ``index_add_``, the device time of each launch of a call and
-  the host time of one call.
+  the host time of one call. Then this tree alone at the widths and dtypes
+  the parent's wrapper refused (W 96 and 768 in bf16, 256 in fp32 and
+  fp16, an odd W in fp32 and bf16), held and timed the same way.
+- ``i2t``: B5 (``twoway_attention.cu`` ``iuvl_i2t_block_step``) on a
+  256-prompt chunk over N 4096 image tokens: per-prompt keys at T 7 (the
+  kernel phase's case), batch-1 keys at T 7 (the decoder's block 0),
+  per-prompt keys at T 26 (a 20-click prompt) and T 64: rel L2 of the
+  output to the plain version, two launches bit-equal, times in turns, the
+  plain version, and the bound (the bytes the function must move).
+- ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
+  matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
+  skewed case (the same points drawn within about a pixel of the map's
+  centre: hundreds of rows a cell): the whole wrapper of each tree (the
+  parent's zero-fill included), held to the plain version, two launches
+  bit-equal, times in turns, ``index_add_`` and the cells that three or
+  more rows hit.
 
 Each mode prints ptxas's registers, shared memory and spills of its kernels
 for both trees and splits one call's device time by kernel with each
@@ -32,7 +47,7 @@ launch's registers and shared memory as torch.profiler's trace records them.
 
     git archive <parent> iuvl_tpu_torch/csrc | tar -x -C _chip/parent
     set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent \
-        --kernels flash seg_scatter 2>&1 | tee chiprun_out/kernel_ab.log
+        --kernels i2t tap_scatter seg_scatter 2>&1 | tee kernel_ab.log
 
 The parent's entry points must have the signatures PARENT_SIGS gives them.
 Needs one CUDA card.
@@ -58,24 +73,31 @@ sys.path.insert(0, str(ROOT))
 from iuvl_tpu_torch.ops.cuda import build  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import seg_scatter as ss  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import tap_scatter as ts  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import twoway_attention as ta  # noqa: E402
 from iuvl_tpu_torch.ops.rel_pos_attention import onehot_expanders  # noqa: E402
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                "iuvl_relpos_fwd": [P] * 10 + [I] * 5 + [P],
                "iuvl_flash_fwd": [P] * 5 + [I] * 4 + [P],
                "iuvl_flash_bwd": [P] * 10 + [I] * 4 + [P],
-               # the parent's B17: its wrapper hands it the sorted order
-               # (int32) and each destination's segment start.
-               "iuvl_seg_scatter": [P] * 4 + [I] * 3 + [P]}
+               # the parent's B17: bf16 rows only; its wrapper hands it the
+               # int64 sorted order, a scratch and block_rows.
+               "iuvl_seg_scatter": [P] * 5 + [I] * 4 + [P],
+               "iuvl_i2t_block_step": [P] * 11 + [I] * 4 + [F, F, P],
+               # the parent's B12 adds into a table its wrapper zeroes.
+               "iuvl_tap_scatter": [P] * 3 + [I] * 3 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
-          "seg_scatter": "seg_scatter.cu"}
+          "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
+          "tap_scatter": "tap_scatter.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
-           "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",)}
+           "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
+           "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
-           "seg_scatter", "seg_pass")
+           "seg_scatter", "seg_pass", "i2t_", "tap_scatter")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -407,19 +429,27 @@ def seg_cases(dev):
             ("skewed", t(3000, 64), torch.zeros(3000, dtype=torch.int32, device=dev), 512))
 
 
+# C4's widths and dtypes, which the parent's B17 refused: (W, dtype, rows,
+# n_out), random rows into random destinations.
+SEG_WIDTHS = ((96, torch.bfloat16, 131072, 32768), (768, torch.bfloat16, 65536, 16384),
+              (256, torch.float32, 131072, 32768), (256, torch.float16, 131072, 32768),
+              (97, torch.float32, 131072, 32768), (33, torch.bfloat16, 131072, 32768))
+
+
 def seg_ab(parent_tree: Path, work: Path, bad: list) -> None:
     """B17, the whole wrapper of each tree (see the module's docstring)."""
     lib = compile_source(parent_tree, work, "seg_scatter")
     for tag, contrib, idx, n_out in seg_cases(torch.device("cuda")):
         (rows, width), dev = contrib.shape, contrib.device
 
-        def parent():  # the parent's wrapper, its sort and segment search included
-            order = torch.argsort(idx, stable=True).to(torch.int32)
-            bounds = torch.arange(n_out + 1, device=dev, dtype=torch.int32)
-            starts = torch.searchsorted(idx[order.long()], bounds).to(torch.int32)
+        def parent():  # the parent's wrapper, its sort included (bf16, W / 8 | 256)
+            order = torch.argsort(idx, stable=True)
+            rows_a = min(16 * (256 // (width // 8)), 1024)
+            blocks = -(-rows // rows_a)
             out = torch.empty((n_out, width), dtype=torch.float32, device=dev)
-            assert lib.iuvl_seg_scatter(*ptr(contrib, order, starts, out), rows, n_out, width,
-                                        stream()) == 0
+            scratch = torch.empty((blocks * (2 * width + 2),), dtype=torch.float32, device=dev)
+            assert lib.iuvl_seg_scatter(*ptr(contrib, idx, order, out, scratch), rows, n_out,
+                                        width, rows_a, stream()) == 0
             return out
 
         new = lambda: ss.segmented_scatter_add(contrib, idx, n_out)  # noqa: E731
@@ -443,10 +473,135 @@ def seg_ab(parent_tree: Path, work: Path, bad: list) -> None:
         print(f"seg_scatter@{tag} device split, index_add_: {kernel_split(zeros, work)}",
               flush=True)
         del got, again, pgot, want
+    for width, dtype, rows, n_out in SEG_WIDTHS:
+        tag = f"w{width}_{str(dtype).split('.')[-1]}"
+        contrib = t(rows, width).to(dtype)
+        idx = torch.randint(0, n_out, (rows,), device="cuda", generator=GEN, dtype=torch.int32)
+        new = lambda: ss.segmented_scatter_add(contrib, idx, n_out)  # noqa: E731
+        try:
+            got = new()
+        except ValueError as e:  # the wrapper refuses the case: C4 stands
+            bad.append(f"seg_scatter@{tag}: refused ({e})")
+            print(f"seg_scatter@{tag}: this tree refuses it: {e}", flush=True)
+            continue
+        want = ss.segmented_scatter_add_plain(contrib, idx, n_out)
+        err, same = rel(got, want), torch.equal(got, new())
+        if not err <= 1e-6 or not same:
+            bad.append(f"seg_scatter@{tag} rel_l2 {err:.3e}, bit-equal {same}")
+        zeros = lambda: torch.zeros((n_out, width), device="cuda").index_add_(  # noqa: E731
+            0, idx, contrib.float())
+        print(f"seg_scatter@{tag} ({rows} rows of {width} {dtype} into {n_out}): rel_l2 "
+              f"{err:.3e}; two launches bit-equal {same}; ms this tree {ms(new):.4f}; "
+              f"index_add_ {ms(zeros):.4f}; device split {kernel_split(new, work)}", flush=True)
+        del got, want, contrib, idx
     torch.cuda.empty_cache()
 
 
-MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab}
+# B5's shapes: (tag, keys batch 1, tokens) for a 256-prompt chunk over
+# N 4096 image tokens.
+I2T_SHAPES = (("kernel_t7", False, 7), ("batch1_t7", True, 7), ("t26", False, 26),
+              ("t64", False, 64))
+I2T_PROMPTS, I2T_N = 256, 4096
+
+
+def i2t_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B5 (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "i2t")
+    c, i = ta.C, ta.I
+    for tag, shared, tok in I2T_SHAPES:
+        b, n = I2T_PROMPTS, I2T_N
+        args = (t(1 if shared else b, n, c), t(n, i, std=0.3), t(b, tok, i), t(b, tok, i),
+                t(i, c, std=c ** -0.5), t(i, std=0.3), t(c, i, std=i ** -0.5), t(c, std=0.3),
+                (1.0 + t(c, std=0.1)).float(), t(c, std=0.3).float())
+
+        def parent():
+            out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
+            assert lib.iuvl_i2t_block_step(*ptr(*args, out), b, args[0].shape[0], n, tok,
+                                           (i // ta.HEADS) ** -0.5, ta.LN_EPS, stream()) == 0
+            return out
+
+        new = lambda: ta.i2t_block_step(*args, ta.HEADS)  # noqa: E731
+        want = ta.i2t_block_step_plain(*args, ta.HEADS)
+        got, again, pgot = new(), new(), parent()
+        err, e_par = rel(got, want), rel(pgot, want)
+        same = torch.equal(got, again)
+        if not err <= 2e-4 or not same:
+            bad.append(f"i2t@{tag} rel_l2 {err:.3e}, bit-equal {same}")
+        t_par, t_new = in_turns(parent, new)
+        nbytes = sum(x.numel() * x.element_size() for x in (*args, got))
+        print(f"i2t@{tag} (B {b}, keys batch {args[0].shape[0]}, N {n}, T {tok}): rel_l2 "
+              f"{err:.3e} (parent {e_par:.3e}); two launches bit-equal {same}; ms this tree "
+              f"{t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
+              f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; plain "
+              f"{ms(lambda: ta.i2t_block_step_plain(*args, ta.HEADS), 3):.4f}; bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+        print(f"i2t@{tag} device split, this tree: {kernel_split(new, work)}", flush=True)
+        print(f"i2t@{tag} device split, parent: {kernel_split(parent, work)}", flush=True)
+        del got, again, pgot, want, args
+        torch.cuda.empty_cache()
+
+
+def tap_cases(dev):
+    """B12's criterion shape (20 matched 256^2 masks, 12,544 points, taps
+    weighted by a random cotangent) and the skewed case: the same with the
+    points drawn within about a pixel of the map's centre."""
+    from iuvl_tpu_torch.ops.point_sample import _tap_weights
+
+    rs = np.random.RandomState(0)
+    cases = []
+    for tag, coords in (("criterion", rs.rand(20, 12544, 2)),
+                        ("skewed", 0.5 + rs.randn(20, 12544, 2) / 256)):
+        xy = torch.from_numpy(coords.astype(np.float32)).to(dev)
+        base, wgts, _, span = _tap_weights(256, 256, xy, torch.float32)
+        g = torch.from_numpy(rs.randn(20, 12544, 1).astype(np.float32)).to(dev)
+        cases.append((tag, base.to(torch.int32).contiguous(), (g * wgts).contiguous(), span))
+    return cases
+
+
+def tap_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B12 (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "tap_scatter")
+    for tag, base, rows, span in tap_cases(torch.device("cuda")):
+        n, p = base.shape
+
+        def parent():  # the parent's wrapper: a zeroed table, then its kernel
+            acc = torch.zeros((n, span, 4), dtype=torch.float32, device="cuda")
+            assert lib.iuvl_tap_scatter(*ptr(base, rows, acc), n, p, span, stream()) == 0
+            return acc
+
+        new = lambda: ts.tap_scatter(base, rows, span)  # noqa: E731
+        want = ts.tap_scatter_plain(base, rows, span)
+        got, again, pgot = new(), new(), parent()
+        err, e_par = rel(got, want), rel(pgot, want)
+        same = torch.equal(got, again)
+        if not err <= 1e-6 or not same:
+            bad.append(f"tap_scatter@{tag} rel_l2 {err:.3e}, bit-equal {same}")
+        flat = (base.long() + torch.arange(n, device="cuda")[:, None] * span).reshape(-1)
+        hits = torch.bincount(flat, minlength=n * span)
+        idx_rows = rows.reshape(-1, 4)
+        index_add = lambda: torch.zeros((n * span, 4), device="cuda").index_add_(  # noqa: E731
+            0, flat, idx_rows)
+        t_par, t_new = in_turns(parent, new)
+        nbytes = sum(x.numel() * x.element_size() for x in (base, rows, got))
+        print(f"tap_scatter@{tag} ({n} maps x {p} rows, span {span}): rel_l2 {err:.3e} "
+              f"(parent {e_par:.3e}); two launches bit-equal {same} (parent "
+              f"{torch.equal(pgot, parent())}); cells hit by 3 or more rows "
+              f"{int((hits >= 3).sum())}, most rows a cell {int(hits.max())}; ms this tree "
+              f"{t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
+              f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; index_add_ "
+              f"{ms(index_add):.4f}; plain {ms(lambda: ts.tap_scatter_plain(base, rows, span)):.4f}"
+              f"; bound {nbytes / 3.35e12 * 1e3:.5f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+        print(f"tap_scatter@{tag} device split, this tree: {kernel_split(new, work)}",
+              flush=True)
+        print(f"tap_scatter@{tag} device split, parent: {kernel_split(parent, work)}",
+              flush=True)
+        print(f"tap_scatter@{tag} device split, index_add_: {kernel_split(index_add, work)}",
+              flush=True)
+        del got, again, pgot, want
+
+
+MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
+         "tap_scatter": tap_ab}
 
 
 def main() -> int:
