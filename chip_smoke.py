@@ -309,7 +309,8 @@ RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 # Kernels whose outputs must not change from launch to launch (no atomics).
 DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
-                 "segmented_scatter_add", "i2t_block_step", "tap_scatter")
+                 "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
+                 "masks_upscale")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -983,15 +984,10 @@ def kernel_cases(rs: np.random.RandomState, dev):
           "heads 0/1 swapped in v": _swap(2, 1, 1)}, 10),
         ("block_tail", tail,
          {"b1 dropped": _zero(5), "b2 dropped": _zero(7), "LN bias dropped": _zero(3)}, 10),
-        ("masks_upscale", up,
-         {"b1 dropped": _zero(2), "b2 dropped": _zero(6), "LN bias dropped": _zero(4),
-          "mask tokens 0/1 swapped": _swap(7, 1, 1)}, 5),
-        # (bk adds q.bk to every key's score alike: softmax cancels it.)
-        ("t2i_stream", t2i,
-         {"bv dropped": _zero(6), "pe_wk dropped": _zero(2),
-          "heads 0/1 swapped in q": _swap(0, 2, 16)}, 10),
+        ("masks_upscale", up, UPSCALE_FAULTS, 5),
+        ("t2i_stream", t2i, T2I_FAULTS, 10),
         ("i2t_block_step", i2t, I2T_FAULTS, 10),
-    ] + i2t_cases(t, i2t) + [
+    ] + i2t_cases(t, i2t) + t2i_stream_cases(t2i) + c5_cases(up, t2i, i2t) + [
         ("window_block_backward", win_bwd,
          {"rel-pos branch dropped": lambda a: a[:5] + (torch.zeros_like(rh),
                                                         torch.zeros_like(rw)) + a[7:],
@@ -1033,6 +1029,83 @@ def kernel_cases(rs: np.random.RandomState, dev):
 I2T_FAULTS = {"bq dropped": _zero(5), "bo dropped": _zero(7), "pe_wq dropped": _zero(1),
               "LN bias dropped": _zero(9), "heads 0/1 swapped in kp": _swap(2, 2, 16),
               "the last token's vp zeroed": lambda a: a[:3] + (_last_token_zeroed(a[3]),) + a[4:]}
+
+
+# B4's planted faults. (bk adds q.bk to every key's score alike: softmax
+# cancels it.)
+def _t2i_last_range_missed(a):
+    """B4's plain version without the keys of the last key range that the
+    wrapper's split (t2i_plan, on this card) gives the call: a merge that
+    misses its last range."""
+    from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
+
+    q, keys, pe = a[:3]
+    n = keys.shape[1]
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    _, splits = ta.t2i_plan(q.shape[0], n, q.shape[1], keys.shape[0], sms)
+    tiles = -(-n // ta.T2I_KEY_TILE)
+    cut = (splits - 1) * -(-tiles // splits) * ta.T2I_KEY_TILE
+    return (ta.t2i_stream_plain(q, keys[:, :cut].contiguous(), pe[:cut].contiguous(), *a[3:]),)
+
+
+T2I_FAULTS = {"bv dropped": _zero(6), "pe_wk dropped": _zero(2),
+              "heads 0/1 swapped in q": _swap(0, 2, 16),
+              "a merge misses its last key range": _planted(_t2i_last_range_missed)}
+
+
+def _upscale_groups_swapped(a):
+    """B6's plain version with the (di, dj) groups 1 and 2 swapped in the
+    output columns (t, di, ei, dj, ej)."""
+    from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
+
+    out = mu.masks_upscale_plain(*a)
+    x = out.view(*out.shape[:2], mu.M, 2, 2, 2, 2)  # (t, di, ei, dj, ej)
+    y = x.clone()
+    y[:, :, :, 0, :, 1], y[:, :, :, 1, :, 0] = x[:, :, :, 1, :, 0], x[:, :, :, 0, :, 1]
+    return (y.reshape(out.shape),)
+
+
+UPSCALE_FAULTS = {"b1 dropped": _zero(2), "b2 dropped": _zero(6), "LN bias dropped": _zero(4),
+                  "mask tokens 0/1 swapped": _swap(7, 1, 1),
+                  "(di, dj) groups 1 and 2 swapped in the output columns":
+                      _planted(_upscale_groups_swapped)}
+
+
+def t2i_stream_cases(main):
+    """B4 past the kernel phase's case (256 prompts of 7 tokens on per-prompt
+    keys): block 0's call (batch-1 keys), per-prompt keys at T 26 (a
+    20-click prompt) and T 64, and an interactive round (8 prompts of 26
+    tokens). Their own draws, so that the other cases' inputs stay."""
+    rs = np.random.RandomState(SEED + 4)
+    q, keys = main[:2]
+
+    def t(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * 0.25).to(q.device, q.dtype)
+
+    cases = [("t2i_stream@batch1_t7", (q, keys[:1].contiguous()) + main[2:], 10)]
+    for tok in (26, 64):
+        cases.append((f"t2i_stream@t{tok}", (t(CHUNK, tok, q.shape[-1]),) + main[1:], 5))
+    cases.append(("t2i_stream@round8_t26", (t(8, 26, q.shape[-1]), keys[:8].contiguous())
+                  + main[2:], 20))
+    return [(name, args, T2I_FAULTS, iters) for name, args, iters in cases]
+
+
+def c5_cases(up, t2i, i2t):
+    """C5: key counts that JAX's functions take and the kernels refused
+    before: B4 and B5 at N 2500 (ViT-B at 800^2, a 50^2 grid), B6 at N 900
+    (30^2); the same weights, keys, PE and hyper drawn anew (their own
+    draws)."""
+    rs = np.random.RandomState(SEED + 5)
+    dev = up[0].device
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * std).to(dev, torch.bfloat16)
+
+    n, cd, i_dim = 2500, t2i[1].shape[-1], t2i[0].shape[-1]
+    keys, pe = t(CHUNK, n, cd), t(n, i_dim, std=BIAS_STD)
+    return [("t2i_stream@n2500", (t2i[0], keys, pe) + t2i[3:], T2I_FAULTS, 10),
+            ("i2t_block_step@n2500", (keys, pe) + i2t[2:], I2T_FAULTS, 10),
+            ("masks_upscale@n900", (t(CHUNK, 900, up[0].shape[-1]),) + up[1:], UPSCALE_FAULTS, 5)]
 
 
 def _last_token_zeroed(vp):

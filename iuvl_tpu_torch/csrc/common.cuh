@@ -1,10 +1,11 @@
 // Shared helpers of the port's Hopper kernels (bf16 wmma, fp32 softmax/LN).
 //
-// Every kernel here is a first, simple version: bf16 tensor-core products
-// through nvcuda::wmma 16x16x16 fragments (mma.sync) with fp32
-// accumulation, operands read from shared memory or straight from global
-// memory (L2-resident at the slice's sizes). wgmma, TMA and persistent
-// blocks are later work.
+// The first kernels take bf16 tensor-core products through nvcuda::wmma
+// 16x16x16 fragments (mma.sync) with fp32 accumulation, operands read from
+// shared memory or straight from global memory (L2-resident at the slice's
+// sizes). The redesigned ones keep their products in registers by
+// mma.sync (mma.cuh) or wgmma (wgmma.cuh) and stay resident in persistent
+// blocks.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -181,12 +181,14 @@ __device__ __forceinline__ void mask_past(float (&s)[8][4], int k0, int n) {
 // One 64-key tile of the online softmax for the lane's two rows: m, l and
 // the output sums rescaled by alpha = exp(m_old - m_new), s replaced by the
 // unnormalised p = exp(s - m_new) in fp32 (l sums it so; p v rounds it);
-// the exponentials by ex2.approx, or by expf where kExact.
-template <int D, bool kExact = false>
+// the exponentials by ex2.approx, or by expf where kExact. kRows 1: the
+// first row only (the strip's rows 8-15 are padding; their s, m, l and o
+// are left as they are).
+template <int D, bool kExact = false, int kRows = 2>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
                                              float (&o)[D / 8][4]) {
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < kRows; ++u) {
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * u], s[j][2 * u + 1]));

@@ -15,28 +15,46 @@
 // Bound on the card, SAM's decoder (C 256, I 128, 8 heads of 16, T tokens:
 // 7 for a one-point prompt), a chunk of B = 256 prompts over N = 4096
 // image tokens: each kernel does 2*B*N*C*I*2 = 137 GFLOP of projections
-// (0.14 ms on the tensor cores) against 537 MB (t2i: one read) or 1.07 GB
-// (i2t: read + write, 0.32 ms) of keys; the attention itself (T = 7 tokens)
-// is 1/16 of that. So i2t is bound by its bytes; with batch-1 keys (the
-// decoder's block 0: every prompt shares the image embedding) by writing
-// its (B, N, C) output, 0.16 ms.
+// (0.14 ms on the tensor cores) against 537 MB (t2i: one read, 0.16 ms) or
+// 1.07 GB (i2t: read + write, 0.32 ms) of keys; the attention itself (T = 7
+// tokens) is 1/16 of that. So both are bound by their bytes; with batch-1
+// keys (the decoder's block 0: every prompt shares the image embedding) t2i
+// reads 2 MB and projects them once (its bound is a few microseconds, the
+// attention's operations), and i2t is bound by writing its (B, N, C)
+// output, 0.16 ms.
 //
-// t2i (any T >= 1: a click loop's 20 points make 26 tokens) keeps the
-// online-softmax state of up to kTT 16-row token tiles in registers and
-// loops over them after each key tile's projection; a prompt of more tiles
-// takes more blocks (grid.y), each projecting the keys again. The TPU
-// kernels packed the 8 heads block-diagonally ((head, token) rows against
-// 128-wide columns) so that the MXU saw dense 128-lane matmuls. On the card
-// a head is a 16-wide slice: t2i gives each warp one head, and its scores
-// Q_h (16 padded token rows x 16) @ Kp_h^T are one 16x16x16 mma per 16
-// keys. Its projection weights (128 KB) stay in shared memory for the whole
-// block, the key tiles stream through a two-slot cp.async ring, and rows
-// are padded by 16 bytes so that fragment loads do not conflict on banks.
-// In its projection epilogue a lane owns 8 contiguous columns: its bias and
-// PE values come as 16-byte loads issued ahead of the products, its results
-// go out as 16-byte stores. With batch-1 keys t2i recomputes the k/v
-// projection per prompt (one block per prompt), which costs what a
-// per-prompt call costs.
+// t2i (any T >= 1: a click loop's 20 points make 26 tokens). A head is a
+// 16-wide slice (the TPU kernels' block-diagonal head packing, made for the
+// MXU's 128-lane matmuls, is not carried over): warp w of a block attends
+// head w, its scores 16 token rows x 16 dims against 64 keys in mma.sync
+// tiles. What bounds the work is the per-prompt projection of every key
+// row and the read of the keys, so:
+// - The key axis is split over work items (prompt, key range), enough of
+//   them to fill the card twice (the wrapper's t2i_plan picks the split),
+//   so 8 prompts fill 132 SMs as 256 do. Persistent blocks, one an SM,
+//   stage [Wk; Wv] (128 KB) once and walk a contiguous run of items; 64-key
+//   tiles stream in by cp.async through a two-slot ring.
+// - The two warpgroups project a tile with wgmma (wgmma.cuh), kp and vp
+//   (m64n128k16 each, 16 steps, B read from shared memory once for the 64
+//   keys, sums in registers), round and add PE and biases there, and write
+//   the tile's [kp | vp] once in bf16 (a padded 64 x 256 tile). Warps then
+//   read their head's kp and vp by ldmatrix (vp transposed). (A wgmma
+//   accumulator gives a warp 16 keys of every head; attending from it
+//   directly would keep each warp's softmax state for all 8 heads, 96
+//   registers a 16-token tile, which 64 tokens cannot afford.)
+// - A prompt's token tiles (up to four, 64 tokens: a pass) are all served
+//   from one projection of each key tile; their online softmax state (m, l
+//   and the output sums of each row) stays in registers. Prompts past 64
+//   tokens take more passes; prompts of at most 8 tokens (a one-point
+//   prompt has 7) skip the softmax of the 16-row tile's padding rows.
+// - Each item writes its partial (o, m, l) to an fp32 scratch; a second
+//   kernel merges the ranges in key order and writes bf16(o / l). No
+//   atomics: two launches give the same bits.
+// - Batch-1 keys: a pre-pass projects the N image rows once into a bf16
+//   (N, 256) scratch (2 MB, L2-resident), and each tile of it, copied in
+//   once, serves a group of prompts (4 at T <= 16).
+// C5: any N >= 1. The last key tile is masked: its rows past N load as
+// zeros, their scores are -inf, and nothing is written for them.
 //
 // i2t (1 <= T <= 64) runs one persistent block an SM that stages Wq and Wo
 // (137 KB) once and walks a contiguous range of (row group, prompt) work
@@ -58,14 +76,17 @@
 // batch-1 keys the items are group-major instead: a strip's qp is computed
 // once and kept in registers for the prompts that follow, Wq is staged only
 // for that, and its region holds the warps' residual rows meanwhile, so the
-// x strips stay put across the prompts.
+// x strips stay put across the prompts. C5: any N >= 1; the last strip's
+// rows past N are zero-filled in the copy, read the last row's PE and are
+// not written.
 //
 // Rounding points follow the TPU kernels: products accumulate in fp32 and
 // are rounded to bf16, then each bias or PE term is added and rounded in
 // turn; scores and softmax in fp32; probabilities rounded to bf16 before
-// p @ v; the online softmax rounds the unnormalised p (as t2i_stream);
-// LayerNorm in fp32 with the two-pass variance.
-#include "mma.cuh"
+// p @ v; the online softmax rounds the unnormalised p per 64-key tile (as
+// t2i_stream does per its tile); LayerNorm in fp32 with the two-pass
+// variance.
+#include "wgmma.cuh"
 
 namespace iuvl {
 namespace {
@@ -73,217 +94,344 @@ namespace {
 constexpr int kC = 256;      // embedding width
 constexpr int kI = 128;      // attention width (C / 2)
 constexpr int kHd = 16;      // head dim (8 heads)
-constexpr int kTok = 16;     // t2i: tokens a tile
-constexpr int kTT = 2;       // t2i: token tiles a block
 constexpr int kLdC = kC + 8; // padded bf16 rows of C columns
 constexpr int kLdI = kI + 8; // padded bf16 rows of I columns
-static_assert(kI / kHd == kWarps, "t2i gives each warp one head");
-
-// Copy `rows` rows of `cols` bf16 (cols % 8 == 0) into shared memory with
-// row stride `ld`, by cp.async in 16-byte pieces.
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, size_t src_ld,
-                                           int rows, int cols) {
-  const int vec = cols / 8;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec, v = i % vec;
-    cp_async16(dst + r * ld + v * 8, src + r * src_ld + v * 8);
-  }
-}
 
 // 8 bf16 values in one 16-byte register group.
-__device__ __forceinline__ uint4 load8(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
 __device__ __forceinline__ float at8(const uint4& v, int j) {
   return to_f(reinterpret_cast<const bf16*>(&v)[j]);
 }
+__device__ __forceinline__ uint32_t u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+// bf16(bf16(bf16(a, b) + c) + d) for a pair: a product's two sums rounded
+// to bf16, then two terms added and rounded in turn (the TPU rounding).
+__device__ __forceinline__ uint32_t add2_round(float a, float b, uint32_t c, uint32_t d) {
+  return u32(__hadd2(__hadd2(__floats2bfloat162_rn(a, b), bf2(c)), bf2(d)));
+}
 
 // ---------------------------------------------------------------- t2i --
-constexpr int kKT = 32;        // keys per tile
-constexpr int kLdS = kKT + 4;  // fp32 scores
-constexpr int kLdP = kKT + 8;  // bf16 probabilities
+constexpr int kKT = 64;             // keys a tile: one wgmma's M
+constexpr int kLdKV = 2 * kI + 8;   // padded bf16 rows of [kp | vp]
+constexpr int kT2iThreads = 256;    // two warpgroups; warp w attends head w
+constexpr int kTokGroup = 64;       // tokens a pass (four 16-row tiles)
+constexpr size_t kT2iW = size_t{2 * kI} * kC * 2;      // [Wk; Wv], core-matrix layout
+constexpr size_t kT2iX = size_t{kKT} * kC * 2;         // an x tile, core-matrix layout
+constexpr size_t kT2iKV = size_t{kKT} * kLdKV * 2;     // a [kp | vp] tile
+constexpr size_t kT2iProjSmem = kT2iW + 2 * kT2iX + kT2iKV;
+constexpr size_t kT2iAttSmem = 2 * kT2iKV;
+static_assert(kT2iThreads / 32 == kI / kHd, "t2i gives each warp one head");
 
-struct T2iSmem {
-  static constexpr size_t kW = 2 * kI * kLdC * sizeof(bf16);  // Wk rows, then Wv rows
-  static constexpr size_t kX = kKT * kLdC * sizeof(bf16);     // one key tile
-  static constexpr size_t kKV = kKT * kLdI * sizeof(bf16);    // kp or vp of a tile
-  static constexpr size_t kQ = kTT * kTok * kLdI * sizeof(bf16);
-  static constexpr size_t kS = kWarps * kTok * kLdS * sizeof(float);
-  static constexpr size_t kP = kWarps * kTok * kLdP * sizeof(bf16);
-  static constexpr size_t kBytes = kW + 2 * kX + 2 * kKV + kQ + kS + kP;
-};
+// Prompts a work item serves from one [kp | vp] tile with batch-1 keys
+// (their online-softmax state is in registers: ntt * prompts <= 4); the
+// wrapper's t2i_plan mirrors this.
+__host__ __device__ constexpr int t2i_group(int ntt) { return ntt == 1 ? 4 : ntt == 2 ? 2 : 1; }
 
-__global__ void __launch_bounds__(kThreads) t2i_stream_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ keys, const bf16* __restrict__ pe_wk,
-    const bf16* __restrict__ wk, const bf16* __restrict__ bk, const bf16* __restrict__ wv,
-    const bf16* __restrict__ bv, bf16* __restrict__ out, int n, int tokens, int shared_keys) {
+// The `rows` rows of a (rows, C) weight into the core-matrix layout (the
+// thread order of t2i_stage_x).
+__device__ __forceinline__ void t2i_stage_w(bf16* sW, const bf16* w, int rows) {
+  for (int i = threadIdx.x; i < rows * (kC / 8); i += blockDim.x) {
+    const int r = (i & 7) + 8 * (i >> 8), c = ((i >> 3) & 31) * 8;
+    cp_async16(sW + cm_index<kC>(r, c), w + r * kC + c);
+  }
+}
+
+// Rows [k0, k0 + 64) of a (n, C) key matrix into a core-matrix x tile by
+// cp.async, rows past n zero. Eight neighbouring threads fill one 128-byte
+// core matrix (no bank conflicts); a warp reads 64 bytes of 8 rows.
+__device__ __forceinline__ void t2i_stage_x(bf16* sX, const bf16* x, int k0, int n) {
+  for (int i = threadIdx.x; i < kKT * (kC / 8); i += blockDim.x) {
+    const int r = (i & 7) + 8 * (i >> 8), c = ((i >> 3) & 31) * 8;
+    const bool in = k0 + r < n;
+    cp_async16_zfill(sX + cm_index<kC>(r, c), x + static_cast<size_t>(in ? k0 + r : 0) * kC + c,
+                     in);
+  }
+}
+
+// A warpgroup's half of a tile's projection, issued (not waited for): acc
+// = x W^T with W the 128 rows of Wk or Wv at sW, 16 steps of m64n128k16
+// from shared memory.
+__device__ __forceinline__ void t2i_project(float (&acc)[64], const bf16* sX, const bf16* sW) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  wg_fence_acc(acc);
+  wg_fence();
+  const uint64_t dx = wg_desc<kC>(sX), dw = wg_desc<kC>(sW);
+#pragma unroll
+  for (int s = 0; s < kC / 16; ++s) wgmma_ss_n128(acc, dx + 16 * s, dw + 16 * s, 1);
+  wg_commit();
+}
+
+// The projection's PE terms for the lane's rows (keys k0 + row, row + 8 of
+// its warp's 16) and columns 8 j + q2, +1 of kp: pe[j][u] (zero past n).
+__device__ __forceinline__ void t2i_load_pe(uint32_t (&pe)[16][2], const bf16* pe_wk, int k0,
+                                            int n) {
+  const int lane = threadIdx.x & 31, row = k0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      pe[j][u] = row + 8 * u < n ? __ldg(reinterpret_cast<const uint32_t*>(
+                                       pe_wk + static_cast<size_t>(row + 8 * u) * kI + 8 * j +
+                                       2 * (lane & 3)))
+                                 : 0u;
+}
+
+// The projection's epilogue: kp = bf16(bf16(bf16(x Wk^T) + pe) + bk) (wg
+// 0) or vp = bf16(bf16(x Wv^T) + bv) (wg 1) into rows of dst (pitch ld;
+// the tile's row r at dst + r * ld), rows at or past `rows` dropped. bias:
+// the lane's 16 column pairs of bk or bv.
+__device__ __forceinline__ void t2i_epilogue(bf16* dst, int ld, const float (&acc)[64],
+                                             const uint32_t (&pe)[16][2],
+                                             const uint32_t (&bias)[16], int wg, int rows) {
+  const int lane = threadIdx.x & 31, q2 = 2 * (lane & 3);
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (r + 8 * u >= rows) continue;
+    bf16* o = dst + static_cast<size_t>(r + 8 * u) * ld + wg * kI + q2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float a = acc[4 * j + 2 * u], b = acc[4 * j + 2 * u + 1];
+      *reinterpret_cast<uint32_t*>(o + 8 * j) =
+          wg == 0 ? add2_round(a, b, pe[j][u], bias[j])
+                  : u32(__hadd2(__floats2bfloat162_rn(a, b), bf2(bias[j])));
+    }
+  }
+}
+
+// Batch-1 keys (block 0): [kp | vp] of the N image rows, once, into a
+// (N, 256) bf16 scratch: a warpgroup a (64-key tile, kp or vp) with its
+// half of the weights (blockIdx.y: 0 kp, 1 vp).
+__global__ void __launch_bounds__(128) t2i_project_kernel(
+    const bf16* __restrict__ keys, const bf16* __restrict__ pe_wk, const bf16* __restrict__ wk,
+    const bf16* __restrict__ bk, const bf16* __restrict__ wv, const bf16* __restrict__ bv,
+    bf16* __restrict__ kpv, int n) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sW = reinterpret_cast<bf16*>(smem);
-  bf16* sX = sW + 2 * kI * kLdC;  // two slots
-  bf16* sK = sX + 2 * kKT * kLdC;
-  bf16* sV = sK + kKT * kLdI;
-  bf16* sQ = sV + kKT * kLdI;
-  float* sS = reinterpret_cast<float*>(sQ + kTT * kTok * kLdI);
-  bf16* sP = reinterpret_cast<bf16*>(sS + kWarps * kTok * kLdS);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x;
-  const int tok0 = blockIdx.y * kTT * kTok;  // this block's first token
-  const int ntt = min(kTT, (tokens - tok0 + kTok - 1) / kTok);  // its token tiles
-  const bf16* xb = keys + (shared_keys ? size_t{0} : static_cast<size_t>(b) * n * kC);
-  const int tiles = n / kKT;
-
-  stage_rows(sW, kLdC, wk, kC, kI, kC);
-  stage_rows(sW + kI * kLdC, kLdC, wv, kC, kI, kC);
-  stage_rows(sX, kLdC, xb, kC, kKT, kC);
+  bf16* sX = reinterpret_cast<bf16*>(smem + kT2iW / 2);
+  const int wg = blockIdx.y, q2 = 2 * (threadIdx.x & 3), k0 = blockIdx.x * kKT;
+  t2i_stage_w(sW, wg == 0 ? wk : wv, kI);
+  t2i_stage_x(sX, keys, k0, n);
   cp_async_commit();
-  for (int i = tid; i < kTT * kTok * kI; i += kThreads) {
-    const int r = i / kI, c = i % kI, tok = tok0 + r;
-    sQ[r * kLdI + c] =
-        tok < tokens ? q[(static_cast<size_t>(b) * tokens + tok) * kI + c] : to_bf(0.f);
-  }
+  uint32_t bias[16], pe[16][2] = {};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    bias[j] = __ldg(reinterpret_cast<const uint32_t*>((wg == 0 ? bk : bv) + 8 * j + q2));
+  if (wg == 0) t2i_load_pe(pe, pe_wk, k0, n);
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+  float acc[64];
+  t2i_project(acc, sX, sW);
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  t2i_epilogue(kpv + static_cast<size_t>(k0) * 2 * kI, 2 * kI, acc, pe, bias, wg, n - k0);
+}
 
-  // Warp `warp` is head `warp`; lane owns token row `row` of each of the
-  // block's token tiles, keys [half*16, half*16+16) of each key tile and
-  // output columns [half*8, half*8+8).
-  const int row = lane >> 1, half = lane & 1;
-  float m[kTT], l[kTT], acc[kTT][8];
-#pragma unroll
-  for (int tt = 0; tt < kTT; ++tt) {
-    m[tt] = kNegInf;
-    l[tt] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[tt][j] = 0.f;
-  }
-  float* S = sS + warp * kTok * kLdS;  // also the warp's 16x16 staging tile
-  bf16* P = sP + warp * kTok * kLdP;
-  // Projection tiles of this warp: row tile prt, column tiles pct..pct+3 of
-  // [kp | vp] (256 columns: warps 0-3 make kp, 4-7 vp). In the epilogue a
-  // lane owns row er and columns ec..ec+7 of each 16x16 tile, so its bias
-  // values are fixed (registers, loaded once) and its PE values are one
-  // 16-byte load per tile, issued before the tile's products.
-  const int prt = warp & 1, pct = (warp >> 1) * 4;
-  const bool is_k = pct * 16 < kI;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-  uint4 bias[4], pe[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int c = (pct + u) * 16 + ec;
-    bias[u] = is_k ? load8(bk + c) : load8(bv + c - kI);
-  }
+// Token -> image attention over key ranges. Work items (prompt group pg of
+// G prompts, token group tg of up to 64 tokens, key range r of `splits`),
+// a contiguous run of them a persistent block. kProject (per-prompt keys,
+// G 1): each 64-key tile of the range is copied in (two-slot cp.async
+// ring), projected by the two warpgroups (kp | vp) and its epilogue written
+// to the [kp | vp] tile; else (batch-1 keys) the tile comes ready from the
+// pre-pass's scratch (two-slot ring) and serves the item's G prompts. Warp
+// w attends head w: for each prompt and 16-token tile, its scores against
+// the tile's 64 keys, the online softmax (m, l, o in registers) and p v,
+// with ldmatrix from the tile. At its last tile an item writes its partial
+// (o, m, l) per (prompt, token, head) to the fp32 scratch; t2i_merge_kernel
+// combines the ranges.
+template <int NTT, int G, bool kProject, int kRows>
+__global__ void __launch_bounds__(kT2iThreads, 1) t2i_stream_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ src, const bf16* __restrict__ pe_wk,
+    const bf16* __restrict__ wk, const bf16* __restrict__ bk, const bf16* __restrict__ wv,
+    const bf16* __restrict__ bv, float* __restrict__ part_o, float* __restrict__ part_ml,
+    int batch, int n, int tokens, int splits) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sW = reinterpret_cast<bf16*>(smem);
+  bf16* sX = reinterpret_cast<bf16*>(smem + kT2iW);  // kProject: two x slots
+  bf16* sKV = reinterpret_cast<bf16*>(smem + (kProject ? kT2iW + 2 * kT2iX : 0));
+  const int warp = threadIdx.x >> 5, wg = warp >> 2, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, q2 = 2 * (lane & 3);
 
-  for (int kt = 0; kt < tiles; ++kt) {
-    // The slot of tile kt + 1 held tile kt - 1, whose last reads precede
-    // the barrier after its projection.
-    if (kt + 1 < tiles)
-      stage_rows(sX + ((kt + 1) & 1) * kKT * kLdC, kLdC,
-                 xb + static_cast<size_t>(kt + 1) * kKT * kC, kC, kKT, kC);
+  const int tiles = (n + kKT - 1) / kKT, len = (tiles + splits - 1) / splits;
+  const int tgroups = (tokens + kTokGroup - 1) / kTokGroup;
+  const int total = (batch + G - 1) / G * tgroups * splits;
+  const int i0 = static_cast<int>(static_cast<long long>(total) * blockIdx.x / gridDim.x);
+  const int i1 = static_cast<int>(static_cast<long long>(total) * (blockIdx.x + 1) / gridDim.x);
+  if (i0 >= i1) return;
+  auto first = [&](int i) { return (i % splits) * len; };
+  auto last = [&](int i) { return min(tiles, (i % splits + 1) * len); };
+  auto prompt0 = [&](int i) { return i / (tgroups * splits) * G; };
+  // (item, tile) steps in order: the one after (i, k).
+  auto advance = [&](int& i, int& k) {
+    if (++k == last(i) && ++i < i1) k = first(i);
+  };
+  auto stage = [&](int slot, int i, int k) {
+    if constexpr (kProject)
+      t2i_stage_x(sX + slot * (kT2iX / 2), src + static_cast<size_t>(prompt0(i)) * n * kC,
+                  k * kKT, n);
+    else
+      cp_rows<2 * kI>(sKV + slot * (kT2iKV / 2), kLdKV, src, k * kKT, kKT, n, threadIdx.x,
+                      kT2iThreads);
+  };
+
+  int it = i0, kt = first(i0), pf_i = i0, pf_k = kt, slot = 0;
+  uint32_t bias[16], pe[16][2] = {};
+  if constexpr (kProject) {
+    t2i_stage_w(sW, wk, kI);
+    t2i_stage_w(sW + kI * kC, wv, kI);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      bias[j] = __ldg(reinterpret_cast<const uint32_t*>((wg == 0 ? bk : bv) + 8 * j + q2));
+  }
+  for (int s = 0; s < (kProject ? 2 : 1); ++s) {  // the ring's first tiles
+    if (pf_i < i1) {
+      stage(s, pf_i, pf_k);
+      advance(pf_i, pf_k);
+    }
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* X = sX + (kt & 1) * kKT * kLdC;
-    if (is_k) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        pe[u] = load8(pe_wk + (static_cast<size_t>(kt) * kKT + prt * 16 + er) * kI +
-                      (pct + u) * 16 + ec);
-    }
-
-    FragC pc[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) wmma::fill_fragment(pc[u], 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < kC; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, X + prt * 16 * kLdC + kk, kLdC);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        FragBc fb;  // B[k][n] = W[(pct+u)*16 + n][kk + k]
-        wmma::load_matrix_sync(fb, sW + (pct + u) * 16 * kLdC + kk, kLdC);
-        wmma::mma_sync(pc[u], fa, fb, pc[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      wmma::store_matrix_sync(S, pc[u], 16, wmma::mem_row_major);
-      __syncwarp();
-      uint4 packed;
-      bf16* o = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float y = round_bf(S[er * 16 + ec + j]);
-        if (is_k) y = round_bf(y + at8(pe[u], j));
-        o[j] = to_bf(y + at8(bias[u], j));
-      }
-      const int r = prt * 16 + er, c = (pct + u) * 16 + ec;
-      *reinterpret_cast<uint4*>(is_k ? sK + r * kLdI + c : sV + r * kLdI + c - kI) = packed;
-      __syncwarp();
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) {
-      if (tt >= ntt) break;
-      // Scores of head `warp`: token tile tt's 16 rows x 32 keys.
-      FragA qa;
-      wmma::load_matrix_sync(qa, sQ + tt * kTok * kLdI + warp * kHd, kLdI);
-#pragma unroll
-      for (int u = 0; u < kKT / 16; ++u) {
-        FragC sc;
-        wmma::fill_fragment(sc, 0.f);
-        FragBc kb;  // B[k][n] = Kp[u*16 + n][warp*16 + k]
-        wmma::load_matrix_sync(kb, sK + u * 16 * kLdI + warp * kHd, kLdI);
-        wmma::mma_sync(sc, qa, kb, sc);
-        wmma::store_matrix_sync(S + u * 16, sc, kLdS, wmma::mem_row_major);
-      }
-      __syncwarp();
-      float s[16], mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        s[j] = S[row * kLdS + half * 16 + j];
-        mc = fmaxf(mc, s[j]);
-      }
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      const float m_new = fmaxf(m[tt], mc);
-      const float alpha = expf(m[tt] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = expf(s[j] - m_new);
-        ps += p;
-        P[row * kLdP + half * 16 + j] = to_bf(p);
-      }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      l[tt] = alpha * l[tt] + ps;
-      m[tt] = m_new;
-      __syncwarp();
-
-      FragC oc;
-      wmma::fill_fragment(oc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kKT; kk += 16) {
-        FragA pa;
-        wmma::load_matrix_sync(pa, P + kk, kLdP);
-        FragBr vb;  // B[k][n] = Vp[kk + k][warp*16 + n]
-        wmma::load_matrix_sync(vb, sV + kk * kLdI + warp * kHd, kLdI);
-        wmma::mma_sync(oc, pa, vb, oc);
-      }
-      wmma::store_matrix_sync(S, oc, 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[tt][j] = acc[tt][j] * alpha + S[row * 16 + half * 8 + j];
-      __syncwarp();  // S and P are read before the next token tile writes them
-    }
-    __syncthreads();  // sK, sV and the slot of tile kt are free
   }
 
+  uint32_t qf[G][NTT][1][4];
+  float m[G][NTT][2], l[G][NTT][2], o[G][NTT][2][4];
+  bool fresh = true;
+  while (it < i1) {
+    if constexpr (kProject) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // tile kt has landed; every warp is done with the last tile
+    const int p0 = prompt0(it), tok0 = (it / splits) % tgroups * kTokGroup;
+    if (fresh) {  // a new item: its queries (A fragments of head `warp`), state
 #pragma unroll
-  for (int tt = 0; tt < kTT; ++tt) {
-    const int tok = tok0 + tt * kTok + row;
-    if (tt >= ntt || tok >= tokens) break;
-    const float lf = fmaxf(l[tt], 1e-30f);
-    bf16* o = out + (static_cast<size_t>(b) * tokens + tok) * kI + warp * kHd + half * 8;
+      for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = to_bf(acc[tt][j] / lf);
+        for (int tt = 0; tt < NTT; ++tt) {
+          const int p = p0 + gi;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int tok = tok0 + 16 * tt + g8 + 8 * (e & 1), col = warp * kHd + 8 * (e >> 1) + q2;
+            qf[gi][tt][0][e] = p < batch && tok < tokens
+                                   ? __ldg(reinterpret_cast<const uint32_t*>(
+                                         q + (static_cast<size_t>(p) * tokens + tok) * kI + col))
+                                   : 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            m[gi][tt][u] = kNegInf;
+            l[gi][tt][u] = 0.f;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) o[gi][tt][u][j] = o[gi][tt][u][j + 2] = 0.f;
+          }
+        }
+      fresh = false;
+    }
+    const bf16* kv = sKV;
+    if constexpr (kProject) {
+      float acc[64];
+      t2i_project(acc, sX + slot * (kT2iX / 2), sW + wg * kI * kC);
+      if (wg == 0) t2i_load_pe(pe, pe_wk, kt * kKT, n);
+      wg_wait<0>();
+      wg_fence_acc(acc);
+      t2i_epilogue(sKV, kLdKV, acc, pe, bias, wg, kKT);
+      __syncthreads();  // [kp | vp] is written; every product has read the x slot
+      if (pf_i < i1) {
+        stage(slot, pf_i, pf_k);
+        advance(pf_i, pf_k);
+      }
+      cp_async_commit();
+    } else {
+      kv = sKV + slot * (kT2iKV / 2);
+      if (pf_i < i1) {  // the other slot's last reader finished before the barrier
+        stage(slot ^ 1, pf_i, pf_k);
+        advance(pf_i, pf_k);
+      }
+      cp_async_commit();
+    }
+    const int k0 = kt * kKT;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int tt = 0; tt < NTT; ++tt) {
+        float s[8][4];
+        strip_scores<kHd>(s, qf[gi][tt], kv + warp * kHd, kLdKV, 4);
+        if (k0 + kKT > n) mask_past(s, k0, n);
+        softmax_tile<kHd, false, kRows>(s, m[gi][tt], l[gi][tt], o[gi][tt]);
+        pv_tile<kHd>(o[gi][tt], s, kv + kI + warp * kHd, kLdKV, 4);
+      }
+    const int done = it;
+    advance(it, kt);
+    slot ^= 1;
+    if (it != done) {  // the item's partial: o (unnormalised), m, l
+      const int r = done % splits;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int tt = 0; tt < NTT; ++tt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int p = p0 + gi, tok = tok0 + 16 * tt + g8 + 8 * u;
+            if (p >= batch || tok >= tokens) continue;
+            const size_t row = (static_cast<size_t>(p) * splits + r) * tokens + tok;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              *reinterpret_cast<float2*>(part_o + row * kI + warp * kHd + 8 * j + q2) =
+                  make_float2(o[gi][tt][j][2 * u], o[gi][tt][j][2 * u + 1]);
+            if ((lane & 3) == 0)
+              *reinterpret_cast<float2*>(part_ml + (row * (kI / kHd) + warp) * 2) =
+                  make_float2(m[gi][tt][u], l[gi][tt][u]);
+          }
+      fresh = true;
+    }
   }
+}
+
+// out[p, t, 16 h + 8 half ..] = bf16(sum_r o_r e^(m_r - M) / sum_r l_r
+// e^(m_r - M)) over the key ranges r in order (M their largest m): a thread
+// a (prompt, token, head, half).
+__global__ void t2i_merge_kernel(const float* __restrict__ part_o,
+                                 const float* __restrict__ part_ml, bf16* __restrict__ out,
+                                 int batch, int tokens, int splits) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= batch * tokens * 16) return;
+  const int half = idx & 1, h = (idx >> 1) & 7, row = idx >> 4;  // row = p * tokens + t
+  const int p = row / tokens, t = row % tokens;
+  float mx = kNegInf;
+  for (int r = 0; r < splits; ++r)
+    mx = fmaxf(mx, part_ml[(((static_cast<size_t>(p) * splits + r) * tokens + t) * 8 + h) * 2]);
+  float den = 0.f, acc[8] = {};
+  for (int r = 0; r < splits; ++r) {
+    const size_t pr = (static_cast<size_t>(p) * splits + r) * tokens + t;
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + (pr * 8 + h) * 2);
+    const float w = expf(ml.x - mx);
+    den += ml.y * w;
+    const float4* src = reinterpret_cast<const float4*>(part_o + pr * kI + h * kHd + 8 * half);
+    const float4 a = src[0], b = src[1];
+    acc[0] += a.x * w, acc[1] += a.y * w, acc[2] += a.z * w, acc[3] += a.w * w;
+    acc[4] += b.x * w, acc[5] += b.y * w, acc[6] += b.z * w, acc[7] += b.w * w;
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  uint4 packed;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = pack_bf16(acc[2 * j] * inv, acc[2 * j + 1] * inv);
+  *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * kI + h * kHd + 8 * half) = packed;
+}
+
+template <int NTT, int G, bool kProject, int kRows = 2>
+int t2i_launch(int grid, size_t smem, cudaStream_t stream, const bf16* q, const bf16* src,
+               const bf16* pe_wk, const bf16* wk, const bf16* bk, const bf16* wv, const bf16* bv,
+               float* part_o, float* part_ml, int batch, int n, int tokens, int splits) {
+  auto kernel = t2i_stream_kernel<NTT, G, kProject, kRows>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kT2iThreads, smem, stream>>>(q, src, pe_wk, wk, bk, wv, bv, part_o, part_ml,
+                                              batch, n, tokens, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- i2t --
@@ -299,29 +447,21 @@ constexpr size_t kParams = (kI + kC) * 2;                // bq, bo
 constexpr size_t kSlot = size_t{kStrip} * kLdC * 2;      // a warp's x strip
 static_assert(kWarps * kSlot <= kRegionA, "batch-1 y strips fit region A");
 
-__device__ __forceinline__ uint32_t u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
-  return *reinterpret_cast<__nv_bfloat162*>(&u);
-}
-// bf16(bf16(bf16(a, b) + c) + d) for a pair: a product's two sums rounded
-// to bf16, then two terms added and rounded in turn (the TPU rounding).
-__device__ __forceinline__ uint32_t add2_round(float a, float b, uint32_t c, uint32_t d) {
-  return u32(__hadd2(__hadd2(__floats2bfloat162_rn(a, b), bf2(c)), bf2(d)));
-}
-
 // qa[h] = the A fragments of qp = bf16(bf16(bf16(x Wq^T) + pe) + bq) for
 // head h of the warp's 16 rows (x: the strip in shared memory; pe: the
-// strip's first row of pe_wq). Products in fp32 registers, rounded there.
+// strip's first row of pe_wq; rows past `valid`, the masked last strip's,
+// read the last valid row's pe: finite, and never written). Products in
+// fp32 registers, rounded there.
 __device__ __forceinline__ void i2t_qp(uint32_t (&qa)[8][4], const bf16* X, const bf16* sWq,
-                                       const bf16* pe, const bf16* sbq) {
+                                       const bf16* pe, const bf16* sbq, int valid) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q2 = 2 * (lane & 3);
+  const bf16* pe_g = pe + min(g, valid - 1) * kI + q2;
+  const bf16* pe_g8 = pe + min(g + 8, valid - 1) * kI + q2;
   uint32_t pe_lo[16], pe_hi[16];  // issued ahead of the products
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    pe_lo[j] = __ldg(reinterpret_cast<const unsigned*>(pe + g * kI + 8 * j + q2));
-    pe_hi[j] = __ldg(reinterpret_cast<const unsigned*>(pe + (g + 8) * kI + 8 * j + q2));
+    pe_lo[j] = __ldg(reinterpret_cast<const unsigned*>(pe_g + 8 * j));
+    pe_hi[j] = __ldg(reinterpret_cast<const unsigned*>(pe_g8 + 8 * j));
   }
   float acc[16][4];
 #pragma unroll
@@ -452,11 +592,13 @@ __device__ __forceinline__ void i2t_out(const uint32_t (&att)[8][4], const bf16*
   }
 }
 
-// LayerNorm (fp32, two-pass variance) of the y strip's 16 rows into out
-// (the strip's first output row): two rows at a time, 16 lanes a row, a
-// lane 8 columns in each half; each row written once, in 16-byte stores.
+// LayerNorm (fp32, two-pass variance) of the y strip's rows into out (the
+// strip's first output row): two rows at a time, 16 lanes a row, a lane 8
+// columns in each half; each of the first `valid` rows written once, in
+// 16-byte stores (every lane runs all 8 pairs: the shuffles take the whole
+// warp).
 __device__ __forceinline__ void i2t_norm(bf16* out, const bf16* Y, const float* ln_w,
-                                         const float* ln_b, float eps) {
+                                         const float* ln_b, float eps, int valid) {
   const int lane = threadIdx.x & 31, c = 8 * (lane & 15);
   float w[16], bias[16];  // the lane's columns' LayerNorm parameters
 #pragma unroll
@@ -497,11 +639,15 @@ __device__ __forceinline__ void i2t_norm(bf16* out, const bf16* Y, const float* 
         const int k = 8 * hf + j;
         ov[j] = to_bf((v[k] - mean) * rstd * w[k] + bias[k]);
       }
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * kC + hf * 128 + c) = packed;
+      if (r < valid)
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * kC + hf * 128 + c) = packed;
     }
   }
 }
 
+// kTail: N is no multiple of 16, so the last strip is masked (C5); without
+// it every strip is full and the masks fold away at compile time.
+template <bool kTail>
 __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
     const bf16* __restrict__ keys, const bf16* __restrict__ pe_wq, const bf16* __restrict__ kp,
     const bf16* __restrict__ vp, const bf16* __restrict__ wq, const bf16* __restrict__ bq,
@@ -524,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
   // block: prompt-major with per-prompt keys (the token ring turns over
   // once a prompt's groups are done), group-major with batch-1 keys (qp of
   // a strip is computed once for the prompts that follow).
-  const int strips = n / kStrip, groups = (strips + nw - 1) / nw;
+  const int strips = (n + kStrip - 1) / kStrip, groups = (strips + nw - 1) / nw;
   const int total = batch * groups;
   const int i0 = static_cast<int>(static_cast<long long>(total) * blockIdx.x / gridDim.x);
   const int i1 = static_cast<int>(static_cast<long long>(total) * (blockIdx.x + 1) / gridDim.x);
@@ -540,10 +686,13 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
     cp_rows<kI>(d, kLdI, kp + g0, 0, tpad, tokens, tid, nt);
     cp_rows<kI>(d + tpad * kLdI, kLdI, vp + g0, 0, tpad, tokens, tid, nt);
   };
+  // Rows of strip s (the last strip's rows past n are zero-filled and
+  // never written).
+  auto rows_of = [&](int s) { return kTail ? min(kStrip, n - s * kStrip) : kStrip; };
   auto stage_x = [&](int i) {  // the warp's strip of item i, if it has one
     const int s = group_of(i) * nw + warp;
     const size_t row0 = static_cast<size_t>(shared_keys ? 0 : prompt_of(i)) * n + s * kStrip;
-    if (s < strips) cp_rows<kC>(X, kLdC, keys + row0 * kC, 0, kStrip, kStrip, lane, 32);
+    if (s < strips) cp_rows<kC>(X, kLdC, keys + row0 * kC, 0, kStrip, rows_of(s), lane, 32);
   };
   if (i0 >= i1) return;
 
@@ -591,7 +740,8 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      if (s < strips) i2t_qp(qa, X, sA, pe_wq + static_cast<size_t>(s) * kStrip * kI, sbq);
+      if (s < strips)
+        i2t_qp(qa, X, sA, pe_wq + static_cast<size_t>(s) * kStrip * kI, sbq, rows_of(s));
       __syncthreads();  // Wq is read out: region A holds y strips again
       cur_g = g;
     }
@@ -599,7 +749,8 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
     if (s < strips) {
       const bf16* sKp = sKV + slot * 2 * tpad * kLdI;
       const bf16* sVp = sKp + tpad * kLdI;
-      if (!shared_keys) i2t_qp(qa, X, sA, pe_wq + static_cast<size_t>(s) * kStrip * kI, sbq);
+      if (!shared_keys)
+        i2t_qp(qa, X, sA, pe_wq + static_cast<size_t>(s) * kStrip * kI, sbq, rows_of(s));
       switch (np) {
         case 1: i2t_attend<1>(att, qa, sKp, sVp, tokens, scale); break;
         case 2: i2t_attend<2>(att, qa, sKp, sVp, tokens, scale); break;
@@ -608,7 +759,8 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
       }
       i2t_out(att, X, Y, sWo, sbo);
       __syncwarp();
-      i2t_norm(out + (static_cast<size_t>(p) * n + s * kStrip) * kC, Y, ln_w, ln_b, eps);
+      i2t_norm(out + (static_cast<size_t>(p) * n + s * kStrip) * kC, Y, ln_w, ln_b, eps,
+               rows_of(s));
       __syncwarp();  // the strip is read out before the next one lands there
     }
     if (!shared_keys && i + 1 < i1) {
@@ -624,32 +776,85 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
 using namespace iuvl;
 
 // q: (B, T, 128) bf16, pre-scaled by 16^-0.5; keys: (Bk, N, 256) bf16 with
-// Bk 1 or B; pe_wk: (N, 128) bf16; wk, wv: (128, 256) bf16 (out, in);
-// bk, bv: (128) bf16; out: (B, T, 128) bf16. Any T >= 1, N % 32 == 0.
+// Bk 1 or B; pe_wk: (N, 128) bf16; wk, wv: (128, 256) bf16 (out, in); bk,
+// bv: (128) bf16; out: (B, T, 128) bf16. Scratch from the wrapper: kpv
+// (N, 256) bf16 (batch-1 keys with B > 1 only), part_o (B, splits, T, 128)
+// and part_ml (B, splits, T, 8, 2) fp32. Any T >= 1 and N >= 1; the key
+// tiles (64 keys) split into `splits` ranges of ceil(tiles / splits), none
+// empty (the wrapper's t2i_plan).
 extern "C" int iuvl_t2i_stream(const void* q, const void* keys, const void* pe_wk, const void* wk,
                                const void* bk, const void* wv, const void* bv, void* out,
-                               int batch, int keys_batch, int n, int tokens, void* stream) {
-  if (tokens < 1 || n % kKT || (keys_batch != 1 && keys_batch != batch))
+                               void* kpv, void* part_o, void* part_ml, int batch, int keys_batch,
+                               int n, int tokens, int splits, void* stream) {
+  if (batch < 1 || tokens < 1 || n < 1 || splits < 1 || (keys_batch != 1 && keys_batch != batch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks_y = (tokens + kTT * kTok - 1) / (kTT * kTok);
-  return launch_kernel(t2i_stream_kernel, dim3(batch, blocks_y), T2iSmem::kBytes, stream,
-                       static_cast<const bf16*>(q), static_cast<const bf16*>(keys),
-                       static_cast<const bf16*>(pe_wk), static_cast<const bf16*>(wk),
-                       static_cast<const bf16*>(bk), static_cast<const bf16*>(wv),
-                       static_cast<const bf16*>(bv), static_cast<bf16*>(out), n, tokens,
-                       static_cast<int>(keys_batch == 1 && batch > 1));
+  const int tiles = (n + kKT - 1) / kKT, len = (tiles + splits - 1) / splits;
+  if ((splits - 1) * len >= tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const bool shared = keys_batch == 1 && batch > 1;
+  const int ntt = (min(tokens, kTokGroup) + 15) / 16, group = shared ? t2i_group(ntt) : 1;
+  const int items = (batch + group - 1) / group * ((tokens + kTokGroup - 1) / kTokGroup) * splits;
+  const int grid = min(device_info().sms, items);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* pe = static_cast<const bf16*>(pe_wk);
+  const auto *wkb = static_cast<const bf16*>(wk), *bkb = static_cast<const bf16*>(bk);
+  const auto *wvb = static_cast<const bf16*>(wv), *bvb = static_cast<const bf16*>(bv);
+  auto* po = static_cast<float*>(part_o);
+  auto* pml = static_cast<float*>(part_ml);
+  int err;
+#define T2I_LAUNCH(NTT, G, PROJECT, SMEM, SRC, ROWS)                                          \
+  t2i_launch<NTT, G, PROJECT, ROWS>(grid, SMEM, st, qb, SRC, pe, wkb, bkb, wvb, bvb, po, pml,  \
+                                    batch, n, tokens, splits)
+  if (shared) {
+    const size_t smem = kT2iW / 2 + kT2iX;
+    cudaError_t e = cudaFuncSetAttribute(t2i_project_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    t2i_project_kernel<<<dim3(tiles, 2), 128, smem, st>>>(static_cast<const bf16*>(keys), pe, wkb,
+                                                          bkb, wvb, bvb, static_cast<bf16*>(kpv),
+                                                          n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    const auto* kv = static_cast<const bf16*>(kpv);
+    switch (ntt) {
+      case 1:
+        err = tokens <= 8 ? T2I_LAUNCH(1, 4, false, kT2iAttSmem, kv, 1)
+                          : T2I_LAUNCH(1, 4, false, kT2iAttSmem, kv, 2);
+        break;
+      case 2: err = T2I_LAUNCH(2, 2, false, kT2iAttSmem, kv, 2); break;
+      case 3: err = T2I_LAUNCH(3, 1, false, kT2iAttSmem, kv, 2); break;
+      default: err = T2I_LAUNCH(4, 1, false, kT2iAttSmem, kv, 2); break;
+    }
+  } else {
+    const auto* x = static_cast<const bf16*>(keys);
+    switch (ntt) {
+      case 1:
+        err = tokens <= 8 ? T2I_LAUNCH(1, 1, true, kT2iProjSmem, x, 1)
+                          : T2I_LAUNCH(1, 1, true, kT2iProjSmem, x, 2);
+        break;
+      case 2: err = T2I_LAUNCH(2, 1, true, kT2iProjSmem, x, 2); break;
+      case 3: err = T2I_LAUNCH(3, 1, true, kT2iProjSmem, x, 2); break;
+      default: err = T2I_LAUNCH(4, 1, true, kT2iProjSmem, x, 2); break;
+    }
+  }
+#undef T2I_LAUNCH
+  if (err) return err;
+  const int threads = batch * tokens * 16;
+  t2i_merge_kernel<<<(threads + 255) / 256, 256, 0, st>>>(po, pml, static_cast<bf16*>(out), batch,
+                                                          tokens, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // keys: (Bk, N, 256) bf16 with Bk 1 or B; pe_wq: (N, 128) bf16; kp, vp:
 // (B, T, 128) bf16; wq: (128, 256) and wo: (256, 128) bf16 (out, in); bq:
 // (128) and bo: (256) bf16; ln_w, ln_b: (256) fp32; out: (B, N, 256) bf16.
-// 1 <= T <= 64, N % 32 == 0.
+// 1 <= T <= 64, any N >= 1.
 extern "C" int iuvl_i2t_block_step(const void* keys, const void* pe_wq, const void* kp,
                                    const void* vp, const void* wq, const void* bq, const void* wo,
                                    const void* bo, const void* ln_w, const void* ln_b, void* out,
                                    int batch, int keys_batch, int n, int tokens, float scale,
                                    float eps, void* stream) {
-  if (batch < 1 || tokens < 1 || tokens > kMaxTok || n < 32 || n % 32 ||
+  if (batch < 1 || tokens < 1 || tokens > kMaxTok || n < 1 ||
       (keys_batch != 1 && keys_batch != batch))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceInfo dev = device_info();
@@ -663,12 +868,13 @@ extern "C" int iuvl_i2t_block_step(const void* keys, const void* pe_wq, const vo
     if (stages == 2) stages = 1;
     else if (--nw == 0) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int groups = (n / kStrip + nw - 1) / nw;
+  const int groups = ((n + kStrip - 1) / kStrip + nw - 1) / nw;
   const int grid = min(sms, batch * groups);
+  auto kernel = n % kStrip ? i2t_block_kernel<true> : i2t_block_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      i2t_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes()));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  i2t_block_kernel<<<grid, nw * 32, bytes(), static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, nw * 32, bytes(), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(keys), static_cast<const bf16*>(pe_wq),
       static_cast<const bf16*>(kp), static_cast<const bf16*>(vp), static_cast<const bf16*>(wq),
       static_cast<const bf16*>(bq), static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),

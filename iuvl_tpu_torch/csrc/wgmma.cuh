@@ -1,0 +1,118 @@
+// Hopper's warpgroup products (wgmma) for the kernels that keep weights
+// resident in shared memory (B4 and B6: twoway_attention.cu,
+// mask_upscale.cu).
+//
+// A warpgroup (4 warps, 128 threads, warp-aligned) issues one product of a
+// 64-row tile asynchronously: B (and A, or A from registers) read from
+// shared memory through 64-bit matrix descriptors, the fp32 sums in
+// registers. In warp w of the group, lane t holds rows 16 w + t / 4 and
+// 16 w + t / 4 + 8 of the 64 x N accumulator, 8-column tile j at d[4 j ..
+// 4 j + 3] in the layout of an mma.sync m16n8k16 accumulator (mma.cuh); so
+// two neighbouring tiles, rounded and packed, are the A fragment of the
+// next product (acc_to_a), from registers again.
+//
+// Operands in shared memory use the layout without swizzling: "core
+// matrices" of 8 rows x 16 bytes, each 128 contiguous bytes, K-major. An
+// (R x K) bf16 tile keeps element (r, k) at element offset cm_index<K>(r,
+// k): the two core matrices of a 16-deep step are 128 bytes apart (the
+// descriptor's leading offset, LBO), 8-row groups K * 16 bytes apart (its
+// stride offset, SBO), and step s of 16 starts 256 bytes on. A core matrix
+// is one 128-byte line, so ldmatrix reads it without bank conflicts too.
+//
+// Order: data written to shared memory by threads or cp.async reaches the
+// products only after fence_async_smem() and a barrier; the accumulators
+// are fenced (wg_fence_acc) around the asynchronous products so that the
+// compiler moves no access across them; wg_wait<0>() returns once the
+// group's products (their shared-memory reads too) are done.
+#pragma once
+
+#include <cstdint>
+
+#include "mma.cuh"
+
+namespace iuvl {
+namespace {
+
+// Element offset of (r, k) in an (R x K) K-major core-matrix tile.
+template <int K>
+__device__ __forceinline__ int cm_index(int r, int k) {
+  return (r >> 3) * (K * 8) + (k >> 3) * 64 + (r & 7) * 8 + (k & 7);
+}
+
+// The descriptor of a K-major core-matrix tile of depth K at p (the start
+// of its 16-deep step 0): no swizzle, LBO 128 bytes, SBO K * 16 bytes.
+// Step s is wg_desc<K>(p) + 16 * s (the address field counts 16 bytes).
+template <int K>
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t{128 >> 4} << 16) |
+         (static_cast<uint64_t>((K * 16) >> 4) << 32);
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x 128, fp32) += A B with A (64 x 16) and B (16 x 128) in shared memory
+// (descriptors a, b); scale_d == 0 takes d as zero.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A B with A in registers (each warp its 16 rows as the
+// A fragment of mma.sync m16n8k16) and B (16 x 64) in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+}  // namespace
+}  // namespace iuvl

@@ -44,7 +44,7 @@ SIGNATURES = {
     "iuvl_window_block": (P,) * 10 + (I, I, I, I, P),
     "iuvl_rowbias_proj": (P,) * 9 + (I,) * 6 + (P,),
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
-    "iuvl_t2i_stream": (P,) * 8 + (I, I, I, I, P),
+    "iuvl_t2i_stream": (P,) * 11 + (I,) * 5 + (P,),
     "iuvl_i2t_block_step": (P,) * 11 + (I, I, I, I, F, F, P),
     "iuvl_window_block_bwd": (P,) * 21 + (I, I, I, I, P),
     "iuvl_block_tail_bwd": (P,) * 21 + (I, I, I, F, P),

@@ -2,7 +2,8 @@
 
 Replaces ``iuvl_tpu/ops/pallas/mask_upscale.py:masks_upscale`` (B6).
 Kernel: ``csrc/mask_upscale.cu``, whose header says what bounds it on the
-card and why the TPU's block-diagonal matrices are not carried over.
+card, how it keeps the weights resident and every intermediate in
+registers, and why the TPU's block-diagonal matrices are not carried over.
 
 A 2x2 / stride-2 transposed conv is a per-site matmul: with the PyTorch
 ``ConvTranspose2d`` weight k (cin, co, 2, 2),
@@ -52,12 +53,12 @@ def masks_upscale_plain(keys, w1, b1, lnw, lnb, w2, b2, hyper):
 
 def masks_upscale(keys, w1, b1, lnw, lnb, w2, b2, hyper):
     """Fused upscale + hypernetwork mask logits: the CUDA kernel for CUDA
-    tensors (bf16, C 256, 4 mask tokens, HW % 64 == 0), the plain version
+    tensors (bf16, C 256, 4 mask tokens, any HW >= 1), the plain version
     for CPU tensors. Arguments as :func:`masks_upscale_plain`."""
     if keys.device.type == "cpu":
         return masks_upscale_plain(keys, w1, b1, lnw, lnb, w2, b2, hyper)
     b, n, c = keys.shape
-    if c != C or hyper.shape[1] != M or n % 64:
+    if c != C or hyper.shape[1] != M or n < 1:
         raise ValueError(
             f"masks_upscale kernel: unsupported C={c}, M={hyper.shape[1]}, HW={n}")
     bf, f32, dev = torch.bfloat16, torch.float32, keys.device

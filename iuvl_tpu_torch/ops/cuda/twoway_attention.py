@@ -4,8 +4,9 @@ Replaces ``iuvl_tpu/ops/pallas/twoway_attention.py``: ``t2i_stream`` (B4,
 token -> image) and ``i2t_block_step`` (B5, image -> token with the
 block's residual and LayerNorm). Kernels: ``csrc/twoway_attention.cu``,
 whose header says what bounds them on the card, why the TPU's
-block-diagonal head packing is not carried over, and how B5 keeps its
-step in registers.
+block-diagonal head packing is not carried over, how B4 splits the key
+axis over work items and merges them, and how B5 keeps its step in
+registers.
 
 Both take the prompt-side tensors unpacked, (B, T, I) with the heads as
 16-wide column slices, and the image keys (Bk, N, C) with Bk 1 (one image
@@ -15,6 +16,8 @@ layout, (out, in).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .build import launch, require
@@ -22,6 +25,26 @@ from .build import launch, require
 C, I, HEADS = 256, 128, 8
 LN_EPS = 1e-5
 I2T_MAX_TOKENS = 64  # a prompt's tokens that B5's kernel holds in shared memory
+T2I_KEY_TILE = 64  # keys a tile of B4's kernel
+T2I_TOKEN_PASS = 64  # tokens a pass of B4's kernel (four 16-row tiles)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def t2i_plan(b: int, n: int, t: int, keys_batch: int, sms: int) -> tuple[int, int]:
+    """B4's work split: (prompts an item, key ranges). With batch-1 keys an
+    item serves 4, 2 or 1 prompts (T <= 16, <= 32, above: the kernel's
+    ``t2i_group``); the ranges are as many as give 2 * ``sms`` items, at most
+    one a 64-key tile, each of ceil(tiles / ranges) tiles, none empty."""
+    tiles = -(-n // T2I_KEY_TILE)
+    ntt = -(-min(t, T2I_TOKEN_PASS) // 16)
+    group = {1: 4, 2: 2}.get(ntt, 1) if keys_batch == 1 and b > 1 else 1
+    units = -(-b // group) * -(-t // T2I_TOKEN_PASS)
+    length = -(-tiles // min(tiles, max(1, -(-2 * sms // units))))
+    return group, -(-tiles // length)
 
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -51,17 +74,17 @@ def t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
 
 def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
     """Token -> image attention streamed over the keys: the CUDA kernel for
-    CUDA tensors (bf16, C 256, I 128, 8 heads, any T, N % 32 == 0), the
+    CUDA tensors (bf16, C 256, I 128, 8 heads, any T >= 1 and N >= 1), the
     plain version for CPU tensors."""
     if keys.device.type == "cpu":
         return t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads)
     b, t, i = q.shape
     bk_keys, n, c = keys.shape
-    if (c, i, heads) != (C, I, HEADS) or t < 1 or n % 32 or bk_keys not in (1, b):
+    if (c, i, heads) != (C, I, HEADS) or t < 1 or n < 1 or bk_keys not in (1, b):
         raise ValueError(
             f"t2i_stream kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            "T >= 1, N % 32 == 0)")
+            "T >= 1, N >= 1)")
     bf, dev = torch.bfloat16, keys.device
     args = dict(q=q, keys=keys, pe_wk=pe_wk, wk=wk, bk=bk, wv=wv, bv=bv)
     shapes = dict(q=(b, t, I), keys=(bk_keys, n, C), pe_wk=(n, I), wk=(I, C), bk=(I,),
@@ -69,8 +92,18 @@ def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
     for name, tensor in args.items():
         require("t2i_stream", name, tensor, bf, shapes[name], dev)
     out = torch.empty((b, t, I), dtype=bf, device=dev)
+    _, splits = t2i_plan(b, n, t, bk_keys, _sm_count(dev))
+    # Scratch, one allocation: the key ranges' partial o (B, splits, T, I)
+    # and (m, l) (B, splits, T, heads, 2) in fp32, then [kp | vp] of the
+    # image rows (N, 2 I) in bf16 with batch-1 keys.
+    rows = b * splits * t
+    kpv_floats = n * I if bk_keys == 1 and b > 1 else 0
+    scratch = torch.empty(rows * (I + 2 * HEADS) + kpv_floats, dtype=torch.float32, device=dev)
+    part_o = scratch.data_ptr()
+    part_ml = part_o + rows * I * 4
+    kpv = part_ml + rows * 2 * HEADS * 4
     launch("iuvl_t2i_stream", dev, *(t_.data_ptr() for t_ in args.values()),
-           out.data_ptr(), b, bk_keys, n, t)
+           out.data_ptr(), kpv, part_o, part_ml, b, bk_keys, n, t, splits)
     t2i_stream.launches += 1
     return out
 
@@ -98,18 +131,18 @@ def i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads:
 def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
     """Image -> token block step (attention, out-projection, residual,
     LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
-    (bf16, C 256, I 128, 8 heads, 1 <= T <= 64, N % 32 == 0; LN params
+    (bf16, C 256, I 128, 8 heads, 1 <= T <= 64, any N >= 1; LN params
     fp32), the plain version for CPU tensors."""
     if keys.device.type == "cpu":
         return i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
     b, t, i = kp.shape
     bk_keys, n, c = keys.shape
-    if ((c, i, heads) != (C, I, HEADS) or not 1 <= t <= I2T_MAX_TOKENS or n < 32 or n % 32
+    if ((c, i, heads) != (C, I, HEADS) or not 1 <= t <= I2T_MAX_TOKENS or n < 1
             or bk_keys not in (1, b)):
         raise ValueError(
             f"i2t_block_step kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            f"1 <= T <= {I2T_MAX_TOKENS}, N % 32 == 0)")
+            f"1 <= T <= {I2T_MAX_TOKENS}, N >= 1)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys.device
     args = dict(keys=keys, pe_wq=pe_wq, kp=kp, vp=vp, wq=wq, bq=bq, wo=wo, bo=bo,
                 ln_w=ln_w, ln_b=ln_b)

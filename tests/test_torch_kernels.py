@@ -193,20 +193,45 @@ def _upscale_inputs(b=2, n=16, c=32, m=4, seed=7):
                 hyper=_rand(rs, b, m, c8, std=0.5))
 
 
-def test_masks_upscale_plain_matches_jax_oracle_and_kernel():
-    a = _upscale_inputs()
-    j = {k: jnp.asarray(v) for k, v in a.items()}
-    jargs = (j["keys"], j["k1"], j["b1"], j["lnw"], j["lnb"], j["k2"], j["b2"], j["hyper"])
+def _upscale_port(a, dtype=torch.float32):
     # flax ConvTranspose kernel (kh, kw, out, in) -> torch (in, out, kh, kw)
-    deconv = lambda k: tmu.flat_deconv(_t(k.transpose(3, 2, 0, 1)))  # noqa: E731
-    flat = tmu.masks_upscale(_t(a["keys"]), deconv(a["k1"]), _t(a["b1"]), _t(a["lnw"]),
-                             _t(a["lnb"]), deconv(a["k2"]), _t(a["b2"]), _t(a["hyper"]))
+    deconv = lambda k: tmu.flat_deconv(_t(k.transpose(3, 2, 0, 1)).to(dtype))  # noqa: E731
+    cast = lambda k: _t(a[k]).to(dtype)  # noqa: E731
+    return tmu.masks_upscale(cast("keys"), deconv(a["k1"]), cast("b1"), _t(a["lnw"]),
+                             _t(a["lnb"]), deconv(a["k2"]), cast("b2"), cast("hyper"))
+
+
+def _upscale_jax(a, dtype=jnp.float32):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    return (j["keys"].astype(dtype), j["k1"], j["b1"], j["lnw"], j["lnb"], j["k2"], j["b2"],
+            j["hyper"])
+
+
+# N 16 (4^2) and N 36 (6^2): a grid whose rows are no multiple of the CUDA
+# kernel's 64-row tile (C5), which JAX's kernel takes.
+@pytest.mark.parametrize("side", [4, 6], ids=["n16", "n36"])
+def test_masks_upscale_plain_matches_jax_oracle_and_kernel(side):
+    a = _upscale_inputs(n=side * side)
+    jargs = _upscale_jax(a)
+    flat = _upscale_port(a)
     assert tmu.masks_upscale.launches == 0
     ref = jmu.masks_upscale_xla(*jargs)
     _close(flat, ref)
-    _close(tmu.unflatten_masks(flat, 4, 4, 4), jmu.unflatten_masks(ref, 4, 4, 4))
+    _close(tmu.unflatten_masks(flat, side, side, 4), jmu.unflatten_masks(ref, side, side, 4))
     with interpret(jmu):
         _close(flat, jmu.masks_upscale(*jargs))
+
+
+def test_masks_upscale_plain_matches_jax_oracle_bf16():
+    """bf16 storage, the rounding points the card holds B6's kernel to: y1
+    and y2 rounded before their biases, the GELUs on bf16 values, the logits
+    stored in bf16. The frameworks' bf16 products and tanh GELUs may land
+    one bf16 ulp (2^-8 relative) apart, so the bound is the JAX suite's
+    bf16 bar of 1e-2, as for the block tail."""
+    a = _upscale_inputs(n=36, seed=11)
+    flat = _upscale_port(a, torch.bfloat16)
+    assert flat.dtype == torch.bfloat16
+    _close(flat, jmu.masks_upscale_xla(*_upscale_jax(a, jnp.bfloat16)), atol=1e-2, rtol=1e-2)
 
 
 def _twoway_inputs(shared, b=3, t=5, n=24, heads=2, d=8, c=32, seed=8):
@@ -223,12 +248,20 @@ def _twoway_inputs(shared, b=3, t=5, n=24, heads=2, d=8, c=32, seed=8):
     return a
 
 
-@pytest.mark.parametrize("shared", [True, False], ids=["batch1_keys", "per_prompt_keys"])
-def test_t2i_stream_plain_matches_jax_oracle_and_kernel(shared):
+@pytest.mark.parametrize("shared, t, n", [
+    pytest.param(True, 5, 24, id="batch1_keys"), pytest.param(False, 5, 24, id="per_prompt_keys"),
+    # A 20-click prompt's 26 tokens; N 100, no multiple of the CUDA kernel's
+    # 64-key tile (C5), which JAX's kernel takes.
+    pytest.param(True, 26, 24, id="batch1_keys_t26"),
+    pytest.param(False, 26, 24, id="per_prompt_keys_t26"),
+    pytest.param(True, 5, 100, id="batch1_keys_n100"),
+    pytest.param(False, 5, 100, id="per_prompt_keys_n100")])
+def test_t2i_stream_plain_matches_jax_oracle_and_kernel(shared, t, n):
     """The TPU functions take block-diagonally packed queries and return
     packed rows; the port's take and return (B, T, heads*d)."""
-    heads, d, per = 2, 8, 8
-    a = _twoway_inputs(shared)
+    heads, d = 2, 8
+    per = -(-t // 8) * 8  # the packed token slots a head: T rounded up to 8
+    a = _twoway_inputs(shared, t=t, n=n)
     b, t, i = a["q"].shape
     out = tta.t2i_stream(*map(_t, (a["q"], a["keys"], a["pe"], a["wk"].T, a["bk"],
                                    a["wv"].T, a["bv"])), heads)
@@ -246,15 +279,20 @@ def test_t2i_stream_plain_matches_jax_oracle_and_kernel(shared):
         _close(out, merge(jta.t2i_stream(*jargs)))
 
 
-@pytest.mark.parametrize("shared, t", [
-    pytest.param(True, 5, id="batch1_keys"), pytest.param(False, 5, id="per_prompt_keys"),
+@pytest.mark.parametrize("shared, t, n", [
+    pytest.param(True, 5, 24, id="batch1_keys"), pytest.param(False, 5, 24, id="per_prompt_keys"),
     # Past 16 tokens (a 20-click prompt's 26), where the CUDA kernel holds
     # the prompt's k and v in more than one 16-token tile.
-    pytest.param(True, 26, id="batch1_keys_t26"), pytest.param(False, 26, id="per_prompt_keys_t26")])
-def test_i2t_block_step_plain_matches_jax_oracle_and_kernel(shared, t):
+    pytest.param(True, 26, 24, id="batch1_keys_t26"),
+    pytest.param(False, 26, 24, id="per_prompt_keys_t26"),
+    # N 100: no multiple of the CUDA kernel's 16-row strip (C5); JAX's
+    # kernel takes it.
+    pytest.param(True, 5, 100, id="batch1_keys_n100"),
+    pytest.param(False, 5, 100, id="per_prompt_keys_n100")])
+def test_i2t_block_step_plain_matches_jax_oracle_and_kernel(shared, t, n):
     heads, d = 2, 8
     per = -(-t // 8) * 8  # the packed token slots a head: T rounded up to 8
-    a = _twoway_inputs(shared, t=t, seed=9)
+    a = _twoway_inputs(shared, t=t, n=n, seed=9)
     out = tta.i2t_block_step(*map(_t, (a["keys"], a["pe"], a["kp"], a["vp"], a["wq"].T,
                                        a["bq"], a["wo"].T, a["bo"], a["ln_w"], a["ln_b"])),
                              heads)

@@ -30,9 +30,19 @@ process, one mode a kernel (``--kernels``, any of them in one run):
 - ``i2t``: B5 (``twoway_attention.cu`` ``iuvl_i2t_block_step``) on a
   256-prompt chunk over N 4096 image tokens: per-prompt keys at T 7 (the
   kernel phase's case), batch-1 keys at T 7 (the decoder's block 0),
-  per-prompt keys at T 26 (a 20-click prompt) and T 64: rel L2 of the
-  output to the plain version, two launches bit-equal, times in turns, the
-  plain version, and the bound (the bytes the function must move).
+  per-prompt keys at T 26 (a 20-click prompt) and T 64, then N 2500 (which
+  the parent refuses): rel L2 of the output to the plain version, two
+  launches bit-equal, times in turns, the plain version, and the bound
+  (the bytes the function must move).
+- ``t2i``: B4 (``twoway_attention.cu`` ``iuvl_t2i_stream``) on a
+  256-prompt chunk over N 4096: per-prompt keys at T 7 (the kernel phase's
+  case), batch-1 keys at T 7 (block 0), per-prompt keys at T 26 and T 64,
+  and 8 prompts of T 26 (an interactive round); then N 2500 (ViT-B at
+  800^2, which the parent refuses); the same readings as ``i2t``, with
+  the bound the larger of bytes and tensor-core operations.
+- ``upscale``: B6 (``mask_upscale.cu`` ``iuvl_masks_upscale``) on 256
+  prompts x N 4096 and on 8 prompts (a round), then N 900 (a 30^2 grid,
+  which the parent refuses): the same readings.
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -47,7 +57,7 @@ launch's registers and shared memory as torch.profiler's trace records them.
 
     git archive <parent> iuvl_tpu_torch/csrc | tar -x -C _chip/parent
     set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent \
-        --kernels i2t tap_scatter seg_scatter 2>&1 | tee kernel_ab.log
+        --kernels t2i upscale i2t 2>&1 | tee kernel_ab.log
 
 The parent's entry points must have the signatures PARENT_SIGS gives them.
 Needs one CUDA card.
@@ -72,6 +82,7 @@ sys.path.insert(0, str(ROOT))
 
 from iuvl_tpu_torch.ops.cuda import build  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import mask_upscale as mu  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import seg_scatter as ss  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import tap_scatter as ts  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import twoway_attention as ta  # noqa: E402
@@ -86,18 +97,24 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                # int64 sorted order, a scratch and block_rows.
                "iuvl_seg_scatter": [P] * 5 + [I] * 4 + [P],
                "iuvl_i2t_block_step": [P] * 11 + [I] * 4 + [F, F, P],
+               # the parent's B4 (one block a prompt, N % 32 == 0) and B6
+               # (HW % 64 == 0): no scratch, no split count.
+               "iuvl_t2i_stream": [P] * 8 + [I] * 4 + [P],
+               "iuvl_masks_upscale": [P] * 9 + [I] * 2 + [P],
                # the parent's B12 adds into a table its wrapper zeroes.
                "iuvl_tap_scatter": [P] * 3 + [I] * 3 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
-          "tap_scatter": "tap_scatter.cu"}
+          "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
+          "upscale": "mask_upscale.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
-           "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",)}
+           "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
+           "t2i": ("iuvl_t2i_stream",), "upscale": ("iuvl_masks_upscale",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
-           "seg_scatter", "seg_pass", "i2t_", "tap_scatter")
+           "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -497,19 +514,64 @@ def seg_ab(parent_tree: Path, work: Path, bad: list) -> None:
     torch.cuda.empty_cache()
 
 
-# B5's shapes: (tag, keys batch 1, tokens) for a 256-prompt chunk over
-# N 4096 image tokens.
-I2T_SHAPES = (("kernel_t7", False, 7), ("batch1_t7", True, 7), ("t26", False, 26),
-              ("t64", False, 64))
-I2T_PROMPTS, I2T_N = 256, 4096
+# B5's shapes: (tag, keys batch 1, tokens, N) for a 256-prompt chunk; N
+# 2500 (ViT-B at 800^2) is C5's, which the parent refuses.
+I2T_SHAPES = (("kernel_t7", False, 7, 4096), ("batch1_t7", True, 7, 4096),
+              ("t26", False, 26, 4096), ("t64", False, 64, 4096), ("n2500", False, 7, 2500))
+I2T_PROMPTS = 256
+
+
+def refused(fn, tag: str, bad: list, who: str):
+    """fn(), or None where the wrapper refuses the shape (ValueError)."""
+    try:
+        return fn()
+    except ValueError as e:
+        bad.append(f"{tag}: {who} refuses it")
+        print(f"{tag}: {who} refuses it: {e}", flush=True)
+        return None
+
+
+def ab_report(tag, new, parent, plain, bound, bad, limit, work) -> None:
+    """Hold this tree's wrapper ``new`` (and the parent's entry, None where
+    it refuses the shape) to ``plain``; two launches bit-equal; times in
+    turns; the plain version's time; the bound (ms, its source); each
+    kernel's device time."""
+    got = refused(new, tag, bad, "this tree")
+    if got is None:
+        return
+    want, again = plain(), new()
+    err, same = rel(got, want), torch.equal(got, again)
+    e_par = f"{rel(parent(), want):.3e}" if parent else "refused"
+    if not err <= limit or not same:
+        bad.append(f"{tag} rel_l2 {err:.3e}, bit-equal {same}")
+    if parent:
+        t_par, t_new = in_turns(parent, new)
+        times = (f"ms this tree {t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} "
+                 f"{t_par[1]:.4f}; mean this {sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}")
+    else:
+        times = f"ms this tree {ms(new):.4f} {ms(new):.4f}; parent refuses"
+    print(f"{tag}: rel_l2 {err:.3e} (parent {e_par}); two launches bit-equal {same}; {times}; "
+          f"plain {ms(plain, 3):.4f}; bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    print(f"{tag} device split, this tree: {kernel_split(new, work)}", flush=True)
+    if parent:
+        print(f"{tag} device split, parent: {kernel_split(parent, work)}", flush=True)
+
+
+def bound_of(tensors, flops: float) -> tuple:
+    """The larger of the bytes (each tensor once) over 3.35 TB/s and the
+    operations over 989 TFLOP/s (bf16 tensor cores), in ms, with its kind."""
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+    return ((by_bytes, f"bytes, {nbytes / 1e6:.1f} MB") if by_bytes >= by_ops
+            else (by_ops, f"operations, {flops / 1e9:.2f} GFLOP"))
 
 
 def i2t_ab(parent_tree: Path, work: Path, bad: list) -> None:
     """B5 (see the module's docstring)."""
     lib = compile_source(parent_tree, work, "i2t")
     c, i = ta.C, ta.I
-    for tag, shared, tok in I2T_SHAPES:
-        b, n = I2T_PROMPTS, I2T_N
+    for tag, shared, tok, n in I2T_SHAPES:
+        b = I2T_PROMPTS
         args = (t(1 if shared else b, n, c), t(n, i, std=0.3), t(b, tok, i), t(b, tok, i),
                 t(i, c, std=c ** -0.5), t(i, std=0.3), t(c, i, std=i ** -0.5), t(c, std=0.3),
                 (1.0 + t(c, std=0.1)).float(), t(c, std=0.3).float())
@@ -520,24 +582,73 @@ def i2t_ab(parent_tree: Path, work: Path, bad: list) -> None:
                                            (i // ta.HEADS) ** -0.5, ta.LN_EPS, stream()) == 0
             return out
 
-        new = lambda: ta.i2t_block_step(*args, ta.HEADS)  # noqa: E731
-        want = ta.i2t_block_step_plain(*args, ta.HEADS)
-        got, again, pgot = new(), new(), parent()
-        err, e_par = rel(got, want), rel(pgot, want)
-        same = torch.equal(got, again)
-        if not err <= 2e-4 or not same:
-            bad.append(f"i2t@{tag} rel_l2 {err:.3e}, bit-equal {same}")
-        t_par, t_new = in_turns(parent, new)
-        nbytes = sum(x.numel() * x.element_size() for x in (*args, got))
-        print(f"i2t@{tag} (B {b}, keys batch {args[0].shape[0]}, N {n}, T {tok}): rel_l2 "
-              f"{err:.3e} (parent {e_par:.3e}); two launches bit-equal {same}; ms this tree "
-              f"{t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
-              f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; plain "
-              f"{ms(lambda: ta.i2t_block_step_plain(*args, ta.HEADS), 3):.4f}; bound "
-              f"{nbytes / 3.35e12 * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
-        print(f"i2t@{tag} device split, this tree: {kernel_split(new, work)}", flush=True)
-        print(f"i2t@{tag} device split, parent: {kernel_split(parent, work)}", flush=True)
-        del got, again, pgot, want, args
+        out_bytes = b * n * c * 2
+        bound = bound_of(args, 0)
+        bound = (bound[0] + out_bytes / 3.35e12 * 1e3, "bytes")
+        ab_report(f"i2t@{tag} (B {b}, keys batch {args[0].shape[0]}, N {n}, T {tok})",
+                  lambda: ta.i2t_block_step(*args, ta.HEADS), parent if n % 32 == 0 else None,
+                  lambda: ta.i2t_block_step_plain(*args, ta.HEADS), bound, bad, 2e-4, work)
+        del args
+        torch.cuda.empty_cache()
+
+
+# B4's shapes: (tag, prompts, keys batch 1, tokens, N): the kernel phase's
+# case, block 0's call (batch-1 keys), 20- and 50-click prompts, an
+# interactive round (8 prompts), and C5's N 2500.
+T2I_SHAPES = (("kernel_t7", 256, False, 7, 4096), ("batch1_t7", 256, True, 7, 4096),
+              ("t26", 256, False, 26, 4096), ("t64", 256, False, 64, 4096),
+              ("round8_t26", 8, False, 26, 4096), ("n2500", 256, False, 7, 2500))
+
+
+def t2i_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B4 (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "t2i")
+    c, i = ta.C, ta.I
+    for tag, b, shared, tok, n in T2I_SHAPES:
+        bk = 1 if shared else b
+        args = (t(b, tok, i, std=0.25), t(bk, n, c), t(n, i, std=0.3), t(i, c, std=c ** -0.5),
+                t(i, std=0.3), t(i, c, std=c ** -0.5), t(i, std=0.3))
+
+        def parent():
+            out = torch.empty((b, tok, i), dtype=torch.bfloat16, device="cuda")
+            assert lib.iuvl_t2i_stream(*ptr(*args, out), b, bk, n, tok, stream()) == 0
+            return out
+
+        flops = 4 * bk * n * c * i + 4 * b * tok * n * i
+        out = torch.empty((b, tok, i), dtype=torch.bfloat16, device="cuda")
+        ab_report(f"t2i@{tag} (B {b}, keys batch {bk}, N {n}, T {tok})",
+                  lambda: ta.t2i_stream(*args, ta.HEADS), parent if n % 32 == 0 else None,
+                  lambda: ta.t2i_stream_plain(*args, ta.HEADS), bound_of((*args, out), flops),
+                  bad, 5e-3, work)
+        del args, out
+        torch.cuda.empty_cache()
+
+
+# B6's shapes: (tag, prompts, N): a 256-prompt chunk at 64^2, a round of 8
+# prompts, and C5's 30^2 grid.
+UPSCALE_SHAPES = (("chunk", 256, 4096), ("round8", 8, 4096), ("n900", 256, 900))
+
+
+def upscale_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B6 (see the module's docstring)."""
+    lib = compile_source(parent_tree, work, "upscale")
+    c, c4, c8, m = mu.C, mu.C // 4, mu.C // 8, mu.M
+    for tag, b, n in UPSCALE_SHAPES:
+        args = (t(b, n, c), t(c, 4 * c4, std=c ** -0.5), t(c4, std=0.3),
+                (1.0 + t(c4, std=0.1)).float(), t(c4, std=0.3).float(),
+                t(c4, 4 * c8, std=c4 ** -0.5), t(c8, std=0.3), t(b, m, c8, std=c8 ** -0.5))
+
+        def parent():
+            out = torch.empty((b, n, m * 16), dtype=torch.bfloat16, device="cuda")
+            assert lib.iuvl_masks_upscale(*ptr(*args, out), b, n, stream()) == 0
+            return out
+
+        flops = 2 * b * n * c * 4 * c4 + 2 * b * 4 * n * c4 * 4 * c8 + 2 * b * 16 * n * m * c8
+        out = torch.empty((b, n, m * 16), dtype=torch.bfloat16, device="cuda")
+        ab_report(f"upscale@{tag} (B {b}, N {n})", lambda: mu.masks_upscale(*args),
+                  parent if n % 64 == 0 else None, lambda: mu.masks_upscale_plain(*args),
+                  bound_of((*args, out), flops), bad, 2e-4, work)
+        del args, out
         torch.cuda.empty_cache()
 
 
@@ -601,7 +712,7 @@ def tap_ab(parent_tree: Path, work: Path, bad: list) -> None:
 
 
 MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
-         "tap_scatter": tap_ab}
+         "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab}
 
 
 def main() -> int:
