@@ -19,7 +19,8 @@ Phases (any failure raises, so the exit code is non-zero):
    the global one (12 heads of N 4096), each shape a row of its own; B11's
    forward and backward, each a row, on the augmented q, k of a global
    block at ViT-B 1024^2 and 800^2 (N 2500: masked last tiles), the
-   forward also at ViT-H's serving shape; B17, which no path runs, at the
+   forward also at ViT-H's serving shape; B1 also at ViT-H and at ViT-B
+   512^2, B2 also at ViT-B 512^2; B17, which no path runs, at the
    shape of B7's d_value scatter and at a skewed case). Every output's
    relative L2 error must stay within its own bound
    (KERNEL_BOUNDS). Planted faults run through the plain version (a bias,
@@ -29,12 +30,14 @@ Phases (any failure raises, so the exit code is non-zero):
    a point dropped, an index one cell off, weights rounded per point
    instead of per cell, the slot mask dropped, the final attention reading
    keys1, a softmax merge missing a split, B13's relw read from the
-   neighbouring column, a B2b / B14 / B11 dq pass that skips the last key
+   neighbouring column, B1's last 4-row strip unwritten or a window's keys
+   from the next window, B2's last head left out of the projection, a
+   B2b / B14 / B11 dq pass that skips the last key
    tile, alpha not applied at a key tile, a dk/dv strip left unwritten,
    B17's partial sums of a destination that spans blocks dropped):
    each must move some output by more than its bound, and each output's
    bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of the B2b / B14 / B11 forward and backward and of B17 on
+   two launches of B1, B2, the B2b / B14 / B11 forward and backward and of B17 on
    the same inputs must give the same bits, and B14's expander group words must equal
    their plain version's. Times from CUDA events after a warm-up (20 calls at the
    global shapes of B2b, B14 and B13); for B11 (SDPA forward, and forward
@@ -310,7 +313,7 @@ RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
                  "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
-                 "masks_upscale")
+                 "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -880,6 +883,47 @@ def flash_train_cases(t, main, dev):
     return cases
 
 
+def _wb_last_strip_unwritten(a):
+    """B1 leaving rows 192-195 of each window (its last 4-row strip) unwritten."""
+    from iuvl_tpu_torch.ops.cuda import window_block as wb
+
+    out = wb.window_attention_block_plain(*a).clone()
+    out[:, 192:196] = 0
+    return (out,)
+
+
+def _wb_keys_of_next_window(a):
+    """B1 taking window w's keys from window w + 1 (the last window's from
+    window 0): the plain version with k rolled over the windows."""
+    from iuvl_tpu_torch.ops.cuda import window_block as wb
+
+    attend = wb.rowbias_attention
+    rolled = lambda q, k, *rest: attend(q, torch.roll(k, -1, 0), *rest)  # noqa: E731
+    with _patched(wb, "rowbias_attention", rolled):
+        return (wb.window_attention_block_plain(*a),)
+
+
+def window_block_faults(d: int) -> dict:
+    """B1's planted faults (head dim d)."""
+    return {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
+            "rel_pos_w dropped": _zero(6), "heads 0/1 swapped in wo": _swap(3, 1, d),
+            "the last 4-row strip of each window unwritten": _planted(_wb_last_strip_unwritten),
+            "window w's keys taken from window w + 1": _planted(_wb_keys_of_next_window)}
+
+
+def _last_head_dropped(a):
+    """B2 leaving the last head out of the projection (its o_h zero: v's last
+    head zeroed)."""
+    v = a[2].clone()
+    v[:, -1] = 0
+    return a[:2] + (v,) + a[3:]
+
+
+ROWBIAS_PROJ_FAULTS = {"bo dropped": _zero(6), "relh dropped": _zero(3),
+                       "relw dropped": _zero(4), "heads 0/1 swapped in v": _swap(2, 1, 1),
+                       "the last head left out of the projection": _last_head_dropped}
+
+
 def kernel_cases(rs: np.random.RandomState, dev):
     """(name, args, planted faults {name: args -> args, or ("out", j)},
     timing iters) at the path shapes, with the weight layouts the models
@@ -907,6 +951,18 @@ def kernel_cases(rs: np.random.RandomState, dev):
     relh, relw = rel_pos_features(q, grh, grw)
     flash = (q * d ** -0.5, k, v, relh, relw, t(c, c, std=c ** -0.5), t(c, std=s, dtype=f32),
              64)
+    # B1 at ViT-H (C 1280, 16 heads of 80) and at ViT-B 512^2 (9 windows); B2
+    # at ViT-B 512^2 (a 32 x 32 grid).
+    hrh, hrw = rel_pos_tables(t(27, 80, std=s), t(27, 80, std=s), (14, 14))
+    win_h = (t(25, 196, 1280), t(3 * 1280, 1280, std=1280 ** -0.5),
+             t(3 * 1280, std=s, dtype=f32), t(1280, 1280, std=1280 ** -0.5),
+             t(1280, std=s, dtype=f32), hrh, hrw, 16)
+    win9 = (t(9, 196, c),) + win[1:]
+    q5, k5, v5 = (t(1, heads, 1024, d) for _ in range(3))
+    relh5, relw5 = rel_pos_features(q5, *rel_pos_tables(t(63, d, std=s), t(63, d, std=s),
+                                                        (32, 32)))
+    flash512 = (q5 * d ** -0.5, k5, v5, relh5, relw5, t(c, c, std=c ** -0.5),
+                t(c, std=s, dtype=f32), 32)
     tail = (t(n, c), t(n, c), 1.0 + t(c, std=0.1, dtype=f32), t(c, std=s, dtype=f32),
             t(4 * c, c, std=c ** -0.5), t(4 * c, std=s), t(4 * c, c, std=(4 * c) ** -0.5),
             t(c, std=s))
@@ -976,12 +1032,11 @@ def kernel_cases(rs: np.random.RandomState, dev):
         f"of {nh * lq} rows have points that share a cell")
     return [
         ("decode_tail", decode_tail_case(rs, dev), DECODE_TAIL_FAULTS, 5),
-        ("window_attention_block", win,
-         {"bqkv dropped": _zero(2), "bo dropped": _zero(4), "rel_pos_h dropped": _zero(5),
-          "rel_pos_w dropped": _zero(6), "heads 0/1 swapped in wo": _swap(3, 1, d)}, 10),
-        ("flash_attention_rowbias_proj", flash,
-         {"bo dropped": _zero(6), "relh dropped": _zero(3), "relw dropped": _zero(4),
-          "heads 0/1 swapped in v": _swap(2, 1, 1)}, 10),
+        ("window_attention_block", win, window_block_faults(d), 10),
+        ("window_attention_block@vit_h", win_h, window_block_faults(80), 10),
+        ("window_attention_block@nw9", win9, window_block_faults(d), 10),
+        ("flash_attention_rowbias_proj", flash, ROWBIAS_PROJ_FAULTS, 10),
+        ("flash_attention_rowbias_proj@n1024_w32", flash512, ROWBIAS_PROJ_FAULTS, 10),
         ("block_tail", tail,
          {"b1 dropped": _zero(5), "b2 dropped": _zero(7), "LN bias dropped": _zero(3)}, 10),
         ("masks_upscale", up, UPSCALE_FAULTS, 5),

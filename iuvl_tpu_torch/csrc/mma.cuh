@@ -1,8 +1,8 @@
 // Register-level tensor-core helpers for the attention kernels that keep
 // their scores in registers (B13 window_attention.cu, the B2b / B14
-// forward and backward in flash_attention_rowbias.cu, B11's in
-// flash_attention_train.cu), and the online softmax of a 64-key tile
-// that the forwards share.
+// forward and backward in flash_attention_rowbias.cu and rowbias_fwd.cuh,
+// B11's in flash_attention_train.cu, B1's in window_block.cu), and the
+// online softmax of a 64-key tile that the forwards share.
 //
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) with its fragments loaded
 // by ldmatrix from padded shared-memory rows. In a warp, lane t holds:
@@ -150,20 +150,20 @@ __device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, int 
 }
 
 // A warp's 16-row strip of fp32 accumulators x[D / 8][4] (rows row0 ..
-// row0 + 15 of a (n, D) bf16 matrix at out), rounded to bf16; rows past n
-// dropped.
+// row0 + 15 of an (n, D) bf16 matrix at out, rows ld apart), rounded to
+// bf16; rows past n dropped.
 template <int D>
 __device__ __forceinline__ void store_strip_rows(bf16* out, const float (&x)[D / 8][4], int row0,
-                                                 int n) {
+                                                 int n, int ld = D) {
   const int lane = threadIdx.x & 31, lo = row0 + (lane >> 2), hi = lo + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
     if (lo < n)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(lo) * D + c) =
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(lo) * ld + c) =
           pack_bf16(x[j][0], x[j][1]);
     if (hi < n)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(hi) * D + c) =
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(hi) * ld + c) =
           pack_bf16(x[j][2], x[j][3]);
   }
 }

@@ -1,6 +1,7 @@
 // Hopper's warpgroup products (wgmma) for the kernels that keep weights
 // resident in shared memory (B4 and B6: twoway_attention.cu,
-// mask_upscale.cu).
+// mask_upscale.cu) and for the GEMM of linear_wgmma.cuh (B1, B2), which
+// stores its tiles with the 128-byte swizzle instead.
 //
 // A warpgroup (4 warps, 128 threads, warp-aligned) issues one product of a
 // 64-row tile asynchronously: B (and A, or A from registers) read from

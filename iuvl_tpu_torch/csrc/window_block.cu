@@ -1,267 +1,337 @@
-// Whole windowed-attention module body for SAM's windowed ViT blocks:
+// Whole windowed-attention module body for SAM's windowed ViT blocks (B1):
 //   qkv = x @ Wqkv^T + bqkv;  per head h: o_h = softmax(q_h k_h^T * d^-1/2
 //   + relh + relw) @ v_h (fp32 softmax);  out = concat_h(o_h) @ Wo^T + bo.
 // Replaces iuvl_tpu/ops/pallas/window_block.py:window_attention_block.
 //
-// Bound on the card: per 14x14 window ~1.1 GFLOP of products (qkv 0.74,
-// attention 0.13, projection 0.25) against 0.3 MB of input; tensor-core
-// bound. One window's x (196 x 768 bf16, 301 KB) exceeds a block's shared
-// memory, so the qkv product is tiled over C in 64-wide slices staged in
-// shared memory. The cross-head projection needs every head's output of a
-// window, so one thread-block cluster of kCluster blocks owns one window
-// and runs three phases separated by cluster barriers: (A) qkv into a
-// wrapper-allocated scratch (N padded to a multiple of 16, L2-resident),
-// each block a quarter of the columns; (B) per head (a quarter of the
-// heads each), scores and softmax per 16-query tile in shared memory, o_h
-// into a second scratch; (C) the projection, a quarter of the columns
-// each. No atomics. At B=1 the grid is 25 clusters, 100 blocks for 132
-// SMs (one block per SM: 191 KB of shared memory). Shared-memory rows are
-// padded against bank conflicts, and the rel-pos features are computed
-// one query row per warp with lanes over the head dim, so that their
-// loads are coalesced: the first version of both phases spent most of
-// its time on conflicting and scattered loads.
+// Bound on the card: operations. Per 14 x 14 window ~1.05 GFLOP of products
+// (qkv 0.69, attention 0.12, projection 0.23, the rel-pos features 0.01)
+// against 0.3 MB of input: 26.3 GFLOP at ViT-B 1024^2 (25 windows), 0.027 ms
+// at 989 TFLOP/s. Three kernels behind the one C entry, with no cluster and
+// no block that owns a window's three phases:
+// - qkv: the wgmma GEMM of linear_wgmma.cuh over all windows' rows at once
+//   (M = windows x 196, N = 3 C, K = C), its epilogue rounding bf16(bf16(x
+//   Wqkv^T) + bf16(bqkv)) and scattering into a (windows, 3, heads, 196, d)
+//   bf16 scratch, so that each (window, head)'s q, k and v are contiguous.
+//   Wqkv tiles reach the tensor cores from shared memory, once a block a
+//   64-deep step, not as fragments from L2 at every 16-deep step (88 MB of
+//   L2 traffic at ViT-B).
+// - attention, wb_attention_kernel: a block of four warps owns a (window,
+//   head) pair (300 blocks at ViT-B, two to an SM), as B13's resident
+//   kernel (window_attention.cu) does. Its K and V land once by cp.async,
+//   K with key 14 g + c at slot 16 g + c (224 slots; the two slots past each
+//   grid row are zero and masked), so that a 16-key group of a score tile
+//   is one grid row g: relh[q, g] is one value a row a group and relw[q, c]
+//   a fixed pair of registers a lane row (-inf at c 14, 15: the mask). relh and
+//   relw come first, on the tensor cores: for each grid row (column) g the
+//   product of its 14 query rows and the table slice Rh[g] (Rw[g]), the fp32
+//   table split into three bf16 parts (three products, fp32 sums: the fp32
+//   einsum of the plain version to a few ulp), rounded to bf16 into shared
+//   rows. Then each warp walks 16-row strips (13 a pair) with no further
+//   block barrier: three passes over the keys with the scores in registers
+//   (mma.sync m16n8k16), because the plain version rounds the normalised
+//   p = bf16(e / sum): as the TPU kernel, pass 1 takes each row's max,
+//   pass 2 its sum of expf(s - max), pass 3 forms p = bf16(e / sum) and
+//   writes it in key order into the warp's rows of shared memory, then p v
+//   runs over 13 chunks of 16 keys in key order, V in key order, as the
+//   plain version's product sums it. (A design with one online pass for
+//   the max and sum, by ex2.approx and 1 / sum, failed chip_smoke.py's
+//   pooled CE train gate at 1.52x plain bf16's distance from fp32, and one
+//   that fed p from registers over the key slots, 14 keys a chunk, failed
+//   its batch-2 gradient gate at 1.43x and 1.46x; with p v in key order both
+//   passed: PERF.md, PR 13.) bf16(o_h) goes once into a token-major
+//   (windows, 196, C) scratch.
+// - projection: the same GEMM on that scratch, its epilogue bf16(bf16(o
+//   Wo^T) + bf16(bo)).
+// Measured (ptxas on the card; no spills): wb_attention_kernel<64> 210
+// registers and 100,832 bytes of shared memory a block, <80> 214 and
+// 114,656 (two blocks an SM: 264 at a time, so ViT-B's 300 pairs take two
+// rounds); the GEMM 124 registers, 99,328 bytes. On the card (H100 SXM,
+// 700 W; tools/kernel_ab.py, PERF.md) the call takes 0.227 ms at ViT-B
+// 1024^2 against its 0.027 ms bound: the qkv GEMM 0.056 ms of device time
+// (310 TFLOP/s), the attention 0.142, the projection 0.020. (The first
+// build of this design, one online pass with ex2.approx and p from
+// registers, three blocks an SM, took 0.048 ms for the attention.)
 //
-// The head dim is a template parameter: 64 (ViT-B/L) or 80 (ViT-H, C
-// 1280, 16 heads). The scores are bf16(q d^-1/2) . k, as the plain version
-// scales q in the working dtype; at 64, where d^-1/2 = 1/8 is exact either
-// way, the fp32 scores are scaled instead.
+// The head dim is a template parameter of the attention: 64 (ViT-B/L) or
+// 80 (ViT-H, C 1280, 16 heads). The scores are bf16(q d^-1/2) . k, as the
+// plain version scales q in the working dtype (exact at 64, where d^-1/2 =
+// 1/8).
 //
 // Rounding points follow the plain version (the JAX _block_xla math), so
 // that the two differ only in summation order: qkv = bf16(bf16(x @ W) +
-// bf16(b)); relh/relw = bf16(q . R) with an fp32 sum; scores fp32;
-// p = bf16(e / sum); o_h = bf16(p @ v); out = bf16(bf16(o @ Wo) + bf16(bo)).
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+// bf16(b)); relh/relw = bf16(q . R) with an fp32 sum; scores fp32, s =
+// (q.k + relh) + relw; p = bf16(e / sum); o_h = bf16(p @ v); out =
+// bf16(bf16(o @ Wo) + bf16(bo)).
+#include "linear_wgmma.cuh"
 
 namespace iuvl {
-namespace cg = cooperative_groups;
 namespace {
 
-constexpr int kWin = 14;   // window side
-constexpr int kN = kWin * kWin;
-constexpr int kRT = (kN + 15) / 16;  // 13 row tiles
-constexpr int kNP = kRT * 16;        // 208 padded rows
-constexpr int kSlice = 64;           // C slice of x staged per step
-constexpr int kSCols = (kNP + 31) / 32;
-// Shared-memory row strides, padded so that the 8 rows a fragment load
-// reads at once fall on different banks.
-constexpr int kLdX = kSlice + 8;  // x slice (bf16)
-constexpr int kLdS = kNP + 4;     // scores (fp32)
-constexpr int kLdP = kNP + 8;     // probabilities (bf16)
-constexpr int kCluster = 4;          // blocks per window
+constexpr int kWin = 14;            // window side
+constexpr int kN = kWin * kWin;     // tokens a window
+constexpr int kNP = 208;            // tokens padded to 16
+constexpr int kSlots = kWin * 16;   // key slots: a grid row of 14 keys in 16
+constexpr int kWbThreads = 128;     // 4 warps, each a 16-row strip at a time
+constexpr int kRelLd = 2 * kWin;    // a token's bf16 relh | relw
+constexpr int kLdP = kNP + 8;       // a warp's p rows (bf16), padded against bank conflicts
 
-template <int kHd>  // head dim
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) window_block_kernel(
-    const bf16* __restrict__ xw, const bf16* __restrict__ wqkv,
-    const float* __restrict__ bqkv, const bf16* __restrict__ wo,
-    const float* __restrict__ bo, const float* __restrict__ rh,
-    const float* __restrict__ rw, bf16* qkv, bf16* obuf, bf16* __restrict__ out, int C) {
+template <int D>
+struct WbSmem {
+  static constexpr int kLd = D + 8;  // K, V rows (bf16), padded against bank conflicts
+  // K in key slots, V in key order, every token's relh | relw, each warp's p.
+  static constexpr size_t kBytes =
+      ((kSlots + kNP) * kLd + kN * kRelLd + 4 * 16 * kLdP) * sizeof(bf16);
+};
+
+// x as three bf16 parts (two values packed in each): hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid), so that hi + mid + lo is x to
+// about 2^-25 of x and a bf16 q times it is the fp32 product (hi + lo
+// alone leave x to 2^-17, coarser than the fp32 sum's own rounding).
+__device__ __forceinline__ void split_bf16(float2 x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float2 r = make_float2(x.x - hf.x, x.y - hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r.x, r.y);
+  const float2 mf = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(r.x - mf.x, r.y - mf.y);
+}
+
+// s = (q.k + relh[row, g]) + relw[row, c] for the strip's 16-key groups p <
+// groups of the 64-slot tile kt (group p is grid row g = 4 kt + p, its
+// slots c = 0..15), -inf in the groups past. rw[u][j]: relw of the lane's
+// row u at c = 8 j + 2 (lane % 4) and c + 1, two bf16 (-inf at c >= 14: the
+// masked slots); rel0, rel1 the lane's two rows of relh | relw in shared
+// memory (a row past the window reads the last one: its outputs are
+// dropped).
+template <int D>
+__device__ __forceinline__ void wb_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
+                                          const bf16* Kt, int groups, int kt,
+                                          const bf16* rel0, const bf16* rel1,
+                                          const uint32_t (&rw)[2][2]) {
+  const bool pad = (threadIdx.x & 3) == 3;  // the lane's columns 14, 15 at j = 1
+  strip_scores<D>(s, qf, Kt, D + 8, groups);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    if (p >= groups) {
+#pragma unroll
+      for (int j = 2 * p; j < 2 * p + 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = kNegInf;
+      continue;
+    }
+    const int g = 4 * kt + p;
+    const float rh[2] = {to_f(rel0[g]), to_f(rel1[g])};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rw[u][j]));
+        if (j == 1 && pad) w = make_float2(kNegInf, kNegInf);
+        s[2 * p + j][2 * u] = (s[2 * p + j][2 * u] + rh[u]) + w.x;
+        s[2 * p + j][2 * u + 1] = (s[2 * p + j][2 * u + 1] + rh[u]) + w.y;
+      }
+  }
+}
+
+// One (window, head) pair a block: rel-pos features, then the attention of
+// its 13 strips in three passes (see the header). Two blocks an SM.
+template <int D>
+__global__ void __launch_bounds__(kWbThreads, 2) wb_attention_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ rh, const float* __restrict__ rw,
+    bf16* __restrict__ o, int heads, float scale) {
+  constexpr int kLd = WbSmem<D>::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* stage_all = reinterpret_cast<float*>(smem);  // 8 x 256 fp32
-  unsigned char* region = smem + kWarps * 256 * sizeof(float);
-  // phase A view
-  bf16* xs = reinterpret_cast<bf16*>(region);  // kNP x kLdX
-  // phase B view
-  float* relh = reinterpret_cast<float*>(region);  // kNP x kWin
-  float* relw = relh + kNP * kWin;                 // kNP x kWin
-  float* sbuf = relw + kNP * kWin;                 // 8 x 16 x kLdS
-  bf16* pbuf = reinterpret_cast<bf16*>(sbuf + kWarps * 16 * kLdS);  // 8 x 16 x kLdP
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int C3 = 3 * C;
-  const int heads = C / kHd;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const size_t win = blockIdx.x / kCluster;
-  const bf16* x = xw + win * kN * C;
-  bf16* qkv_w = qkv + win * kNP * C3;
-  bf16* o_w = obuf + win * kNP * C;
-  float* st = stage_all + warp * 256;
-
-  // ---- phase A: qkv = x @ Wqkv^T + b, all kNP rows (pad rows: x = 0) ----
-  for (int n0 = rank * 128; n0 < C3; n0 += kCluster * 128) {
-    FragC acc[kRT];
-#pragma unroll
-    for (int rt = 0; rt < kRT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-    const int ncol = n0 + warp * 16;
-    for (int k0 = 0; k0 < C; k0 += kSlice) {
-      __syncthreads();
-      for (int i = tid; i < kNP * (kSlice / 8); i += kThreads) {
-        const int r = i / (kSlice / 8), v = i % (kSlice / 8);
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r < kN) val = *reinterpret_cast<const uint4*>(x + r * C + k0 + v * 8);
-        *reinterpret_cast<uint4*>(xs + r * kLdX + v * 8) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kSlice; kk += 16) {
-        FragBc fb;  // B[k][n] = Wqkv[ncol + n][k0 + kk + k]
-        wmma::load_matrix_sync(fb, wqkv + static_cast<size_t>(ncol) * C + k0 + kk, C);
-#pragma unroll
-        for (int rt = 0; rt < kRT; ++rt) {
-          FragA fa;
-          wmma::load_matrix_sync(fa, xs + rt * 16 * kLdX + kk, kLdX);
-          wmma::mma_sync(acc[rt], fa, fb, acc[rt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rt = 0; rt < kRT; ++rt) {
-      wmma::store_matrix_sync(st, acc[rt], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + e / 16, c = ncol + e % 16;
-        qkv_w[r * C3 + c] = to_bf(round_bf(st[e]) + round_bf(bqkv[c]));
-      }
-      __syncwarp();
-    }
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // kSlots x kLd: key 14 g + c at slot 16 g + c
+  bf16* Vs = Ks + kSlots * kLd;              // kNP x kLd, in key order
+  bf16* REL = Vs + kNP * kLd;                // kN x kRelLd
+  bf16* Pw = REL + kN * kRelLd + (threadIdx.x >> 5) * 16 * kLdP;  // the warp's 16 x kLdP
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, lo = lane >> 2;
+  const int q2 = 2 * (lane & 3);
+  const int win = blockIdx.x / heads, hd = blockIdx.x - win * heads;
+  const size_t plane = static_cast<size_t>(kN) * D;  // one (window, which, head) tile
+  const bf16* qh = qkv + (static_cast<size_t>(win) * 3 * heads + hd) * plane;
+  const bf16* kh = qh + heads * plane;
+  const bf16* vh = kh + heads * plane;
+  for (int i = tid; i < kSlots * (D / 8); i += kWbThreads) {
+    const int slot = i / (D / 8), c8 = (i - slot * (D / 8)) * 8, c = slot & 15;
+    const bool in = c < kWin;
+    const size_t src = static_cast<size_t>(in ? (slot >> 4) * kWin + c : 0) * D + c8;
+    cp_async16_zfill(Ks + slot * kLd + c8, kh + src, in);
   }
-  cluster.sync();  // every block's qkv columns are written
+  cp_rows<D>(Vs, kLd, vh, 0, kNP, kN, tid, kWbThreads);
+  cp_async_commit();
+  // p's columns past the window stay zero: p v runs over 13 chunks of 16 keys.
+  for (int i = lane; i < 16 * (kNP - kN); i += 32)
+    Pw[(i / (kNP - kN)) * kLdP + kN + i % (kNP - kN)] = to_bf(0.f);
 
-  // ---- phase B: attention per head ----
-  const float scale = 1.f / sqrtf(static_cast<float>(kHd));  // 64: exact 0.125
-  for (int h = rank; h < heads; h += kCluster) {
-    const bf16* qh = qkv_w + h * kHd;
-    const bf16* kh = qh + C;
-    const bf16* vh = qh + 2 * C;
-    // relh/relw = bf16(q_i . R): one warp per query row, lanes over the
-    // head dim so that every load is coalesced, one warp sum per entry.
-    constexpr int kQL = (kHd + 31) / 32;  // head-dim entries a lane
-    for (int i = warp; i < kN; i += kWarps) {
-      const bf16* qi = qh + i * C3;
-      float qv[kQL];
+  // relh (t 0) of grid row g and relw (t 1) of grid column g: the line's 14
+  // query rows (token t ? 14 r + g : 14 g + r) times the table slice T[g]
+  // (14 x D fp32, B[c][a] = T[g][a][c]), as products with its three bf16
+  // parts, the small parts summed apart from the large.
+  for (int line = warp; line < 2 * kWin; line += kWbThreads / 32) {
+    const int t = line / kWin, g = line - t * kWin;
+    const float* T = (t ? rw : rh) + static_cast<size_t>(g) * kWin * D;
+    const int r_lo = lo, r_hi = lo + 8;
+    const int tok_lo = t ? r_lo * kWin + g : g * kWin + r_lo;
+    const int tok_hi = t ? r_hi * kWin + g : g * kWin + r_hi;
+    float acc[2][4] = {}, small[2][4] = {};
 #pragma unroll
-      for (int u = 0; u < kQL; ++u) qv[u] = lane + 32 * u < kHd ? to_f(qi[lane + 32 * u]) : 0.f;
-      for (int j = 0; j < 2 * kWin; ++j) {
-        const float* R = j < kWin ? rh + ((i / kWin) * kWin + j) * kHd
-                                  : rw + ((i % kWin) * kWin + (j - kWin)) * kHd;
-        // Both 32-wide halves in one expression (its FMA contraction sets
-        // the rounding); a third, partial term at head dim 80.
-        float part = qv[0] * R[lane] + qv[1] * R[lane + 32];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
 #pragma unroll
-        for (int u = 2; u < kQL; ++u)
-          if (lane + 32 * u < kHd) part += qv[u] * R[lane + 32 * u];
-        const float s = round_bf(warp_sum(part));
-        if (lane == 0) {
-          if (j < kWin) relh[i * kWin + j] = s;
-          else relw[i * kWin + j - kWin] = s;
+      for (int e = 0; e < 4; ++e) {
+        const int c = kk * 16 + q2 + (e >> 1) * 8;
+        const bool hi_row = e & 1;
+        a[e] = (hi_row ? r_hi : r_lo) < kWin
+                   ? *reinterpret_cast<const uint32_t*>(
+                         qh + static_cast<size_t>(hi_row ? tok_hi : tok_lo) * D + c)
+                   : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int arow = nt * 8 + lo;  // the B column this lane loads: a
+        uint32_t bh[2], bm[2], bl[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float2 x = arow < kWin ? *reinterpret_cast<const float2*>(
+                                             T + static_cast<size_t>(arow) * D + kk * 16 + q2 +
+                                             8 * u)
+                                       : make_float2(0.f, 0.f);
+          split_bf16(x, bh[u], bm[u], bl[u]);
         }
+        mma16816(small[nt], a, bl[0], bl[1]);
+        mma16816(small[nt], a, bm[0], bm[1]);
+        mma16816(acc[nt], a, bh[0], bh[1]);
       }
     }
-    __syncthreads();
-    float* S = sbuf + warp * 16 * kLdS;
-    bf16* P = pbuf + warp * 16 * kLdP;
-    for (int qt = warp; qt < kRT; qt += kWarps) {
-      FragA qa[kHd / 16];
 #pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk) {
-        wmma::load_matrix_sync(qa[kk], qh + qt * 16 * C3 + kk * 16, C3);
-        if (kHd != 64) {  // bf16(q * scale); at 64 the fp32 scores are scaled below
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < qa[kk].num_elements; ++e)
-            qa[kk].x[e] = to_bf(to_f(qa[kk].x[e]) * scale);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? r_lo : r_hi, a = nt * 8 + q2 + (e & 1);
+        if (r < kWin && a < kWin)
+          REL[(e < 2 ? tok_lo : tok_hi) * kRelLd + t * kWin + a] =
+              to_bf(acc[nt][e] + small[nt][e]);
       }
-      for (int ct = 0; ct < kRT; ++ct) {
-        FragC sc;
-        wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < kHd / 16; ++kk) {
-          FragBc kb;  // B[k][n] = K[ct*16 + n][kk*16 + k]
-          wmma::load_matrix_sync(kb, kh + ct * 16 * C3 + kk * 16, C3);
-          wmma::mma_sync(sc, qa[kk], kb, sc);
-        }
-        wmma::store_matrix_sync(S + ct * 16, sc, kLdS, wmma::mem_row_major);
-      }
-      __syncwarp();
-      for (int r = 0; r < 16; ++r) {
-        const int i = qt * 16 + r;
-        if (i >= kN) {
-          for (int c = lane; c < kNP; c += 32) P[r * kLdP + c] = to_bf(0.f);
-          continue;
-        }
-        float vals[kSCols];
-        float mx = kNegInf;
-#pragma unroll
-        for (int m = 0; m < kSCols; ++m) {
-          const int c = lane + 32 * m;
-          vals[m] = kNegInf;
-          if (c < kN) {
-            vals[m] = S[r * kLdS + c] * (kHd == 64 ? scale : 1.f) + relh[i * kWin + c / kWin] +
-                      relw[i * kWin + c % kWin];
-            mx = fmaxf(mx, vals[m]);
-          }
-        }
-        mx = warp_max(mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int m = 0; m < kSCols; ++m) {
-          const int c = lane + 32 * m;
-          vals[m] = c < kN ? expf(vals[m] - mx) : 0.f;
-          sum += vals[m];
-        }
-        sum = warp_sum(sum);
-#pragma unroll
-        for (int m = 0; m < kSCols; ++m) {
-          const int c = lane + 32 * m;
-          if (c < kNP) P[r * kLdP + c] = to_bf(vals[m] / sum);
-        }
-      }
-      __syncwarp();
-      FragC oc[kHd / 16];
-#pragma unroll
-      for (int u = 0; u < kHd / 16; ++u) wmma::fill_fragment(oc[u], 0.f);
-      for (int kt = 0; kt < kRT; ++kt) {
-        FragA pa;
-        wmma::load_matrix_sync(pa, P + kt * 16, kLdP);
-#pragma unroll
-        for (int u = 0; u < kHd / 16; ++u) {
-          FragBr vb;  // B[k][n] = V[kt*16 + k][u*16 + n]
-          wmma::load_matrix_sync(vb, vh + kt * 16 * C3 + u * 16, C3);
-          wmma::mma_sync(oc[u], pa, vb, oc[u]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kHd / 16; ++u) {
-        wmma::store_matrix_sync(S, oc[u], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          o_w[(qt * 16 + e / 16) * C + h * kHd + u * 16 + e % 16] = to_bf(S[e]);
-        __syncwarp();
-      }
-    }
-    __syncthreads();
   }
-  cluster.sync();  // every head's o_h is written
+  cp_async_wait<0>();
+  __syncthreads();  // K, V and every token's relh | relw are in shared memory
 
-  // ---- phase C: out = o @ Wo^T + bo ----
-  for (int n0 = rank * 128; n0 < C; n0 += kCluster * 128) {
-    FragC acc[kRT];
+  const int C = heads * D;
+  bf16* oh = o + static_cast<size_t>(win) * kN * C + hd * D;
+  for (int row0 = warp * 16; row0 < kN; row0 += kWbThreads / 2) {
+    const int row_lo = row0 + lo, row_hi = row_lo + 8;
+    const bf16* rel0 = REL + min(row_lo, kN - 1) * kRelLd;
+    const bf16* rel1 = REL + min(row_hi, kN - 1) * kRelLd;
+    uint32_t rwr[2][2];  // relw of the lane's rows at its columns c, c + 1 (c <= 12 read)
 #pragma unroll
-    for (int rt = 0; rt < kRT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-    const int ncol = n0 + warp * 16;
-    for (int k = 0; k < C; k += 16) {
-      FragBc fb;  // B[k][n] = Wo[ncol + n][k]
-      wmma::load_matrix_sync(fb, wo + static_cast<size_t>(ncol) * C + k, C);
+    for (int j = 0; j < 2; ++j) {
+      const int c = min(8 * j + q2, kWin - 2);
+      rwr[0][j] = *reinterpret_cast<const uint32_t*>(rel0 + kWin + c);
+      rwr[1][j] = *reinterpret_cast<const uint32_t*>(rel1 + kWin + c);
+    }
+    uint32_t qf[D / 16][4];  // bf16(q * scale), straight from device memory
 #pragma unroll
-      for (int rt = 0; rt < kRT; ++rt) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, o_w + rt * 16 * C + k, C);
-        wmma::mma_sync(acc[rt], fa, fb, acc[rt]);
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = (e & 1) ? row_hi : row_lo, c = kk * 16 + q2 + (e >> 1) * 8;
+        uint32_t raw = 0u;
+        if (row < kN) raw = *reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(row) * D + c);
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+        qf[kk][e] = pack_bf16(x.x * scale, x.y * scale);
       }
+    // The TPU kernel's softmax: m = max(s), e = exp(s - m), p = bf16(e /
+    // sum(e)), in three passes over the keys (max, sum, p v), the scores
+    // computed anew in each.
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {  // pass 1: the row max (grid rows 4 kt .., 14 in all)
+      float s[8][4];
+      wb_scores<D>(s, qf, Ks + kt * 64 * kLd, kt < 3 ? 4 : 2, kt, rel0, rel1, rwr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
     }
 #pragma unroll
-    for (int rt = 0; rt < kRT; ++rt) {
-      wmma::store_matrix_sync(st, acc[rt], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + e / 16, c = ncol + e % 16;
-        if (r < kN) out[(win * kN + r) * C + c] = to_bf(round_bf(st[e]) + round_bf(bo[c]));
-      }
-      __syncwarp();
+    for (int u = 0; u < 2; ++u) {
+      m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], 1));
+      m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], 2));
     }
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {  // pass 2: the row sum of exp(s - m)
+      float s[8][4];
+      wb_scores<D>(s, qf, Ks + kt * 64 * kLd, kt < 3 ? 4 : 2, kt, rel0, rel1, rwr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += expf(s[j][e] - m[e >> 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    }
+    __syncwarp();  // the previous strip's p is read
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {  // pass 3: p = bf16(e / sum) into the warp's rows, key order
+      const int groups = kt < 3 ? 4 : 2;
+      float s[8][4];
+      wb_scores<D>(s, qf, Ks + kt * 64 * kLd, groups, kt, rel0, rel1, rwr);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (p >= groups) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 8 * j + q2;  // keys 14 g + c, c + 1 (c < 14: c is even)
+          if (c >= kWin) continue;
+          const int key = (4 * kt + p) * kWin + c;
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            *reinterpret_cast<uint32_t*>(Pw + (lo + 8 * u) * kLdP + key) =
+                pack_bf16(expf(s[2 * p + j][2 * u] - m[u]) / l[u],
+                          expf(s[2 * p + j][2 * u + 1] - m[u]) / l[u]);
+        }
+      }
+    }
+    __syncwarp();
+    // o = p v over 16-key chunks in key order, as the plain version's
+    // product sums them.
+    float oacc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kNP / 16; ++kc) {
+      uint32_t a[4];
+      lda_rows(a, Pw, kLdP, 0, kc * 16);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldb_cols(b, Vs, kLd, dn * 16, kc * 16);  // B[key][c] = V[key][c]
+        mma16816(oacc[2 * dn], a, b[0], b[1]);
+        mma16816(oacc[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+    store_strip_rows<D>(oh, oacc, row0, kN, C);
   }
+}
+
+template <int D>
+int window_block(const bf16* xw, const bf16* wqkv, const float* bqkv, const bf16* wo,
+                 const float* bo, const float* rh, const float* rw, bf16* qkv, bf16* o,
+                 bf16* out, int n_windows, int C, cudaStream_t s) {
+  const int M = n_windows * kN, heads = C / D;
+  if (int err = linear_wgmma<kEpiQkv>(xw, wqkv, bqkv, qkv, M, 3 * C, C, C, D, s)) return err;
+  constexpr size_t smem = WbSmem<D>::kBytes;
+  if (cudaError_t err = cudaFuncSetAttribute(
+          wb_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)))
+    return static_cast<int>(err);
+  wb_attention_kernel<D><<<n_windows * heads, kWbThreads, smem, s>>>(
+      qkv, rh, rw, o, heads, 1.f / sqrtf(static_cast<float>(D)));
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  return linear_wgmma<kEpiRound2>(o, wo, bo, out, M, C, C, 0, 0, s);
 }
 
 }  // namespace
@@ -271,24 +341,28 @@ using namespace iuvl;
 
 // xw, out: (nW, 196, C) bf16; wqkv: (3C, C) bf16; bqkv: (3C) fp32; wo: (C, C)
 // bf16; bo: (C) fp32; rh, rw: (14, 14, d) fp32 rel-pos tables; qkv_scratch:
-// (nW, 208, 3C) bf16; o_scratch: (nW, 208, C) bf16. win == 14, head_dim
-// (d) 64 or 80, C % 128 == 0.
+// (nW, 3, heads, 196, d) bf16; o_scratch: (nW, 196, C) bf16. win == 14,
+// head_dim (d) 64 or 80, C % 128 == 0.
 extern "C" int iuvl_window_block(const void* xw, const void* wqkv, const void* bqkv,
                                  const void* wo, const void* bo, const void* rh, const void* rw,
                                  void* qkv_scratch, void* o_scratch, void* out, int n_windows,
                                  int C, int win, int head_dim, void* stream) {
-  if (win != kWin || C % 128 || C % head_dim) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t phase_a = kNP * kLdX * sizeof(bf16);
-  const size_t phase_b = 2 * kNP * kWin * sizeof(float) +
-                         kWarps * 16 * (kLdS * sizeof(float) + kLdP * sizeof(bf16));
-  const size_t smem = kWarps * 256 * sizeof(float) + (phase_a > phase_b ? phase_a : phase_b);
-  const auto kernel = head_dim == 64 ? window_block_kernel<64>
-                      : head_dim == 80 ? window_block_kernel<80> : nullptr;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_kernel(kernel, dim3(n_windows * kCluster), smem, stream,
-                       static_cast<const bf16*>(xw), static_cast<const bf16*>(wqkv),
-                       static_cast<const float*>(bqkv), static_cast<const bf16*>(wo),
-                       static_cast<const float*>(bo), static_cast<const float*>(rh),
-                       static_cast<const float*>(rw), static_cast<bf16*>(qkv_scratch),
-                       static_cast<bf16*>(o_scratch), static_cast<bf16*>(out), C);
+  if (win != kWin || C % 128 || C % head_dim || n_windows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* x = static_cast<const bf16*>(xw);
+  const auto* w1 = static_cast<const bf16*>(wqkv);
+  const auto* b1 = static_cast<const float*>(bqkv);
+  const auto* w2 = static_cast<const bf16*>(wo);
+  const auto* b2 = static_cast<const float*>(bo);
+  const auto* th = static_cast<const float*>(rh);
+  const auto* tw = static_cast<const float*>(rw);
+  auto* qkv = static_cast<bf16*>(qkv_scratch);
+  auto* o = static_cast<bf16*>(o_scratch);
+  auto* y = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return window_block<64>(x, w1, b1, w2, b2, th, tw, qkv, o, y, n_windows, C, s);
+    case 80: return window_block<80>(x, w1, b1, w2, b2, th, tw, qkv, o, y, n_windows, C, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

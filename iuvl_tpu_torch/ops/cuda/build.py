@@ -42,7 +42,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "iuvl_block_tail": (P,) * 9 + (I, I, I, F, P),
     "iuvl_window_block": (P,) * 10 + (I, I, I, I, P),
-    "iuvl_rowbias_proj": (P,) * 9 + (I,) * 6 + (P,),
+    "iuvl_rowbias_proj": (P,) * 10 + (I,) * 6 + (P,),
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
     "iuvl_t2i_stream": (P,) * 11 + (I,) * 5 + (P,),
     "iuvl_i2t_block_step": (P,) * 11 + (I, I, I, I, F, F, P),

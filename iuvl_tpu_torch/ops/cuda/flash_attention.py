@@ -43,19 +43,18 @@ def rowbias_proj_plain(q, k, v, relh, relw, wo, bo, w: int):
 
 
 def flash_attention_rowbias_proj(q, k, v, relh, relw, wo, bo, w: int):
-    """Row-bias flash attention + output projection: the CUDA kernel for
-    CUDA tensors (bf16, head dim 64 or 80, any grid that
-    ``rowbias_supported`` admits: N a multiple of 64, w a power of two
-    dividing N), the plain version for CPU tensors."""
+    """Row-bias flash attention + output projection: the CUDA kernels for
+    CUDA tensors (bf16, head dim 64 or 80, w a power of two dividing N: any
+    grid that ``rowbias_supported`` admits; C % 8 == 0), the plain version
+    for CPU tensors."""
     if q.device.type == "cpu":
         return rowbias_proj_plain(q, k, v, relh, relw, wo, bo, w)
     b, heads, n, d = q.shape
     c_out = wo.shape[0]
-    if d not in HEAD_DIMS or n % 64 or n % w or w & (w - 1) or c_out % 16:
+    if d not in HEAD_DIMS or n % w or w & (w - 1) or c_out % 8:
         raise ValueError(
             f"flash_attention_rowbias_proj kernel: unsupported d={d}, w={w}, N={n}, "
-            f"C={c_out} (needs d 64 or 80, N % 64 == 0, w a power of two dividing N, "
-            "C % 16 == 0)")
+            f"C={c_out} (needs d 64 or 80, w a power of two dividing N, C % 8 == 0)")
     bf, f32, dev = torch.bfloat16, torch.float32, q.device
     args = dict(q=q, k=k, v=v, relh=relh, relw=relw, wo=wo, bo=bo)
     shapes = dict(q=(b, heads, n, d), k=(b, heads, n, d), v=(b, heads, n, d),
@@ -65,11 +64,13 @@ def flash_attention_rowbias_proj(q, k, v, relh, relw, wo, bo, w: int):
         require("flash_attention_rowbias_proj", name, tensor,
                 f32 if name == "bo" else bf, shapes[name], dev)
     out = torch.empty((b, n, c_out), dtype=bf, device=dev)
-    # The fp32 projection accumulator of a 32-query tile: in shared memory
-    # when it fits beside the tiles, else here (ViT-H: C 1280).
-    pacc = torch.empty((b, n, c_out), dtype=f32, device=dev)
+    # The head outputs (and their lse, unused) from the attention kernel,
+    # which the projection kernel reads.
+    o_scratch = torch.empty((b, heads, n, d), dtype=bf, device=dev)
+    lse_scratch = torch.empty((b, heads, n), dtype=f32, device=dev)
     launch("iuvl_rowbias_proj", dev, *(t_.data_ptr() for t_ in args.values()),
-           out.data_ptr(), pacc.data_ptr(), b, heads, n, c_out, d, w)
+           out.data_ptr(), o_scratch.data_ptr(), lse_scratch.data_ptr(), b, heads, n, c_out, d,
+           w)
     flash_attention_rowbias_proj.launches += 1
     return out
 

@@ -53,9 +53,9 @@ def window_attention_block(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
     for name, tensor in args.items():
         dtype = bf if name in ("xw", "wqkv", "wo") else f32
         require("window_attention_block", name, tensor, dtype, shapes[name], dev)
-    n_pad = -(-n // 16) * 16
-    qkv_scratch = torch.empty((nw, n_pad, 3 * c), dtype=bf, device=dev)
-    o_scratch = torch.empty((nw, n_pad, c), dtype=bf, device=dev)
+    # q, k, v of each (window, head) contiguous; the head outputs token-major.
+    qkv_scratch = torch.empty((nw, 3, heads, n, d), dtype=bf, device=dev)
+    o_scratch = torch.empty((nw, n, c), dtype=bf, device=dev)
     out = torch.empty_like(xw)
     launch("iuvl_window_block", dev, *(t_.data_ptr() for t_ in args.values()),
            qkv_scratch.data_ptr(), o_scratch.data_ptr(), out.data_ptr(),

@@ -5,9 +5,14 @@ strings and index sets), and ``generate_masks`` end to end on a tiny SAM
 version on the CPU) against JAX's ``'chunk_xla'``, on bridged weights.
 
 Here JAX's NMS, RLE encoder and crop resize take its native C++ core
-(``iuvl_tpu/native``, built in this checkout); the port's numpy and torch
-paths must give the same kept sets, counts and uint8 pixels.
+(``iuvl_tpu/native``), which the module's fixture compiles into a
+temporary directory of its own; the port's numpy and torch paths must give
+the same kept sets, counts and uint8 pixels.
 """
+
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,29 @@ from iuvl_tpu_torch.models.sam.convert import flax_to_state_dict
 
 TINY = dict(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,), img_size=64,
             window_size=4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_core(tmp_path_factory):
+    """JAX's native core, compiled for this module alone: the library is a
+    build product that a fresh checkout lacks, and the JAX package caches a
+    miss for the life of the process, so the module must not depend on
+    another test file (or another worker) having built it. The flags are
+    those of ``iuvl_tpu/native/build.py``; nothing is written into the JAX
+    package's directory."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.fail("g++ not found: JAX's native core (iuvl_tpu/native/preprocess.cpp), "
+                    "whose NMS, RLE and resize this module's assertions hold the port "
+                    "against, cannot be built")
+    src = Path(native.__file__).with_name("preprocess.cpp")
+    lib = tmp_path_factory.mktemp("native") / "libiuvl_preprocess.so"
+    subprocess.run([gxx, "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+                    "-std=c++17", str(src), "-o", str(lib)], check=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_LIB_PATH", str(lib))
+        mp.setattr(native, "_lib", None)
+        yield
 
 
 def test_the_native_core_is_what_jax_runs_here():

@@ -143,6 +143,87 @@ def test_rowbias_proj_plain_matches_jax_oracle_and_kernel():
         _close(out, jrpa._rowbias_proj_route(*jargs))
 
 
+def _window_port_dtype(a, win, heads, dtype):
+    """The port's B1 wrapper (its plain version here) on ``dtype`` storage:
+    x and the weights in ``dtype``, biases and rel-pos tables fp32."""
+    rh, rw = trpa.rel_pos_tables(_t(a["rph"]), _t(a["rpw"]), (win, win))
+    cast = lambda x: _t(x).to(dtype)  # noqa: E731
+    return twb.window_attention_block(cast(a["xw"]), cast(a["wqkv"].T), _t(a["bqkv"]),
+                                      cast(a["wo"].T), _t(a["bo"]), rh, rw, heads)
+
+
+def _window_jax(a, win, heads, dtype=jnp.float32):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    return (j["xw"].astype(dtype), j["wqkv"], j["bqkv"], j["wo"], j["bo"], j["rph"], j["rpw"],
+            win, heads)
+
+
+def test_window_block_plain_matches_jax_oracle_bf16():
+    """bf16 storage, as the card holds B1 against this plain version: qkv,
+    the rel-pos features, p and o rounded where _block_xla rounds them, so
+    the two differ by bf16 products landing an ulp apart (the JAX suite's
+    bf16 bar of 1e-2)."""
+    win, heads = 4, 2
+    a = _window_inputs(win, heads, seed=8)
+    out = _window_port_dtype(a, win, heads, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    _close(out, jwb._block_xla(*_window_jax(a, win, heads, jnp.bfloat16)), atol=1e-2,
+           rtol=1e-2)
+
+
+def test_window_block_plain_matches_jax_odd_window():
+    """An odd window (3 x 3, N 9: rows no multiple of 16, as B1's masked
+    last strip at N 196) against JAX's oracle and its interpret-mode kernel."""
+    win, heads = 3, 2
+    a = _window_inputs(win, heads, nw=3, seed=9)
+    out = _window_port(a, win, heads)
+    _close(out, jwb._block_xla(*_window_jax(a, win, heads)))
+    with interpret(jwb):
+        _close(out, jwb.window_attention_block(*_window_jax(a, win, heads)))
+
+
+def test_rowbias_proj_plain_matches_jax_oracle_bf16(monkeypatch):
+    """bf16 storage on a grid with h != w (8 x 16, N 128: one that
+    rowbias_supported admits, so rel_pos_attention_proj takes
+    rowbias_proj_plain, B2's plain version). JAX's naive oracle adds the
+    unrounded fp32 bias where the port rounds relh and relw to bf16, as
+    JAX's fused route does: the JAX suite's bf16 bar of 1e-2."""
+    hw = (8, 16)
+    a = _rowbias_inputs(h=8, w=16, heads=2, d=16, b=1, c_out=32, seed=10)
+    calls = []
+    plain = tfa.rowbias_proj_plain
+    monkeypatch.setattr(tfa, "rowbias_proj_plain", lambda *x: calls.append(1) or plain(*x))
+    bf = lambda x: _t(x).to(torch.bfloat16)  # noqa: E731
+    out = trpa.rel_pos_attention_proj(
+        bf(a["q"]), bf(a["k"]), bf(a["v"]),
+        *trpa.rel_pos_tables(_t(a["rph"]), _t(a["rpw"]), hw), bf(a["wo"].T), _t(a["bo"]))
+    assert calls and out.dtype == torch.bfloat16
+    j = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in a.items()}
+    ref = jrpa._attn_then_proj(j["q"], j["k"], j["v"], jnp.asarray(a["rph"]),
+                               jnp.asarray(a["rpw"]), j["wo"], j["bo"], hw, "xla_naive")
+    assert ref.dtype == jnp.bfloat16
+    _close(out, ref, atol=1e-2, rtol=1e-2)
+
+
+def test_rowbias_proj_plain_matches_jax_rectangular_grid():
+    """A 4 x 8 grid (h != w) in fp32 against JAX's oracle and its fused
+    interpret-mode route."""
+    hw = (4, 8)
+    a = _rowbias_inputs(h=4, w=8, seed=11)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    tables = trpa.rel_pos_tables(_t(a["rph"]), _t(a["rpw"]), hw)
+    args = (_t(a["q"]), _t(a["k"]), _t(a["v"]), *tables, _t(a["wo"].T), _t(a["bo"]))
+    out = trpa.rel_pos_attention_proj(*args)
+    jargs = (j["q"], j["k"], j["v"], j["rph"], j["rpw"], j["wo"], j["bo"], hw)
+    _close(out, jrpa._attn_then_proj(*jargs, "xla_naive"))
+    relh, relw = trpa.rel_pos_features(args[0], *tables)
+    d = args[0].shape[-1]
+    _close(tfa.rowbias_proj_plain(args[0] * d ** -0.5, args[1], args[2], relh, relw, args[5],
+                                  args[6], hw[1]), jrpa._attn_then_proj(*jargs, "xla_naive"))
+    with interpret(jfa):
+        _close(out, jrpa._rowbias_proj_route(*jargs))
+
+
 def _tail_inputs(t=64, c=32, hidden=128, seed=5):
     rs = np.random.RandomState(seed)
     return dict(x=_rand(rs, t, c), a=_rand(rs, t, c), scale=1 + _rand(rs, c, std=0.1),

@@ -43,6 +43,15 @@ process, one mode a kernel (``--kernels``, any of them in one run):
 - ``upscale``: B6 (``mask_upscale.cu`` ``iuvl_masks_upscale``) on 256
   prompts x N 4096 and on 8 prompts (a round), then N 900 (a 30^2 grid,
   which the parent refuses): the same readings.
+- ``rowbias_proj``: B2 (``flash_attention.cu`` ``iuvl_rowbias_proj``),
+  rel-pos attention of a global block with the output projection, at ViT-B
+  1024^2 (the kernel phase's case), ViT-B 512^2 (w 32), ViT-L 1024^2 and
+  head dim 80 at N 4096: the same readings as ``i2t``, and as a yardstick
+  only SDPA on the materialised bias followed by ``F.linear``.
+- ``window_block``: B1 (``window_block.cu`` ``iuvl_window_block``), the
+  windowed blocks' attention body, at ViT-B 1024^2 (25 windows), batch 2
+  (50), ViT-H (C 1280, 16 heads of 80) and ViT-B 512^2 (9 windows): the
+  same readings.
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -57,7 +66,7 @@ launch's registers and shared memory as torch.profiler's trace records them.
 
     git archive <parent> iuvl_tpu_torch/csrc | tar -x -C _chip/parent
     set -o pipefail; python3 tools/kernel_ab.py --parent _chip/parent \
-        --kernels t2i upscale i2t 2>&1 | tee kernel_ab.log
+        --kernels window_block rowbias_proj 2>&1 | tee kernel_ab.log
 
 The parent's entry points must have the signatures PARENT_SIGS gives them.
 Needs one CUDA card.
@@ -86,7 +95,9 @@ from iuvl_tpu_torch.ops.cuda import mask_upscale as mu  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import seg_scatter as ss  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import tap_scatter as ts  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import twoway_attention as ta  # noqa: E402
-from iuvl_tpu_torch.ops.rel_pos_attention import onehot_expanders  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import window_block as wb  # noqa: E402
+from iuvl_tpu_torch.ops.rel_pos_attention import (onehot_expanders, rel_pos_features,  # noqa: E402
+                                                  rel_pos_tables)
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
@@ -102,19 +113,26 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                "iuvl_t2i_stream": [P] * 8 + [I] * 4 + [P],
                "iuvl_masks_upscale": [P] * 9 + [I] * 2 + [P],
                # the parent's B12 adds into a table its wrapper zeroes.
-               "iuvl_tap_scatter": [P] * 3 + [I] * 3 + [P]}
+               "iuvl_tap_scatter": [P] * 3 + [I] * 3 + [P],
+               # the parent's B1 (a cluster of 4 blocks a window, qkv and o
+               # scratch) and B2 (32-query tiles, an fp32 accumulator pacc).
+               "iuvl_window_block": [P] * 10 + [I] * 4 + [P],
+               "iuvl_rowbias_proj": [P] * 9 + [I] * 6 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
           "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
-          "upscale": "mask_upscale.cu"}
+          "upscale": "mask_upscale.cu", "window_block": "window_block.cu",
+          "rowbias_proj": "flash_attention.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
            "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
-           "t2i": ("iuvl_t2i_stream",), "upscale": ("iuvl_masks_upscale",)}
+           "t2i": ("iuvl_t2i_stream",), "upscale": ("iuvl_masks_upscale",),
+           "window_block": ("iuvl_window_block",), "rowbias_proj": ("iuvl_rowbias_proj",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
-           "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale")
+           "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale",
+           "window_block", "wb_", "rowbias_proj", "linear_")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -711,8 +729,97 @@ def tap_ab(parent_tree: Path, work: Path, bad: list) -> None:
         del got, again, pgot, want
 
 
+# B2's shapes: (tag, batch, heads, side, d, C): the kernel phase's case
+# (ViT-B 1024^2), ViT-B 512^2 (w 32), ViT-L 1024^2, and head dim 80 at N
+# 4096 (ViT-H's widths: the wrapper takes them, rowbias_supported does not).
+ROWBIAS_PROJ_SHAPES = (("vit_b_1024", 1, 12, 64, 64, 768), ("vit_b_512", 1, 12, 32, 64, 768),
+                       ("vit_l_1024", 1, 16, 64, 64, 1024), ("d80_n4096", 1, 16, 64, 80, 1280))
+
+
+def rowbias_proj_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B2 (``flash_attention.cu`` ``iuvl_rowbias_proj``): rel-pos attention
+    on the pre-scaled q with the features of the unscaled q, then the output
+    projection, at ROWBIAS_PROJ_SHAPES; the readings of ``i2t``, and as a
+    yardstick only SDPA on the materialised bias followed by ``F.linear``
+    (two calls)."""
+    lib = compile_source(parent_tree, work, "rowbias_proj")
+    for tag, b, heads, side, d, c in ROWBIAS_PROJ_SHAPES:
+        n = side * side
+        q, k, v = (t(b, heads, n, d) for _ in range(3))
+        rh, rw = rel_pos_tables(t(2 * side - 1, d, std=0.3), t(2 * side - 1, d, std=0.3),
+                                (side, side))
+        relh, relw = rel_pos_features(q, rh, rw)
+        args = (q * d ** -0.5, k, v, relh, relw, t(c, heads * d, std=(heads * d) ** -0.5),
+                t(c, std=0.3).float(), side)
+
+        def parent():
+            out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
+            pacc = torch.empty((b, n, c), dtype=torch.float32, device="cuda")
+            assert lib.iuvl_rowbias_proj(*ptr(*args[:7], out, pacc), b, heads, n, c, d, side,
+                                         stream()) == 0
+            return out
+
+        flops = 4 * b * heads * n * n * d + 2 * b * n * heads * d * c
+        out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
+        ab_report(f"rowbias_proj@{tag} (B {b}, heads {heads}, N {n}, w {side}, d {d}, C {c})",
+                  lambda: fa.flash_attention_rowbias_proj(*args), parent,
+                  lambda: fa.rowbias_proj_plain(*args), bound_of((*args[:7], out), flops),
+                  bad, 1e-2, work)
+        bias = (relh.float().repeat_interleave(side, -1)
+                + relw.float().repeat(1, 1, 1, side)).to(torch.bfloat16)
+        wo, bo = args[5], args[6].to(torch.bfloat16)
+
+        def sdpa_linear():
+            o = torch.nn.functional.scaled_dot_product_attention(args[0], k, v, attn_mask=bias,
+                                                                 scale=1.0)
+            return torch.nn.functional.linear(o.transpose(1, 2).reshape(b, n, heads * d), wo, bo)
+
+        print(f"rowbias_proj@{tag} yardstick (two calls): SDPA on the materialised bias + "
+              f"F.linear {ms(sdpa_linear):.4f} ms; {kernel_split(sdpa_linear, work)}", flush=True)
+        del args, out, bias
+        torch.cuda.empty_cache()
+
+
+# B1's shapes: (tag, windows, C, heads): the kernel phase's case (ViT-B
+# 1024^2), batch 2, ViT-H (16 heads of 80), ViT-B 512^2 (9 windows).
+WINDOW_BLOCK_SHAPES = (("vit_b_1024", 25, 768, 12), ("batch2", 50, 768, 12),
+                       ("vit_h", 25, 1280, 16), ("vit_b_512", 9, 768, 12))
+
+
+def window_block_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B1 (``window_block.cu`` ``iuvl_window_block``): the windowed
+    attention body (qkv projection, rel-pos attention over 14 x 14 windows,
+    output projection) at WINDOW_BLOCK_SHAPES; the readings of ``i2t``."""
+    lib = compile_source(parent_tree, work, "window_block")
+    win, n = wb.WIN, wb.WIN * wb.WIN
+    for tag, nw, c, heads in WINDOW_BLOCK_SHAPES:
+        d = c // heads
+        rh, rw = rel_pos_tables(t(2 * win - 1, d, std=0.3), t(2 * win - 1, d, std=0.3),
+                                (win, win))
+        args = (t(nw, n, c), t(3 * c, c, std=c ** -0.5), t(3 * c, std=0.3).float(),
+                t(c, c, std=c ** -0.5), t(c, std=0.3).float(), rh, rw, heads)
+
+        def parent():
+            n_pad = -(-n // 16) * 16
+            qkv = torch.empty((nw, n_pad, 3 * c), dtype=torch.bfloat16, device="cuda")
+            o = torch.empty((nw, n_pad, c), dtype=torch.bfloat16, device="cuda")
+            out = torch.empty_like(args[0])
+            assert lib.iuvl_window_block(*ptr(*args[:7], qkv, o, out), nw, c, win, d,
+                                         stream()) == 0
+            return out
+
+        flops = nw * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c + 4 * n * c * win)
+        ab_report(f"window_block@{tag} (windows {nw}, C {c}, heads {heads} of {d})",
+                  lambda: wb.window_attention_block(*args), parent,
+                  lambda: wb.window_attention_block_plain(*args),
+                  bound_of((*args[:7], args[0]), flops), bad, 5e-4, work)
+        del args
+        torch.cuda.empty_cache()
+
+
 MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
-         "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab}
+         "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab,
+         "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab}
 
 
 def main() -> int:
