@@ -14,7 +14,9 @@ Phases (any failure raises, so the exit code is non-zero):
    its backward glue B8 at the res3 level of the batch-2 train step; the
    one-hot level B15 at the res5 level of the hybrid eval; the whole-chunk
    decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
-   slots, and again at 48 and 64 slots; B2b and B14, forward and backward,
+   slots, and again at 48 and 64 slots, at N 2500 and at an interactive
+   round (8 prompts, 26 tokens in 32 slots); B3 also at ViT-H, T 2500 and
+   batch 2 (T 8192); B2b and B14, forward and backward,
    and B13 at the windowed shape (300 (window, head) pairs of N 196) and
    the global one (12 heads of N 4096), each shape a row of its own; B11's
    forward and backward, each a row, on the augmented q, k of a global
@@ -29,7 +31,10 @@ Phases (any failure raises, so the exit code is non-zero):
    zero-padding validity dropped, a slot read from the next slot's columns,
    a point dropped, an index one cell off, weights rounded per point
    instead of per cell, the slot mask dropped, the final attention reading
-   keys1, a softmax merge missing a split, B13's relw read from the
+   keys1, a softmax merge missing its last key range, B16's second 64-row
+   mask tile or B3's second 128-row tile missed, B3's last K step of the
+   second product dropped or its GELU taken on the fp32 sum, B13's relw
+   read from the
    neighbouring column, B1's last 4-row strip unwritten or a window's keys
    from the next window, B2's last head left out of the projection, a
    B2b / B14 / B11 dq pass that skips the last key
@@ -37,7 +42,7 @@ Phases (any failure raises, so the exit code is non-zero):
    B17's partial sums of a destination that spans blocks dropped):
    each must move some output by more than its bound, and each output's
    bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of B1, B2, the B2b / B14 / B11 forward and backward and of B17 on
+   two launches of B1-B6, B16, the B2b / B14 / B11 forward and backward and of B17 on
    the same inputs must give the same bits, and B14's expander group words must equal
    their plain version's. Times from CUDA events after a warm-up (20 calls at the
    global shapes of B2b, B14 and B13); for B11 (SDPA forward, and forward
@@ -75,7 +80,10 @@ Phases (any failure raises, so the exit code is non-zero):
    Shapes: the encoder at ViT-H 1024^2, ViT-B 512^2 and ViT-B 800^2 (depth
    cut to one windowed and one global block) through 'auto', the serving
    encode and the training route's backward gated against plain bf16 and
-   fp32, launches checked (every block on a kernel).
+   fp32, launches checked (every block on a kernel); at 800^2 also one
+   chunk of 64 one-point prompts over the 50 x 50 grid through the
+   whole-chunk decode and its plain bf16 and fp32 paths (B16 at N 2500),
+   its masks gated as the serving requests' are.
 5. train: the SysLearner seg train step (ViT-B + SimpleFPN, 6-layer
    deformable pixel decoder, 9-layer unified decoder, 101 queries; bf16;
    seeded random weights) for STEPS steps of 1024^2 images, 134 x 512
@@ -313,7 +321,8 @@ RB_GRADS = ("dq", "dk", "dv", "drelh", "drelw")
 DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
                  "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
-                 "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj")
+                 "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj",
+                 "block_tail", "decode_tail")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -718,9 +727,26 @@ def _final_reads_keys1(sound, calls, q, keys, *rest):
     return sound(q, calls[0], *rest)
 
 
-def _merge_misses_last_split(sound, calls, q, keys, pe_wk, *rest):
-    rows = keys.shape[1] // 8  # the kernel merges 8 partials of N / 8 rows
-    return sound(q, keys[:, :-rows], pe_wk[:-rows], *rest)
+def _merge_misses_last_range(sound, calls, q, keys, pe_wk, *rest):
+    """B4's merge inside B16 without its last key range (the wrapper's
+    t2i_plan on this card, per-prompt keys at Tp slots)."""
+    from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
+
+    b, tp, n = q.shape[0], q.shape[1], keys.shape[1]
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    _, splits = ta.t2i_plan(b, n, tp, b, sms)
+    tiles = -(-n // ta.T2I_KEY_TILE)
+    cut = (splits - 1) * -(-tiles // splits) * ta.T2I_KEY_TILE
+    return sound(q, keys[:, :cut], pe_wk[:cut], *rest)
+
+
+def _masks_tile_missed(a):
+    """B16's masks with the second 64-row tile of every prompt unwritten
+    (zero), the tokens sound."""
+    tok, masks = _tail_plain(a)
+    masks = masks.clone()
+    masks[:, 64:128] = 0
+    return tok, masks
 
 
 def _i2t1_k_heads_swapped(a):
@@ -733,12 +759,13 @@ def _i2t1_k_heads_swapped(a):
     return a[:4] + (w,) + a[5:]
 
 
-def decode_tail_case(rs: np.random.RandomState, dev, tp: int = 16, tv: int = 7):
-    """B16's arguments at the chunk serving shape: CHUNK prompts of ``tv``
-    tokens in ``tp`` slots over the ViT-B 64^2 embedding (by default 7
-    tokens, 5 output tokens, the point and the pad point, in 16 slots); the
-    decoder's weights as build_sam draws them, its LayerNorms' scales and
-    biases perturbed."""
+def decode_tail_case(rs: np.random.RandomState, dev, tp: int = 16, tv: int = 7,
+                     n: int = 64 * 64, prompts: int = CHUNK):
+    """B16's arguments at the chunk serving shape: ``prompts`` (CHUNK) prompts
+    of ``tv`` tokens in ``tp`` slots over an ``n``-row embedding (ViT-B's 64^2
+    by default; 7 tokens, 5 output tokens, the point and the pad point, in
+    16 slots); the decoder's weights as build_sam draws them, its
+    LayerNorms' scales and biases perturbed."""
     from iuvl_tpu_torch.models.sam.build import init_random_
     from iuvl_tpu_torch.models.sam.mask_decoder import MaskDecoder
 
@@ -750,10 +777,10 @@ def decode_tail_case(rs: np.random.RandomState, dev, tp: int = 16, tv: int = 7):
                 mod.weight.add_(torch.from_numpy(rs.randn(256).astype(np.float32) * 0.1))
                 mod.bias.copy_(torch.from_numpy(rs.randn(256).astype(np.float32) * BIAS_STD))
     dec = dec.to(dev)
-    tok = torch.zeros(2, CHUNK, tp, 256)
-    tok[:, :, :tv] = torch.from_numpy(rs.randn(2, CHUNK, tv, 256).astype(np.float32))
+    tok = torch.zeros(2, prompts, tp, 256)
+    tok[:, :, :tv] = torch.from_numpy(rs.randn(2, prompts, tv, 256).astype(np.float32))
     tok[1] *= 0.5
-    image = torch.from_numpy(rs.randn(2, 1, 64 * 64, 256).astype(np.float32))
+    image = torch.from_numpy(rs.randn(2, 1, n, 256).astype(np.float32))
     image[1] *= 0.5
     bf = torch.bfloat16
     return (tok[0].to(dev, bf), tok[1].to(dev, bf), image[0].to(dev, bf), image[1].to(dev, bf),
@@ -963,9 +990,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
                                                         (32, 32)))
     flash512 = (q5 * d ** -0.5, k5, v5, relh5, relw5, t(c, c, std=c ** -0.5),
                 t(c, std=s, dtype=f32), 32)
-    tail = (t(n, c), t(n, c), 1.0 + t(c, std=0.1, dtype=f32), t(c, std=s, dtype=f32),
-            t(4 * c, c, std=c ** -0.5), t(4 * c, std=s), t(4 * c, c, std=(4 * c) ** -0.5),
-            t(c, std=s))
+    tail = block_tail_case(t, n, c)
     up = (t(CHUNK, n, 256), flat_deconv(t(256, 64, 2, 2, std=1 / 16)), t(64, std=s),
           1.0 + t(64, std=0.1, dtype=f32), t(64, std=s, dtype=f32),
           flat_deconv(t(64, 32, 2, 2, std=1 / 8 / 2 ** 0.5)), t(32, std=s),
@@ -981,7 +1006,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
     # B11 on the rel-pos-augmented q, k of a global block; B12 on the
     # criterion's 20 matched 256^2 masks at 12544 points.
     win_bwd = (win[0], t(25, 196, c), win[1], win[2], win[3], rh, rw, heads)
-    tail_bwd = tail[:2] + (t(n, c),) + tail[2:7]
+    tail_bwd = tail[:2] + (t(n, c),) + tail[2:6] + (tail[6].t().contiguous(),)
     q_aug, k_aug = augment_qk_rel_pos(q, k, grh, grw)
     flash_train = (q_aug, k_aug, v, t(1, heads, n, d))
     coords = torch.from_numpy(rs.rand(N_TARGETS, MATCH_POINTS, 2).astype(np.float32)).to(dev)
@@ -1037,12 +1062,12 @@ def kernel_cases(rs: np.random.RandomState, dev):
         ("window_attention_block@nw9", win9, window_block_faults(d), 10),
         ("flash_attention_rowbias_proj", flash, ROWBIAS_PROJ_FAULTS, 10),
         ("flash_attention_rowbias_proj@n1024_w32", flash512, ROWBIAS_PROJ_FAULTS, 10),
-        ("block_tail", tail,
-         {"b1 dropped": _zero(5), "b2 dropped": _zero(7), "LN bias dropped": _zero(3)}, 10),
+        ("block_tail", tail, BLOCK_TAIL_FAULTS, 10),
         ("masks_upscale", up, UPSCALE_FAULTS, 5),
         ("t2i_stream", t2i, T2I_FAULTS, 10),
         ("i2t_block_step", i2t, I2T_FAULTS, 10),
-    ] + i2t_cases(t, i2t) + t2i_stream_cases(t2i) + c5_cases(up, t2i, i2t) + [
+    ] + i2t_cases(t, i2t) + t2i_stream_cases(t2i) + c5_cases(up, t2i, i2t) + block_tail_cases(
+        dev) + decode_tail_cases(dev) + [
         ("window_block_backward", win_bwd,
          {"rel-pos branch dropped": lambda a: a[:5] + (torch.zeros_like(rh),
                                                         torch.zeros_like(rw)) + a[7:],
@@ -1077,6 +1102,72 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
         for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev)
+
+
+def block_tail_case(t, n: int, c: int) -> tuple:
+    """B3's arguments at T ``n`` rows of width ``c`` (hidden 4 c): x, a,
+    the LayerNorm's fp32 scale and bias, then lin1 and lin2 in nn.Linear
+    layout with their biases."""
+    h, s, f32 = 4 * c, BIAS_STD, torch.float32
+    return (t(n, c), t(n, c), 1.0 + t(c, std=0.1, dtype=f32), t(c, std=s, dtype=f32),
+            t(h, c, std=c ** -0.5), t(h, std=s), t(c, h, std=h ** -0.5), t(c, std=s))
+
+
+def _tail_tile_missed(a):
+    """B3 with the second 128-row tile's MLP missing: rows 128-255 keep x + a."""
+    from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+
+    out = mb.block_tail_plain(*a).clone()
+    out[128:256] = (a[0] + a[1])[128:256]
+    return (out,)
+
+
+def _tail_gelu_on_fp32(a):
+    """B3 with the GELU taken on the fp32 sum of the first product and b1,
+    not on its bf16 value."""
+    from iuvl_tpu_torch.ops.common import layer_norm_f32
+    from iuvl_tpu_torch.ops.cuda import mlp_block as mb
+
+    x, xa, scale, bias, w1, b1, w2, b2 = a
+    x1 = x + xa
+    y = layer_norm_f32(x1, scale, bias, mb.EPS).to(x.dtype)
+    h = torch.nn.functional.gelu(y.float() @ w1.float().t() + b1.float(), approximate="tanh")
+    return (x1 + (h.to(x.dtype) @ w2.t() + b2),)
+
+
+BLOCK_TAIL_FAULTS = {"b1 dropped": _zero(5), "b2 dropped": _zero(7), "LN bias dropped": _zero(3),
+                     "a row tile past the first missed": _planted(_tail_tile_missed),
+                     "the last K step of the second product dropped": _zero_cols(6, -64, None),
+                     "GELU on the fp32 sum, not the bf16 value": _planted(_tail_gelu_on_fp32)}
+
+
+def block_tail_cases(dev):
+    """B3 past the kernel phase's case (ViT-B 1024^2): ViT-H (C 1280, H
+    5120), ViT-B 800^2 (T 2500: a ragged last row tile) and batch 2 (T
+    8192). Their own draws."""
+    rs = np.random.RandomState(SEED + 6)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * std).to(dev, dtype)
+
+    return [(f"block_tail@{tag}", block_tail_case(t, n, c), BLOCK_TAIL_FAULTS, 10)
+            for tag, n, c in (("vit_h", 4096, 1280), ("t2500", 2500, 768), ("b2", 8192, 768))]
+
+
+def decode_tail_cases(dev):
+    """B16 past the kernel phase's case (256 prompts of 7 tokens in 16 slots
+    over N 4096): C7's N 2500 (ViT-B 800^2, which the kernel refused
+    before) and the interactive round (8 prompts, 26 tokens in 32 slots).
+    Their own draws."""
+    rs = np.random.RandomState(SEED + 7)
+    # At 8 prompts t2i_plan splits the keys in 32 ranges of 128: one range
+    # missed moves the tokens by 3.6e-3 and the masks by 7.0e-3 (plain
+    # version on the CPU), at the bounds, so that fault is held at 256
+    # prompts (2 ranges) only.
+    round_faults = {k: v for k, v in DECODE_TAIL_FAULTS.items() if "key range" not in k}
+    return [("decode_tail@n2500", decode_tail_case(rs, dev, n=2500), DECODE_TAIL_FAULTS, 5),
+            ("decode_tail@8p_tp32", decode_tail_case(rs, dev, 32, 26, prompts=8),
+             round_faults, 20)]
 
 
 # B5's planted faults; the last one at the prompt's last token (past 16
@@ -1187,7 +1278,8 @@ DECODE_TAIL_FAULTS = {
     "slot mask dropped": _planted(lambda a: _tail_plain(a, t_valid=a[0].shape[1])),
     "heads 0/1 swapped in i2t1's token-side k": _i2t1_k_heads_swapped,
     "the final attention reads keys1": _t2i_patched(_final_reads_keys1),
-    "a t2i merge misses its last split (N/8 rows)": _t2i_patched(_merge_misses_last_split)}
+    "a t2i merge misses its last key range": _t2i_patched(_merge_misses_last_range),
+    "the masks' second 64-row tile missed": _planted(_masks_tile_missed)}
 
 
 def _window_tail_unmasked(a):
@@ -1681,6 +1773,7 @@ def serving_phase(dev) -> dict:
                                             timing)
             chunk_request(r, chunk, image, points, labels, totals, timing)
         many_tokens_request(model, plain, chunk, rs, dev, totals)
+        encode_split(model, image)
     del chunk
     torch.cuda.empty_cache()
     # JAX's unfused encoder route with every block's attention in B2b / B14
@@ -1942,6 +2035,28 @@ def amg_phase(dev) -> dict:
     del model
     torch.cuda.empty_cache()
     return totals
+
+
+def encode_split(model, image) -> None:
+    """One served ``auto`` encode of ``image`` after a warm-up: its host span
+    and device time by kernel (torch.profiler), the 8 largest. Launches
+    made here are not the path's: the counts are reset after."""
+    from torch.autograd import DeviceType
+
+    x = model.normalize(image)
+    synced(lambda: model.encode_image(x, return_fpn=False))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, span = synced(lambda: model.encode_image(x, return_fpn=False))
+    reset_launches()
+    avgs = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    busy = sum(a.self_device_time_total for a in avgs) / 1e3
+    log(f"auto encode by kernel (one encode under torch.profiler): host span "
+        f"{span * 1e3:.2f} ms, device time {busy:.3f} ms ({busy / (span * 1e3):.1%} of the "
+        f"span); " + "; ".join(f"{a.key[:48]} x{a.count} {a.self_device_time_total / 1e3:.3f} ms"
+                               for a in avgs[:8]))
 
 
 def request(r, model, plain, rs, dev, per_request, totals, timing, label="kernels"):
@@ -2463,7 +2578,56 @@ def shape_phase(dev) -> dict:
         gate_paths(f"{label} encoder backward, gradient of {len(names)} parameters", grads)
         del encs, emb, grads, proj
         torch.cuda.empty_cache()
+        if label == "vit_b 800":
+            for k, got in shape_chunk_decode(dev, side, serve_want).items():
+                totals[k] = totals.get(k, 0) + got
     return totals
+
+
+SHAPE_DECODE_PROMPTS = 64
+
+
+def shape_chunk_decode(dev, side: int, encode_want: dict) -> dict:
+    """C7 on the real path: one chunk of SHAPE_DECODE_PROMPTS one-point
+    prompts (an 8 x 8 grid) over the embedding of a seeded side^2 image (a
+    (side / 16)^2 grid of keys: N 2500 at 800^2) through CHUNK_PATHS, on a
+    depth-2 ViT-B SAM (the same weights on each path, each path encoding
+    the image itself); launches checked on the kernel path (B16 once); the
+    masks gated as the serving requests' are. Returns the kernel path's
+    launches."""
+    from iuvl_tpu_torch.inference.amg import build_point_grid
+    from iuvl_tpu_torch.models.sam import build_sam
+
+    rs = np.random.RandomState(SEED + 32)
+    img = torch.from_numpy(rs.rand(1, side, side, 3).astype(np.float32) * 255).to(dev)
+    grid = int(SHAPE_DECODE_PROMPTS ** 0.5)
+    points = torch.from_numpy(build_point_grid(grid)[:, None] * side).float().to(dev)
+    labels = torch.ones(SHAPE_DECODE_PROMPTS, 1, dtype=torch.int32, device=dev)
+    masks, counts = {}, {}
+    for path, (attn, twoway, dtype) in CHUNK_PATHS.items():
+        m = build_sam("vit_b", dtype=dtype, attn_impl=attn, twoway_impl=twoway, device=dev,
+                      generator=torch.Generator().manual_seed(SEED + 33), depth=2,
+                      global_attn_indexes=(1,), img_size=side).eval()
+        reset_launches()
+        with torch.inference_mode():
+            emb, _ = m.encode_image(m.normalize(img), return_fpn=False)
+            masks[path], t_dec = synced(lambda: m.decode_from_embedding(
+                emb, points, labels, return_upscaled=False)["masks"])
+        got = launches()
+        if path == "chunk":
+            check_launches(f"vit_b {side} chunk decode", got, {**encode_want, "decode_tail": 1})
+            counts = got
+            log(f"vit_b {side} chunk decode of {SHAPE_DECODE_PROMPTS} prompts (N "
+                f"{(side // 16) ** 2}): {t_dec * 1e3:.2f} ms (host clock, the first call)")
+        elif any(got.values()):
+            raise RuntimeError(f"vit_b {side} chunk decode {path}: kernels launched {got}")
+        del m, emb
+    if masks["chunk"].shape[0] != SHAPE_DECODE_PROMPTS:
+        raise RuntimeError(f"vit_b {side} chunk decode: masks {tuple(masks['chunk'].shape)}")
+    chunk_masks_gate(f"vit_b {side} chunk decode of {SHAPE_DECODE_PROMPTS} prompts",
+                     masks["chunk"], masks["chunk_plain_bf16"], masks["chunk_plain_fp32"])
+    torch.cuda.empty_cache()
+    return counts
 
 
 EVAL_IMAGES = 3

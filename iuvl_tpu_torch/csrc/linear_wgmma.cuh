@@ -12,7 +12,13 @@
 //   layout so that each (window, head)'s q, k and v are contiguous tiles
 //   (B1's qkv; M counts 196 rows a window, N = 3 C, aux = C, aux2 = d);
 // - kEpiBiasInit: out = bf16(bias + acc), the fp32 accumulator initialised
-//   from the bias, as JAX's kernel folds bo in (B2's projection).
+//   from the bias, as JAX's kernel folds bo in (B2's projection);
+// - kEpiGelu: out = bf16(gelu_tanh(bf16(bf16(acc) + bias))), bias bf16
+//   (B3's hidden: mlp_block.cu);
+// - kEpiResid: out = bf16(bf16(r0 + r1) + bf16(bf16(acc) + bias)), bias
+//   bf16, r0 and r1 (M, N) bf16 (B3's output: the block's residual x + a
+//   and the MLP's).
+// The bias is fp32 for the first three, bf16 for the last two.
 // A is row-major, or with kHeadA the head outputs of an attention, (B, H,
 // T, d) head-major, read as the (B T, H d) token-major matrix (aux = T,
 // aux2 = d): a 16-byte piece of a row never straddles two heads.
@@ -36,9 +42,12 @@
 // Measured (ptxas on the card; no spills): 124 registers (128 with kHeadA),
 // 99,328 bytes of shared memory a block. On the card (H100 SXM, 700 W;
 // tools/kernel_ab.py, PERF.md) B1's qkv at ViT-B 1024^2 (4900 x 2304 x 768)
-// takes 0.0555 ms (312 TFLOP/s), its projection 0.020, B2's 0.023; keeping
+// takes 0.0555 ms (312 TFLOP/s), its projection 0.020, B2's 0.023, B3's
+// hidden and output at ViT-B 1024^2 0.058 and 0.054; keeping
 // one wgmma group in flight across the step's barrier moved nothing
-// (tools/gemm_variants.py).
+// (tools/gemm_variants.py), and 256 x 128 tiles (four warpgroups, four
+// stages, one block an SM) were slower at every B3 shape (0.137 against
+// 0.122 ms at ViT-B 1024^2; PERF.md §6).
 #pragma once
 
 #include "wgmma.cuh"
@@ -46,7 +55,7 @@
 namespace iuvl {
 namespace {
 
-enum LinearEpi { kEpiRound2 = 0, kEpiQkv = 1, kEpiBiasInit = 2 };
+enum LinearEpi { kEpiRound2 = 0, kEpiQkv = 1, kEpiBiasInit = 2, kEpiGelu = 3, kEpiResid = 4 };
 
 constexpr int kLinBM = 128, kLinBN = 128, kLinBK = 64, kLinStages = 3;
 constexpr int kLinThreads = 256;           // two warpgroups, 64 rows each
@@ -64,8 +73,12 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
 // out = epilogue(A B^T); grid (ceil(N / 128), ceil(M / 128)).
 template <int kEpi, bool kHeadA>
 __global__ void __launch_bounds__(kLinThreads, 2) linear_wgmma_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ b, const float* __restrict__ bias,
-    bf16* __restrict__ out, int M, int N, int K, int aux, int aux2) {
+    const bf16* __restrict__ a, const bf16* __restrict__ b, const void* __restrict__ bias_,
+    bf16* __restrict__ out, int M, int N, int K, int aux, int aux2, const bf16* __restrict__ r0,
+    const bf16* __restrict__ r1) {
+  constexpr bool kBf16Bias = kEpi == kEpiGelu || kEpi == kEpiResid;
+  const float* bias = static_cast<const float*>(bias_);  // the fp32 bias, or:
+  const bf16* bias16 = static_cast<const bf16*>(bias_);  // the bf16 one
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem + ((1024 - (smem_u32(smem) & 1023)) & 1023));
   bf16* sB = sA + kLinStages * kLinTile;  // kLinStages A tiles, then kLinStages B tiles
@@ -148,7 +161,10 @@ __global__ void __launch_bounds__(kLinThreads, 2) linear_wgmma_kernel(
     if (col >= N) continue;
     size_t coff = col;
     float b0 = 0.f, b1 = 0.f;
-    if constexpr (kEpi != kEpiBiasInit) {
+    if constexpr (kBf16Bias) {
+      b0 = to_f(bias16[col]);
+      b1 = to_f(bias16[col + 1]);
+    } else if constexpr (kEpi != kEpiBiasInit) {
       b0 = round_bf(bias[col]);
       b1 = round_bf(bias[col + 1]);
     }
@@ -160,9 +176,21 @@ __global__ void __launch_bounds__(kLinThreads, 2) linear_wgmma_kernel(
     for (int u = 0; u < 2; ++u) {
       if (row + 8 * u >= M) continue;
       const float x0 = acc[4 * j + 2 * u], x1 = acc[4 * j + 2 * u + 1];
-      const uint32_t v = kEpi == kEpiBiasInit
-                             ? pack_bf16(x0, x1)
-                             : pack_bf16(round_bf(x0) + b0, round_bf(x1) + b1);
+      uint32_t v;
+      if constexpr (kEpi == kEpiBiasInit) {
+        v = pack_bf16(x0, x1);
+      } else if constexpr (kEpi == kEpiGelu) {  // GELU on the bf16 value, rounded
+        v = pack_bf16(gelu_tanh(round_bf(round_bf(x0) + b0)),
+                      gelu_tanh(round_bf(round_bf(x1) + b1)));
+      } else if constexpr (kEpi == kEpiResid) {  // bf16(x + a) + bf16(bf16(acc) + bias)
+        const size_t at = roff[u] + coff;
+        const __nv_bfloat162 res = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(r0 + at),
+                                           *reinterpret_cast<const __nv_bfloat162*>(r1 + at));
+        const float2 rf = __bfloat1622float2(res);
+        v = pack_bf16(rf.x + round_bf(round_bf(x0) + b0), rf.y + round_bf(round_bf(x1) + b1));
+      } else {
+        v = pack_bf16(round_bf(x0) + b0, round_bf(x1) + b1);
+      }
       *reinterpret_cast<uint32_t*>(out + roff[u] + coff) = v;
     }
   }
@@ -170,8 +198,9 @@ __global__ void __launch_bounds__(kLinThreads, 2) linear_wgmma_kernel(
 
 // Launch out = epilogue(a b^T) on stream s; returns cudaGetLastError().
 template <int kEpi, bool kHeadA = false>
-int linear_wgmma(const bf16* a, const bf16* b, const float* bias, bf16* out, int M, int N, int K,
-                 int aux, int aux2, cudaStream_t s) {
+int linear_wgmma(const bf16* a, const bf16* b, const void* bias, bf16* out, int M, int N, int K,
+                 int aux, int aux2, cudaStream_t s, const bf16* r0 = nullptr,
+                 const bf16* r1 = nullptr) {
   if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8 || (kHeadA && (aux < 1 || K % aux2)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (cudaError_t err = cudaFuncSetAttribute(linear_wgmma_kernel<kEpi, kHeadA>,
@@ -180,7 +209,7 @@ int linear_wgmma(const bf16* a, const bf16* b, const float* bias, bf16* out, int
     return static_cast<int>(err);
   const dim3 grid((N + kLinBN - 1) / kLinBN, (M + kLinBM - 1) / kLinBM);
   linear_wgmma_kernel<kEpi, kHeadA><<<grid, kLinThreads, kLinSmem, s>>>(a, b, bias, out, M, N,
-                                                                        K, aux, aux2);
+                                                                        K, aux, aux2, r0, r1);
   return static_cast<int>(cudaGetLastError());
 }
 

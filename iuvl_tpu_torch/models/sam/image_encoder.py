@@ -205,7 +205,7 @@ class Block(nn.Module):
         if not fused(self.attn_impl):  # JAX's _tail_xla, autograd's backward
             n2, mlp, dt = self.norm2, self.mlp, self.dtype
             weights = (n2.weight, n2.bias, mlp.lin1.weight.to(dt), mlp.lin1.bias.to(dt),
-                       mlp.lin2.weight.to(dt).t(), mlp.lin2.bias.to(dt)) if grad \
+                       mlp.lin2.weight.to(dt), mlp.lin2.bias.to(dt)) if grad \
                 else self.tail_weights()
             out = block_tail_plain(x2, y2, *weights)
         elif grad:
@@ -218,12 +218,12 @@ class Block(nn.Module):
         return out.reshape(b, h, w, c)
 
     def tail_weights(self):
-        """(scale, bias, w1, b1, w2t, b2) as ``block_tail`` takes them: norm2
-        fp32, the MLP in the working dtype with lin2's weight transposed."""
+        """(scale, bias, w1, b1, w2, b2) as ``block_tail`` takes them: norm2
+        fp32, the MLP in the working dtype (``nn.Linear`` layouts)."""
         dt, n2, mlp = self.dtype, self.norm2, self.mlp
         return prepared(self, "tail", lambda: (
             n2.weight.float(), n2.bias.float(), mlp.lin1.weight.to(dt), mlp.lin1.bias.to(dt),
-            mlp.lin2.weight.to(dt).t().contiguous(), mlp.lin2.bias.to(dt)),
+            mlp.lin2.weight.to(dt), mlp.lin2.bias.to(dt)),
             *n2.parameters(), *mlp.parameters())
 
 

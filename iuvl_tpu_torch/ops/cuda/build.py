@@ -40,7 +40,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types (pointers, ints, floats; the
 # stream last). Keep in step with the ``extern "C"`` functions in csrc/.
 SIGNATURES = {
-    "iuvl_block_tail": (P,) * 9 + (I, I, I, F, P),
+    "iuvl_block_tail": (P,) * 11 + (I, I, I, F, P),
     "iuvl_window_block": (P,) * 10 + (I, I, I, I, P),
     "iuvl_rowbias_proj": (P,) * 10 + (I,) * 6 + (P,),
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
@@ -57,7 +57,7 @@ SIGNATURES = {
     "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),
-    "iuvl_decode_tail": (P,) + (I,) * 5 + (P,),
+    "iuvl_decode_tail": (P,) + (I,) * 6 + (P,),
     "iuvl_rowbias_fwd": (P,) * 7 + (I,) * 5 + (P,),
     "iuvl_relpos_groups": (P,) * 3 + (I,) * 3 + (P,),
     "iuvl_relpos_fwd": (P,) * 10 + (I,) * 5 + (P,),

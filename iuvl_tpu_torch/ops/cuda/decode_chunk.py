@@ -6,7 +6,8 @@ Replaces ``iuvl_tpu/ops/pallas/decode_chunk.py:decode_tail`` (B16): block
 0's image -> token step, all of block 1, the final token -> image
 attention and its norm, the hypernetwork MLPs, the two upscaling deconvs
 and the mask contraction. Kernel: ``csrc/decode_chunk.cu``, whose header
-says how the function is split into passes on the card and why the TPU's
+says how the function is split into passes on the card (three token
+passes of its own between B5's, B4's and B6's kernels) and why the TPU's
 one-prompt-in-VMEM design and its block-diagonal selector matrices are
 not carried over.
 
@@ -43,14 +44,13 @@ import torch
 
 from ..common import gelu
 from .build import launch, require
-from .twoway_attention import _heads, _merge, t2i_stream_plain
+from .twoway_attention import _heads, _merge, _sm_count, t2i_plan, t2i_stream_plain
 
 C, I, HEADS, M, MLP = 256, 128, 8, 4, 2048
 # The kernel's token slots, Tp. JAX pads a prompt's tokens to any multiple of
 # 16; the kernel's token passes hold Tp rows in shared memory and stop at 64
 # (58 points with the 5 output tokens and the pad point): ROADMAP.md Queue C.
 SLOTS = (16, 32, 48, 64)
-ROWS = 256  # N must be a multiple: the kernel's row passes split N in 8 parts of 32-row tiles
 LN_EPS, LN2D_EPS = 1e-5, 1e-6
 ATTN_SITES = ("self1", "t2i1", "i2t1", "final")
 NORMS = ("ln40", "ln11", "ln21", "ln31", "ln41", "lnf")
@@ -186,12 +186,10 @@ def _operands(t, tpe, keys0, key_pe, W):
     # The shared (batch-1) and the token-side precomputes that JAX runs in
     # XLA around its kernel: plain products here.
     kbd0, vbd0 = _i2t0_token_kv(t, tpe, W["i2t0_kv"])
-    pre = dict(
-        qp0=_proj(keys0[0], w0["qw"], w0["qb"], pe @ w0["qw"].t()),
-        pewq1=pe @ wi["qw"].t(), pewk1=pe @ w1["kw"].t(), pewkf=pe @ wf["kw"].t(),
-        kbd0=kbd0, vbd0=vbd0)
-    ops = [("t", t), ("tpe", tpe), ("keys0", keys0), *pre.items(),
-           ("i2t0.ow", w0["ow"]), ("i2t0.ob", w0["ob"])]
+    pre = dict(pewq0=pe @ w0["qw"].t(), pewq1=pe @ wi["qw"].t(), pewk1=pe @ w1["kw"].t(),
+               pewkf=pe @ wf["kw"].t(), kbd0=kbd0, vbd0=vbd0)
+    ops = [("t", t), ("tpe", tpe), ("keys0", keys0), *pre.items()]
+    ops += [(f"i2t0.{k}", w0[k]) for k in ("qw", "qb", "ow", "ob")]
     for site in ATTN_SITES:
         ops += [(f"{site}.{k}", W[site][k]) for k in ("qw", "qb", "kw", "kb", "vw", "vb",
                                                       "ow", "ob")]
@@ -205,9 +203,9 @@ def _operands(t, tpe, keys0, key_pe, W):
 
 def _shapes(b: int, n: int, tp: int = SLOTS[0]) -> dict:
     c4, c8 = C // 4, C // 8
-    s = dict(t=(b, tp, C), tpe=(b, tp, C), keys0=(1, n, C), qp0=(n, I), pewq1=(n, I),
+    s = dict(t=(b, tp, C), tpe=(b, tp, C), keys0=(1, n, C), pewq0=(n, I), pewq1=(n, I),
              pewk1=(n, I), pewkf=(n, I), kbd0=(b, tp, I), vbd0=(b, tp, I))
-    s.update({"i2t0.ow": (C, I), "i2t0.ob": (C,)})
+    s.update({"i2t0.qw": (I, C), "i2t0.qb": (I,), "i2t0.ow": (C, I), "i2t0.ob": (C,)})
     for site in ATTN_SITES:
         width = C if site == "self1" else I
         s.update({f"{site}.{k}w": (width, C) for k in "qkv"})
@@ -227,7 +225,7 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
     """The whole-chunk decode tail: the CUDA kernel for CUDA tensors (bf16,
     C 256, 8 heads of 16 in the cross attentions, Tp 16, 32, 48 or 64 slots
     (up to 64 tokens; the token passes hold Tp rows in shared memory), M 4
-    mask tokens, MLP width 2048, N % 256 == 0; LayerNorm params fp32),
+    mask tokens, MLP width 2048, any N >= 1; LayerNorm params fp32),
     the plain version for CPU tensors. Returns (tokens_out (B, Tp, C), masks_flat
     (B, N, 16 M) fp32, columns (di, dj, ei, ej, t)), and with
     ``return_keys2`` also keys2 (B, N, C), the keys after block 1 (on the
@@ -239,13 +237,13 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
     n = keys0.shape[1]
     internal = W["i2t0"]["qw"].shape[0]
     m = W["hyper"][0][0].shape[0]
-    if (c, internal, n_heads, m) != (C, I, HEADS, M) or tp not in SLOTS or n % ROWS \
+    if (c, internal, n_heads, m) != (C, I, HEADS, M) or tp not in SLOTS or n < 1 \
             or not 1 <= t_valid <= tp or keys0.shape[0] != 1:
         raise ValueError(
             f"decode_tail kernel: unsupported C={c}, internal {internal}, heads {n_heads} "
             f"(head width {internal // n_heads}), Tp={tp}, t_valid {t_valid}, M={m}, N={n}, "
             f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp in "
-            f"{SLOTS} (at most {SLOTS[-1]} tokens), 1 <= t_valid <= Tp, M 4, N % {ROWS} == 0, "
+            f"{SLOTS} (at most {SLOTS[-1]} tokens), 1 <= t_valid <= Tp, M 4, N >= 1, "
             "one shared image)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys0.device
     ops = _operands(t, tpe, keys0, key_pe, W)
@@ -257,8 +255,12 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
             raise ValueError(f"decode_tail: {name} is not 32-byte aligned")
     tok = torch.empty((b, tp, C), dtype=bf, device=dev)
     masks = torch.empty((b, n, 16 * M), dtype=f32, device=dev)
-    work = [torch.empty((b, n, C), dtype=bf, device=dev),             # keys1, then keys2
-            torch.empty((b, 8, HEADS, tp, 18), dtype=f32, device=dev),  # softmax partials
+    # B4's key ranges in the two token -> image attentions (per-prompt keys).
+    _, splits = t2i_plan(b, n, tp, b, _sm_count(dev))
+    work = [torch.empty((b, n, C), dtype=bf, device=dev),             # keys1
+            torch.empty((b, n, C), dtype=bf, device=dev),             # keys2
+            torch.empty(b * splits * tp * (I + 2 * HEADS), dtype=f32, device=dev),  # B4's partials
+            torch.empty((b, tp, I), dtype=bf, device=dev),             # B4's merged output
             torch.empty((b, tp, C), dtype=bf, device=dev),             # token state
             torch.empty((b, tp, I), dtype=bf, device=dev),             # t2i queries
             torch.empty((b, 2, tp, I), dtype=bf, device=dev),          # i2t1 token k, v
@@ -266,9 +268,10 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
     ptrs = [x.data_ptr() for _, x in ops] + [tok.data_ptr(), masks.data_ptr()] \
         + [x.data_ptr() for x in work]
     array = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    launch("iuvl_decode_tail", dev, ctypes.addressof(array), len(ptrs), b, n, tp, t_valid)
+    launch("iuvl_decode_tail", dev, ctypes.addressof(array), len(ptrs), b, n, tp, t_valid,
+           splits)
     decode_tail.launches += 1
-    return (tok, masks, work[0]) if return_keys2 else (tok, masks)
+    return (tok, masks, work[1]) if return_keys2 else (tok, masks)
 
 
 decode_tail.launches = 0

@@ -1,7 +1,8 @@
 """ViT block tail: residual + LayerNorm + MLP + residual, and its backward.
 
 Replaces ``iuvl_tpu/ops/pallas/mlp_block.py``: the forward ``block_tail``
-(B3, ``csrc/mlp_block.cu``) and the backward ``_tail_backward`` (B10,
+(B3, ``csrc/mlp_block.cu``: a LayerNorm pass and two GEMMs of
+``csrc/linear_wgmma.cuh``) and the backward ``_tail_backward`` (B10,
 ``csrc/mlp_block_bwd.cu``). Each kernel's header says what bounds it on
 the card and how its design answers that. :func:`block_tail_train` ties
 the two together as an autograd function, as ``jax.custom_vjp`` does in
@@ -20,37 +21,40 @@ from .build import launch, require
 EPS = 1e-6
 
 
-def block_tail_plain(x, a, scale, bias, w1, b1, w2t, b2, eps=EPS):
-    """``x1 = x + a; x1 + gelu(LN(x1) @ w1^T + b1) @ w2t + b2`` with the
+def block_tail_plain(x, a, scale, bias, w1, b1, w2, b2, eps=EPS):
+    """``x1 = x + a; x1 + gelu(LN(x1) @ w1^T + b1) @ w2^T + b2`` with the
     rounding points of ``iuvl_tpu`` ``_tail_xla``. x, a: (T, C); w1: (H, C)
-    in ``nn.Linear`` layout and w2t: (H, C), the second weight transposed;
-    weights and biases in x's dtype, LN scale and bias fp32."""
+    and w2: (C, H) in ``nn.Linear`` layout; weights and biases in x's
+    dtype, LN scale and bias fp32."""
     x1 = x + a
     y = layer_norm_f32(x1, scale, bias, eps).to(x.dtype)
     h = gelu(y @ w1.t() + b1)
-    return x1 + (h @ w2t + b2)
+    return x1 + (h @ w2.t() + b2)
 
 
-def block_tail(x, a, scale, bias, w1, b1, w2t, b2):
-    """Fused block tail for flattened token rows (T, C): the CUDA kernel for
+def block_tail(x, a, scale, bias, w1, b1, w2, b2):
+    """Fused block tail for flattened token rows (T, C): the CUDA kernels for
     CUDA tensors (bf16, any T, C in {768, 1024, 1280}, H % 128 == 0), the
     plain version for CPU tensors. Arguments as :func:`block_tail_plain`."""
     if x.device.type == "cpu":
-        return block_tail_plain(x, a, scale, bias, w1, b1, w2t, b2)
+        return block_tail_plain(x, a, scale, bias, w1, b1, w2, b2)
     t, c = x.shape
     hidden = w1.shape[0]
     if c not in (768, 1024, 1280) or hidden % 128:
         raise ValueError(f"block_tail kernel: unsupported T={t}, C={c}, H={hidden}")
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
-    args = dict(x=x, a=a, scale=scale, bias=bias, w1=w1, b1=b1, w2t=w2t, b2=b2)
+    args = dict(x=x, a=a, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2)
     shapes = dict(x=(t, c), a=(t, c), scale=(c,), bias=(c,), w1=(hidden, c),
-                  b1=(hidden,), w2t=(hidden, c), b2=(c,))
+                  b1=(hidden,), w2=(c, hidden), b2=(c,))
     for name, tensor in args.items():
         dtype = f32 if name in ("scale", "bias") else bf
         require("block_tail", name, tensor, dtype, shapes[name], dev)
     out = torch.empty_like(x)
+    # Scratch: LN(x + a) and the MLP's hidden, both bf16.
+    y = torch.empty_like(x)
+    h = torch.empty((t, hidden), dtype=bf, device=dev)
     launch("iuvl_block_tail", dev, *(t_.data_ptr() for t_ in args.values()),
-           out.data_ptr(), t, c, hidden, EPS)
+           out.data_ptr(), y.data_ptr(), h.data_ptr(), t, c, hidden, EPS)
     block_tail.launches += 1
     return out
 
@@ -139,7 +143,8 @@ block_tail_backward.launches = 0
 class _BlockTail(torch.autograd.Function):
     """B3 forward, B10 backward (or both plain versions). Takes the fp32
     parameters (lin2's weight in its (C, H) layout) and casts them as the
-    kernels take them, so that the gradients come back in fp32."""
+    kernels take them (the backward's lin2 weight transposed), so that the
+    gradients come back in fp32."""
 
     @staticmethod
     def forward(ctx, x, a, scale, bias, w1, b1, w2, b2, impl):
@@ -147,8 +152,7 @@ class _BlockTail(torch.autograd.Function):
         ctx.save_for_backward(x, a, scale, bias, w1, b1, w2)
         dt = x.dtype
         fwd = block_tail if impl == "auto" else block_tail_plain
-        return fwd(x, a, scale.float(), bias.float(), w1.to(dt), b1.to(dt),
-                   w2.to(dt).t().contiguous(), b2.to(dt))
+        return fwd(x, a, scale.float(), bias.float(), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt))
 
     @staticmethod
     def backward(ctx, g):

@@ -316,11 +316,52 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing(setup, plain_out)
     assert torch.equal(tok, plain_out[0]) and torch.equal(masks, plain_out[1])
     assert len(with_keys2) == 3 and all(map(torch.equal, with_keys2, plain_out))
     assert masks.dtype == torch.float32 and masks.shape == (B, GRID * GRID, 64)
-    # 71 kernel operands in the C entry's order, each with a declared shape
+    # 73 kernel operands in the C entry's order, each with a declared shape
     ops = dc._operands(*map(_t, setup["tail"]), setup["port"].tail_weights())
-    assert len(ops) == 71 and set(dict(ops)) == set(dc._shapes(B, GRID * GRID))
+    assert len(ops) == 73 and set(dict(ops)) == set(dc._shapes(B, GRID * GRID))
     for name, x in ops:
         assert tuple(x.shape) == dc._shapes(B, GRID * GRID)[name], name
+
+
+@pytest.fixture(scope="module")
+def setup10():
+    """Inputs over a 10 x 10 grid (N 100: no multiple of 16, 32, 64 or 256),
+    drawn as ``setup`` draws its own, for the same decoder."""
+    rs, grid = np.random.RandomState(10), 10
+    emb = rs.randn(1, grid, grid, C).astype(np.float32) * 0.5
+    pe = rs.randn(grid, grid, C).astype(np.float32) * 0.5
+    sparse = rs.randn(B, 2, C).astype(np.float32) * 0.5
+    dense = rs.randn(1, grid, grid, C).astype(np.float32) * 0.1
+    t = np.zeros((B, 16, C), np.float32)
+    tpe = np.zeros((B, 16, C), np.float32)
+    t[:, :T_VALID] = rs.randn(B, T_VALID, C)
+    tpe[:, :T_VALID] = rs.randn(B, T_VALID, C) * 0.5
+    keys0 = rs.randn(1, grid * grid, C).astype(np.float32) * 0.5
+    key_pe = rs.randn(1, grid * grid, C).astype(np.float32) * 0.5
+    return dict(np_args=(emb, pe, sparse, dense), tail=(t, tpe, keys0, key_pe))
+
+
+@pytest.mark.parametrize("ref", ["decode_tail_xla", "pallas", "chunk_xla"])
+def test_decode_tail_at_a_10x10_grid_matches_jax(setup, setup10, ref, interpret):
+    """Any key count (C7): decode_tail's plain version against JAX's
+    decode_tail_xla and the interpret-mode Pallas kernel, and the chunk
+    branch against JAX's chunk_xla, at N 100."""
+    if ref == "chunk_xla":
+        want = JMaskDecoder(twoway_impl="chunk_xla").apply(
+            setup["params"], *map(jnp.asarray, setup10["np_args"]))
+        with torch.no_grad():
+            got = setup["port"](*map(_t, setup10["np_args"]))
+        for k in OUT_KEYS:
+            _close(got[k], want[k], k)
+        return
+    with torch.no_grad():
+        got = dc.decode_tail_plain(*map(_t, setup10["tail"]), setup["port"].tail_weights(), 8,
+                                   T_VALID)
+    fn = jdc.decode_tail_xla if ref == "decode_tail_xla" else jdc.decode_tail
+    want = fn(*map(jnp.asarray, setup10["tail"]), setup["jw"], n_heads=8, t_valid=T_VALID)
+    assert got[1].shape == (B, 100, 64)
+    for name, g, w in zip(("tokens_out", "masks_flat", "keys2"), got, want):
+        _close(g, w, name)
 
 
 def test_unflatten_masks_ge_matches_jax():

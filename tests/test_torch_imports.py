@@ -100,7 +100,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     fa.flash_attention_rowbias_proj(r(1, heads, 16, 16), r(1, heads, 16, 16),
                                     r(1, heads, 16, 16), r(1, heads, 16, 4),
                                     r(1, heads, 16, 4), r(c, c), r(c), 4)
-    mb.block_tail(r(8, c), r(8, c), r(c), r(c), r(4 * c, c), r(4 * c), r(4 * c, c), r(c))
+    mb.block_tail(r(8, c), r(8, c), r(c), r(c), r(4 * c, c), r(4 * c), r(c, 4 * c), r(c))
     mu.masks_upscale(r(2, 16, c), r(c, 32), r(8), r(8), r(8), r(8, 16), r(4), r(2, 4, 4))
     ta.t2i_stream(r(2, 3, 16), r(1, 16, c), r(16, 16), r(16, c), r(16), r(16, c), r(16),
                   heads)

@@ -233,10 +233,11 @@ def _tail_inputs(t=64, c=32, hidden=128, seed=5):
 
 
 def _tail_port(a, dtype=torch.float32):
-    # JAX's w2 (H, C) is the transposed second weight the port takes.
+    # JAX's weights (in, out) transposed: the port takes nn.Linear layouts.
     cast = lambda k: _t(a[k]).to(dtype)  # noqa: E731
     return tmb.block_tail(cast("x"), cast("a"), _t(a["scale"]), _t(a["bias"]),
-                          _t(a["w1"].T).to(dtype), cast("b1"), cast("w2"), cast("b2"))
+                          _t(a["w1"].T).to(dtype), cast("b1"), _t(a["w2"].T).to(dtype),
+                          cast("b2"))
 
 
 def _tail_jax(a, dtype=jnp.float32):
@@ -245,8 +246,9 @@ def _tail_jax(a, dtype=jnp.float32):
             j["w1"], j["b1"], j["w2"], j["b2"])
 
 
-def test_block_tail_plain_matches_jax_oracle_and_kernel():
-    a = _tail_inputs()
+@pytest.mark.parametrize("t", [64, 100])  # 100: a ragged last row tile
+def test_block_tail_plain_matches_jax_oracle_and_kernel(t):
+    a = _tail_inputs(t=t)
     out = _tail_port(a)
     assert tmb.block_tail.launches == 0
     _close(out, jmb._tail_xla(*_tail_jax(a)))
@@ -254,11 +256,12 @@ def test_block_tail_plain_matches_jax_oracle_and_kernel():
         _close(out, jmb.block_tail(*_tail_jax(a)))
 
 
-def test_block_tail_plain_matches_jax_oracle_bf16():
+@pytest.mark.parametrize("t", [64, 100])
+def test_block_tail_plain_matches_jax_oracle_bf16(t):
     """bf16 storage: the two frameworks round at the same points, but the
     bf16 products and the tanh GELU may land one bf16 ulp (2^-8 relative)
     apart, so the bound is the JAX suite's bf16 bar of 1e-2."""
-    a = _tail_inputs(seed=6)
+    a = _tail_inputs(t=t, seed=6)
     out = _tail_port(a, torch.bfloat16)
     assert out.dtype == torch.bfloat16
     _close(out, jmb._tail_xla(*_tail_jax(a, jnp.bfloat16)), atol=1e-2, rtol=1e-2)

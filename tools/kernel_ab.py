@@ -52,6 +52,17 @@ process, one mode a kernel (``--kernels``, any of them in one run):
   windowed blocks' attention body, at ViT-B 1024^2 (25 windows), batch 2
   (50), ViT-H (C 1280, 16 heads of 80) and ViT-B 512^2 (9 windows): the
   same readings.
+- ``block_tail``: B3 (``mlp_block.cu`` ``iuvl_block_tail``), the ViT
+  block's tail (residual, LayerNorm, MLP, residual), at ViT-B 1024^2 (T
+  4096, C 768, H 3072), batch 2 (T 8192), ViT-H (C 1280, H 5120) and ViT-B
+  800^2 (T 2500): the same readings as ``i2t``.
+- ``decode_tail``: B16 (``decode_chunk.cu`` ``iuvl_decode_tail``), the
+  whole-chunk decode tail, on 256 prompts over N 4096 at 16 slots (7
+  tokens), 48 (40) and 64 (56), an interactive round (8 prompts, 26 tokens
+  in 32 slots), and N 2500 (ViT-B 800^2, which the parent refuses): rel L2
+  of the tokens and the masks to the plain version, two launches
+  bit-equal, times in turns, the plain version, the bound (operations) and
+  each kernel's device time.
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -90,8 +101,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from iuvl_tpu_torch.ops.cuda import build  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import decode_chunk as dc  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import mask_upscale as mu  # noqa: E402
+from iuvl_tpu_torch.ops.cuda import mlp_block as mb  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import seg_scatter as ss  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import tap_scatter as ts  # noqa: E402
 from iuvl_tpu_torch.ops.cuda import twoway_attention as ta  # noqa: E402
@@ -117,22 +130,29 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                # the parent's B1 (a cluster of 4 blocks a window, qkv and o
                # scratch) and B2 (32-query tiles, an fp32 accumulator pacc).
                "iuvl_window_block": [P] * 10 + [I] * 4 + [P],
-               "iuvl_rowbias_proj": [P] * 9 + [I] * 6 + [P]}
+               "iuvl_rowbias_proj": [P] * 9 + [I] * 6 + [P],
+               # the parent's B3 (one kernel, w2 transposed, no scratch) and
+               # B16 (its operand list with the qp0 table, six workspaces).
+               "iuvl_block_tail": [P] * 9 + [I, I, I, F, P],
+               "iuvl_decode_tail": [P] + [I] * 5 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
           "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
           "upscale": "mask_upscale.cu", "window_block": "window_block.cu",
-          "rowbias_proj": "flash_attention.cu"}
+          "rowbias_proj": "flash_attention.cu", "block_tail": "mlp_block.cu",
+          "decode_tail": "decode_chunk.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
            "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
            "t2i": ("iuvl_t2i_stream",), "upscale": ("iuvl_masks_upscale",),
-           "window_block": ("iuvl_window_block",), "rowbias_proj": ("iuvl_rowbias_proj",)}
+           "window_block": ("iuvl_window_block",), "rowbias_proj": ("iuvl_rowbias_proj",),
+           "block_tail": ("iuvl_block_tail",), "decode_tail": ("iuvl_decode_tail",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
            "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale",
-           "window_block", "wb_", "rowbias_proj", "linear_")
+           "window_block", "wb_", "rowbias_proj", "linear_", "block_tail", "tail_ln",
+           "tok_", "row_pass", "upscale_kernel")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -817,9 +837,164 @@ def window_block_ab(parent_tree: Path, work: Path, bad: list) -> None:
         torch.cuda.empty_cache()
 
 
+# B3's shapes: (tag, T, C): ViT-B 1024^2, batch 2, ViT-H 1024^2, ViT-B 800^2.
+BLOCK_TAIL_SHAPES = (("vit_b_1024", 4096, 768), ("b2", 8192, 768), ("vit_h", 4096, 1280),
+                     ("t2500", 2500, 768))
+
+
+def block_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B3 (``mlp_block.cu`` ``iuvl_block_tail``) at BLOCK_TAIL_SHAPES; the
+    readings of ``i2t``. The parent's entry takes lin2's weight transposed
+    (H, C) and no scratch."""
+    lib = compile_source(parent_tree, work, "block_tail")
+    for tag, n, c in BLOCK_TAIL_SHAPES:
+        h = 4 * c
+        x, a = t(n, c), t(n, c)
+        scale, bias = (1.0 + t(c, std=0.1)).float(), t(c, std=0.3).float()
+        w1, b1 = t(h, c, std=c ** -0.5), t(h, std=0.3)
+        w2, b2 = t(c, h, std=h ** -0.5), t(c, std=0.3)
+        w2t = w2.t().contiguous()
+        args = (x, a, scale, bias, w1, b1, w2, b2)
+
+        def parent():
+            out = torch.empty_like(x)
+            assert lib.iuvl_block_tail(*ptr(x, a, scale, bias, w1, b1, w2t, b2, out), n, c, h,
+                                       mb.EPS, stream()) == 0
+            return out
+
+        ab_report(f"block_tail@{tag} (T {n}, C {c}, H {h})", lambda: mb.block_tail(*args),
+                  parent, lambda: mb.block_tail_plain(*args),
+                  bound_of((x, a, scale, bias, w1, b1, w2, b2, x), 4 * n * c * h), bad, 5e-4,
+                  work)
+        del args, x, a, w1, w2, w2t
+        torch.cuda.empty_cache()
+
+
+# B16's shapes: (tag, prompts, slots, tokens, N).
+DECODE_TAIL_SHAPES = (("tp16", 256, 16, 7, 4096), ("tp48", 256, 48, 40, 4096),
+                      ("tp64", 256, 64, 56, 4096), ("round8_tp32", 8, 32, 26, 4096),
+                      ("n2500", 256, 16, 7, 2500))
+
+
+def decode_tail_args(b: int, tp: int, tv: int, n: int, seed: int = 0):
+    """B16's arguments: the decoder's weights as build_sam draws them (its
+    LayerNorms perturbed), ``tv`` random tokens in ``tp`` slots of ``b``
+    prompts, a random (N, 256) embedding and PE."""
+    from iuvl_tpu_torch.models.sam.build import init_random_
+    from iuvl_tpu_torch.models.sam.mask_decoder import MaskDecoder
+
+    dec = MaskDecoder(dtype=torch.bfloat16, twoway_impl="chunk")
+    init_random_(dec, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in dec.modules():
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.add_(torch.randn(256, generator=g) * 0.1)
+                mod.bias.copy_(torch.randn(256, generator=g) * 0.3)
+    dec = dec.cuda()
+    tok = torch.zeros(2, b, tp, 256, device="cuda")
+    tok[:, :, :tv] = torch.randn(2, b, tv, 256, device="cuda", generator=GEN)
+    tok[1] *= 0.5
+    image = torch.randn(2, 1, n, 256, device="cuda", generator=GEN)
+    image[1] *= 0.5
+    bf = torch.bfloat16
+    return (tok[0].to(bf), tok[1].to(bf), image[0].to(bf), image[1].to(bf), dec.tail_weights(),
+            dc.HEADS, tv)
+
+
+def parent_decode_call(lib, args):
+    """The parent's B16 entry: its operand list (the qp0 table) and its six
+    workspaces (keys, 8 softmax partials, token state, queries, k / v,
+    hyper)."""
+    tk, tpe, keys0, key_pe, w, _, tv = args
+    b, tp, c = tk.shape
+    n = keys0.shape[1]
+    pe = key_pe[0]
+    w0, wi, w1, wf = w["i2t0"], w["i2t1"], w["t2i1"], w["final"]
+    kbd0, vbd0 = dc._i2t0_token_kv(tk, tpe, w["i2t0_kv"])
+    ops = [tk, tpe, keys0, dc._proj(keys0[0], w0["qw"], w0["qb"], pe @ w0["qw"].t()),
+           pe @ wi["qw"].t(), pe @ w1["kw"].t(), pe @ wf["kw"].t(), kbd0, vbd0, w0["ow"],
+           w0["ob"]]
+    for site in dc.ATTN_SITES:
+        ops += [w[site][k] for k in ("qw", "qb", "kw", "kb", "vw", "vb", "ow", "ob")]
+    ops += list(w["mlp1"]) + [x for nm in dc.NORMS for x in w[nm]]
+    ops += [x for layer in w["hyper"] for x in layer] + list(w["up"])
+    ops = [x.contiguous() for x in ops]
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def call():
+        tok = torch.empty((b, tp, c), dtype=bf, device="cuda")
+        masks = torch.empty((b, n, 16 * dc.M), dtype=f32, device="cuda")
+        ws = [torch.empty((b, n, c), dtype=bf, device="cuda"),
+              torch.empty((b, 8, dc.HEADS, tp, 18), dtype=f32, device="cuda"),
+              torch.empty((b, tp, c), dtype=bf, device="cuda"),
+              torch.empty((b, tp, dc.I), dtype=bf, device="cuda"),
+              torch.empty((b, 2, tp, dc.I), dtype=bf, device="cuda"),
+              torch.empty((b, dc.M, c // 8), dtype=bf, device="cuda")]
+        ptrs = ptr(*ops, tok, masks, *ws)
+        array = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        assert lib.iuvl_decode_tail(ctypes.addressof(array), len(ptrs), b, n, tp, tv,
+                                    stream()) == 0
+        return tok, masks
+    return call
+
+
+def decode_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B16 (``decode_chunk.cu`` ``iuvl_decode_tail``) at DECODE_TAIL_SHAPES:
+    rel L2 of the tokens (bound 3.5e-3) and masks (1.2e-2) to the plain
+    version, two launches bit-equal, times in turns, the plain version, the
+    bound (the operations of chip_smoke.py's ``work``) and each kernel's
+    device time."""
+    lib = compile_source(parent_tree, work, "decode_tail")
+    for tag, b, tp, tv, n in DECODE_TAIL_SHAPES:
+        args = decode_tail_args(b, tp, tv, n)
+        label = f"decode_tail@{tag} (B {b}, Tp {tp}, tokens {tv}, N {n})"
+        new = lambda: dc.decode_tail(*args)  # noqa: E731
+        got = refused(new, label, bad, "this tree")
+        if got is None:
+            continue
+        want = dc.decode_tail_plain(*args)[:2]
+        again = new()
+        errs = [rel(x[:, :tv] if j == 0 else x, y[:, :tv] if j == 0 else y)
+                for j, (x, y) in enumerate(zip(got, want))]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        parent = parent_decode_call(lib, args) if n % 256 == 0 else None
+        e_par = "refused"
+        if parent:
+            par = parent()
+            e_par = ", ".join(f"{rel(x[:, :tv] if j == 0 else x, y[:, :tv] if j == 0 else y):.3e}"
+                              for j, (x, y) in enumerate(zip(par, want)))
+            del par
+        if not (errs[0] <= 3.5e-3 and errs[1] <= 1.2e-2) or not same:
+            bad.append(f"{label} rel_l2 tokens, masks {errs}, bit-equal {same}")
+        c, i, mlp, m, c4, c8 = 256, dc.I, dc.MLP, dc.M, 64, 32
+        rows = n * (7 * c * i + c * 4 * c4 + 4 * c4 * 4 * c8 + 16 * c8 * m + 8 * tv * i)
+        tokens = tv * (4 * c * c + 2 * tv * c + 6 * c * i + 2 * c * mlp + 3 * c * i) \
+            + m * (2 * c * c + c * c8)
+        flops = 2 * b * (rows + tokens) + 2 * 5 * n * c * i
+        bound = flops / 989e12 * 1e3
+        if parent:
+            t_par, t_new = in_turns(parent, new)
+            times = (f"ms this tree {t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} "
+                     f"{t_par[1]:.4f}; mean this {sum(t_new) / 2:.4f} parent "
+                     f"{sum(t_par) / 2:.4f}")
+        else:
+            times = f"ms this tree {ms(new, 10):.4f} {ms(new, 10):.4f}; parent refuses"
+        plain = lambda: dc.decode_tail_plain(*args)  # noqa: E731
+        print(f"{label}: rel_l2 tokens {errs[0]:.3e}, masks {errs[1]:.3e} (parent {e_par}); "
+              f"two launches bit-equal {same}; {times}; plain {ms(plain, 2):.4f}; bound "
+              f"{bound:.4f} ms (operations, {flops / 1e9:.1f} GFLOP)", flush=True)
+        print(f"{label} device split, this tree: {kernel_split(new, work, 3)}", flush=True)
+        if parent:
+            print(f"{label} device split, parent: {kernel_split(parent, work, 3)}", flush=True)
+        del args, got, want, again
+        torch.cuda.empty_cache()
+
+
 MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
          "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab,
-         "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab}
+         "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab,
+         "block_tail": block_tail_ab, "decode_tail": decode_tail_ab}
 
 
 def main() -> int:
