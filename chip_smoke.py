@@ -39,10 +39,12 @@ Phases (any failure raises, so the exit code is non-zero):
    from the next window, B2's last head left out of the projection, a
    B2b / B14 / B11 dq pass that skips the last key
    tile, alpha not applied at a key tile, a dk/dv strip left unwritten,
-   B17's partial sums of a destination that spans blocks dropped):
+   B17's partial sums of a destination that spans blocks dropped, a B9 /
+   B10 weight gradient's split-K sum that misses its last split, an
+   MN-major GEMM operand read one 8-row group off):
    each must move some output by more than its bound, and each output's
    bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of B1-B6, B16, the B2b / B14 / B11 forward and backward and of B17 on
+   two launches of B1-B6, B9, B10, B16, the B2b / B14 / B11 forward and backward and of B17 on
    the same inputs must give the same bits, and B14's expander group words must equal
    their plain version's. Times from CUDA events after a warm-up (20 calls at the
    global shapes of B2b, B14 and B13); for B11 (SDPA forward, and forward
@@ -322,7 +324,7 @@ DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
                  "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
                  "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj",
-                 "block_tail", "decode_tail")
+                 "block_tail", "decode_tail", "window_block_backward", "block_tail_backward")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -621,6 +623,24 @@ def _tile_missed(j, i, rows):
         t.view(-1, t.shape[-1])[-rows:] = 0
         return a[:i] + (t,) + a[i + 1:]
     return ("out", j, fault)
+
+
+def _rows_rolled(j, i, by):
+    """Output j of the plain version with argument i's rows (its first dim)
+    rolled by ``by``: a GEMM operand read ``by`` rows off (an MN-major
+    operand's 8-row group shifted), every other output sound."""
+    def fault(a):
+        return a[:i] + (torch.roll(a[i], by, dims=0),) + a[i + 1:]
+    return ("out", j, fault)
+
+
+def _split_k_rows(m: int, n: int, k: int, dev) -> int:
+    """Depth rows of the last split of the split-K GEMM of an (m, n) output
+    over depth k, as the wrappers plan it on this card."""
+    from iuvl_tpu_torch.ops.cuda.build import split_k, split_k_last_rows
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return split_k_last_rows(k, split_k(m, n, k, sms))
 
 
 def _planted(fn):
@@ -1072,11 +1092,16 @@ def kernel_cases(rs: np.random.RandomState, dev):
          {"rel-pos branch dropped": lambda a: a[:5] + (torch.zeros_like(rh),
                                                         torch.zeros_like(rw)) + a[7:],
           "bqkv dropped": _zero(3), "dbo misses the last 16 rows": _tile_missed(4, 1, 16),
-          "heads 0/1 swapped in g": _swap(1, 2, d)}, 5),
+          "heads 0/1 swapped in g": _swap(1, 2, d),
+          "dWo's split-K sum misses its last split":
+              _tile_missed(3, 1, _split_k_rows(c, c, 25 * 196, dev)),
+          "Wo (MN-major in do) read one 8-row group off": _rows_rolled(0, 4, 8)}, 5),
         ("block_tail_backward", tail_bwd,
          {"db2 misses the last 16 rows": _tile_missed(6, 2, 16), "LN bias dropped": _zero(4),
-          "b1 dropped": _zero(6), "dscale misses the last 16 rows": _tile_missed(1, 2, 16)},
-         5),
+          "b1 dropped": _zero(6), "dscale misses the last 16 rows": _tile_missed(1, 2, 16),
+          "dW2's split-K sum misses its last split":
+              _tile_missed(5, 2, _split_k_rows(c, 4 * c, n, dev)),
+          "g (MN-major in dW2) read one 8-row group off": _rows_rolled(5, 2, 8)}, 5),
     ] + [(name, args, {"rows one cell off": _shift(0, 1, span - 1),
                        "taps 0/1 swapped": _swap(1, 2, 1)}, 10)
          for name, args in (("tap_scatter", scatter), ("tap_scatter@skewed", scatter_skew))] + [

@@ -5,38 +5,46 @@
 //
 // Bound on the card: operations, 2 T C H x 5 (the recomputed hidden, dh,
 // dy and the two weight gradients; 96.6 GFLOP at ViT-B 1024^2, T 4096,
-// C 768, H 3072) against one read of x, a, g and the weights. The TPU
-// kernel kept the (rows, 4C) hidden and its cotangent in VMEM and carried
-// dW1 and dW2 across a serial grid over row chunks. Here the row chunks
-// run in parallel, so the weight gradients, sums over all 4096 rows, are
-// GEMMs of their own whose depth is the row dimension (gemm.cuh: a block
-// owns an output tile and sums every row, no partials, no atomics), and
-// the hidden and its cotangent pass through device memory (T x H bf16,
-// 25 MB each, mostly L2): a first, simple version.
-//   1. per row: x1, the LayerNorm statistics, y = bf16(LN(x1)).
-//   2. hpre = y W1^T and dh = g W2 (tiled GEMMs, fp32 out); then per
-//      element h = gelu(bf16(bf16(hpre) + b1)) and dhpre = bf16(dh gelu').
-//   3. dy = dhpre W1 (GEMM); per row the LayerNorm backward, dxa =
-//      bf16(g + bf16(dx1)), and dy * xhat for dscale.
-//   4. dW1 = dhpre^T y, dW2 = g^T h (GEMMs over the rows); db1, db2, dscale,
-//      dbias as column sums in a fixed order.
+// C 768, H 3072, 0.098 ms at 989 TFLOP/s) against one read of x, a, g and
+// the weights. The TPU kernel kept the (rows, 4C) hidden and its cotangent
+// in VMEM and carried dW1 and dW2 across a serial grid over row chunks.
+// Here the row chunks run in parallel and every product is the wgmma GEMM
+// of linear_wgmma.cuh, its epilogue doing the element-wise work:
+//   1. tail_ln_kernel, a warp a row: x1, the LayerNorm statistics, y =
+//      bf16(LN(x1)) (each lane sums columns lane + 32 i in order).
+//   2. hpre = bf16(bf16(y W1^T) + b1) (kEpiHidden, (T, H) bf16); dh = g W2
+//      (B = w2t, K-major), whose epilogue stages the hpre tile through
+//      shared memory and writes h = bf16(gelu(hpre)) and dhpre = bf16(dh
+//      gelu'(hpre)) with dh straight from the fp32 accumulator
+//      (kEpiGeluBwd): no (T, H) fp32 array.
+//   3. dy = dhpre W1 (W1 (H, C) read N-major; fp32 out, into hpre's bytes);
+//      tail_ln_bwd_kernel, a warp a row: dxa = bf16(g + bf16(dx1)) and dy
+//      xhat for dscale.
+//   4. dW1 = dhpre^T y and dW2 = g^T h: the token rows are the depth, both
+//      operands read M-/N-major; split-K over the rows in thread block
+//      clusters, the splits' tiles added in split order through
+//      distributed shared memory (linear_wgmma.cuh), so two launches give
+//      the same bits.
+//   5. db1, db2, dscale, dbias: column sums in a fixed order, two launches
+//      for the four (colsums).
+// Measured (ptxas on the card): the GEMMs 110-128 registers and 99,328
+// bytes a block (the dh GEMM spills 8 bytes), the row passes 32 registers.
+// On the card (H100 SXM, 700 W; tools/kernel_ab.py, PERF.md §6)
+// 0.367 ms at ViT-B 1024^2 (the earlier wmma design: 1.198): LayerNorm 0.011,
+// hidden 0.055, dh with h and dhpre 0.063 (0.126 with the epilogue's
+// loads and stores straight from registers), dy 0.052, LayerNorm backward
+// 0.024, dW1 and dW2 0.061 each (two splits), column sums 0.027; batch 2
+// 0.664, ViT-H 0.791, T 2500 0.257.
 //
 // Rounding points follow _tail_bwd_kernel: x1 bf16; LN statistics fp32
 // with the fast variance; y = bf16(xhat * scale + bias); hpre = bf16(
 // bf16(y W1^T) + b1); the tanh-GELU derivative in fp32 (the bf16 forward's
 // GELU); dhpre = bf16(dh * gelu'); dy fp32; dxa = bf16(g + bf16(dx1));
 // every parameter gradient fp32.
-#include "gemm.cuh"
+#include "linear_wgmma.cuh"
 
 namespace iuvl {
 namespace {
-
-// tanh-GELU derivative (iuvl_tpu mlp_block._gelu_grad_f32).
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  const float c = 0.7978845608028654f, a = 0.044715f;
-  const float t = tanhf(c * (x + a * x * x * x));
-  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
-}
 
 // One warp a row: x1 = bf16(x + a), mean and rstd (fast variance), y.
 __global__ void __launch_bounds__(kThreads) tail_ln_kernel(
@@ -64,17 +72,6 @@ __global__ void __launch_bounds__(kThreads) tail_ln_kernel(
     stats[2 * row] = mu;
     stats[2 * row + 1] = rstd;
   }
-}
-
-// h = gelu(hpre), dhpre = bf16(dh * gelu'(hpre)), hpre = bf16(bf16(p1) + b1).
-__global__ void tail_gelu_kernel(const float* __restrict__ p1, const float* __restrict__ dh,
-                                 const bf16* __restrict__ b1, bf16* __restrict__ h,
-                                 bf16* __restrict__ dhpre, size_t total, int H) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float hp = round_bf(round_bf(p1[i]) + to_f(b1[i % H]));
-  h[i] = to_bf(gelu_tanh(hp));
-  dhpre[i] = to_bf(dh[i] * gelu_tanh_grad(hp));
 }
 
 // One warp a row: the LayerNorm backward; dyx = dy * xhat for dscale.
@@ -112,16 +109,20 @@ using namespace iuvl;
 
 // x, a, g, dxa: (T, C) bf16; scale, bias: (C) fp32; w1: (H, C) bf16; b1: (H)
 // bf16; w2t: (H, C) bf16, the second weight transposed. Scratch: yb (T, C)
-// bf16; stats (T, 2) fp32; f32a, f32b (T, H) fp32; hb, dhb (T, H) bf16.
-// Outputs fp32: dscale, dbias (C); dw1 (H, C); db1 (H); dw2 (C, H) in
-// nn.Linear layout; db2 (C).
+// bf16; stats (T, 2) fp32; hpre (T, max(H, 4 C)) bf16 (dy and dy * xhat,
+// (T, C) fp32 each, later take its bytes); hb, dhb (T, H) bf16; sums, the
+// column sums' chunks (ops/cuda/build.py colsum_scratch(T, max(H, C), 4))
+// fp32. Outputs fp32: dscale, dbias (C); dw1 (H, C); db1 (H); dw2 (C, H) in
+// nn.Linear layout; db2 (C). splits: the weight gradients' split-K (1, 2, 4
+// or 8; split_k in ops/cuda/build.py). C % 8 == 0, H % 8 == 0.
 extern "C" int iuvl_block_tail_bwd(const void* x, const void* a, const void* g,
                                    const void* scale, const void* bias, const void* w1,
                                    const void* b1, const void* w2t, void* yb, void* stats,
-                                   void* f32a, void* f32b, void* hb, void* dhb, void* dxa,
+                                   void* hpre, void* hb, void* dhb, void* sums, void* dxa,
                                    void* dscale, void* dbias, void* dw1, void* db1, void* dw2,
-                                   void* db2, int T, int C, int H, float eps, void* stream) {
-  if (C % 128 || H % 128) return static_cast<int>(cudaErrorInvalidValue);
+                                   void* db2,
+                                   int T, int C, int H, int splits, float eps, void* stream) {
+  if (T < 1 || C % 8 || H % 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* x_ = static_cast<const bf16*>(x);
   const bf16* a_ = static_cast<const bf16*>(a);
@@ -130,32 +131,38 @@ extern "C" int iuvl_block_tail_bwd(const void* x, const void* a, const void* g,
   const float* scale_ = static_cast<const float*>(scale);
   bf16* y_ = static_cast<bf16*>(yb);
   float* st_ = static_cast<float*>(stats);
-  float* fa = static_cast<float*>(f32a);
-  float* fb = static_cast<float*>(f32b);
+  bf16* hp_ = static_cast<bf16*>(hpre);
   bf16* h_ = static_cast<bf16*>(hb);
   bf16* dh_ = static_cast<bf16*>(dhb);
+  float* dy_ = reinterpret_cast<float*>(hp_);  // hpre is dead once h and dhpre are out
+  float* dyx_ = dy_ + static_cast<size_t>(T) * C;
   const unsigned row_blocks = (T + kWarps - 1) / kWarps;
   // 1. LayerNorm recompute
   tail_ln_kernel<<<row_blocks, kThreads, 0, s>>>(x_, a_, scale_, static_cast<const float*>(bias),
                                                  y_, st_, T, C, eps);
   IUVL_TRY(static_cast<int>(cudaGetLastError()));
-  // 2. hidden and its cotangent
-  IUVL_TRY((gemm_f32<false, false>(y_, w1_, fa, T, H, C, s)));
-  IUVL_TRY((gemm_f32<false, false>(g_, static_cast<const bf16*>(w2t), fb, T, H, C, s)));
-  const size_t total = static_cast<size_t>(T) * H;
-  tail_gelu_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      fa, fb, static_cast<const bf16*>(b1), h_, dh_, total, H);
-  IUVL_TRY(static_cast<int>(cudaGetLastError()));
-  // 3. dy and the LayerNorm backward (dy in f32a, dy * xhat in f32b)
-  IUVL_TRY((gemm_f32<false, true>(dh_, w1_, fa, T, C, H, s)));
-  tail_ln_bwd_kernel<<<row_blocks, kThreads, 0, s>>>(x_, a_, g_, scale_, st_, fa, fb,
+  // 2. hpre = bf16(bf16(y W1^T) + b1); dh = g W2 with h and dhpre from hpre
+  LinearParams p{y_, w1_, b1, hp_, T, H, C, 0, 0, 0, 0, nullptr, nullptr, nullptr, 0};
+  IUVL_TRY(linear_gemm<kEpiHidden>(p, s));
+  p = LinearParams{g_, static_cast<const bf16*>(w2t), nullptr, h_, T, H, C, 0, 0, 0, 0, hp_,
+                   nullptr, dh_, 0};
+  IUVL_TRY(linear_gemm<kEpiGeluBwd>(p, s));
+  // 3. dy = dhpre W1 (W1 read N-major) and the LayerNorm backward
+  p = LinearParams{dh_, w1_, nullptr, dy_, T, C, H, 0, C, 0, 0, nullptr, nullptr, nullptr, 0};
+  IUVL_TRY((linear_gemm<kEpiF32, kRowK, kMn>(p, s)));
+  tail_ln_bwd_kernel<<<row_blocks, kThreads, 0, s>>>(x_, a_, g_, scale_, st_, dy_, dyx_,
                                                      static_cast<bf16*>(dxa), T, C);
   IUVL_TRY(static_cast<int>(cudaGetLastError()));
-  // 4. parameter gradients
-  IUVL_TRY((gemm_f32<true, true>(dh_, y_, static_cast<float*>(dw1), H, C, T, s)));
-  IUVL_TRY((gemm_f32<true, true>(g_, h_, static_cast<float*>(dw2), C, H, T, s)));
-  IUVL_TRY(colsum(dh_, static_cast<float*>(db1), T, H, s));
-  IUVL_TRY(colsum(g_, static_cast<float*>(db2), T, C, s));
-  IUVL_TRY(colsum(fb, static_cast<float*>(dscale), T, C, s));
-  return colsum(fa, static_cast<float*>(dbias), T, C, s);
+  // 4. dW1 = dhpre^T y, dW2 = g^T h: the token rows are the depth, both
+  // operands read M-/N-major, split-K in clusters
+  p = LinearParams{dh_, y_, nullptr, dw1, H, C, T, H, C, 0, 0, nullptr, nullptr, nullptr, 0};
+  IUVL_TRY((linear_gemm<kEpiF32, kMn, kMn>(p, s, splits)));
+  p = LinearParams{g_, h_, nullptr, dw2, C, H, T, C, H, 0, 0, nullptr, nullptr, nullptr, 0};
+  IUVL_TRY((linear_gemm<kEpiF32, kMn, kMn>(p, s, splits)));
+  // 5. bias, LayerNorm scale and bias gradients: column sums in a fixed order
+  ColsumJobs jobs{{{dh_, static_cast<float*>(db1), H, 0},
+                   {g_, static_cast<float*>(db2), C, 0},
+                   {dyx_, static_cast<float*>(dscale), C, 1},
+                   {dy_, static_cast<float*>(dbias), C, 1}}};
+  return colsums(jobs, 4, T, static_cast<float*>(sums), s);
 }

@@ -22,7 +22,8 @@
 //   grid row are zero and masked), so that a 16-key group of a score tile
 //   is one grid row g: relh[q, g] is one value a row a group and relw[q, c]
 //   a fixed pair of registers a lane row (-inf at c 14, 15: the mask). relh and
-//   relw come first, on the tensor cores: for each grid row (column) g the
+//   relw come first, on the tensor cores (window_rel.cuh, which B9's
+//   backward shares to recompute them): for each grid row (column) g the
 //   product of its 14 query rows and the table slice Rh[g] (Rw[g]), the fp32
 //   table split into three bf16 parts (three products, fp32 sums: the fp32
 //   einsum of the plain version to a few ulp), rounded to bf16 into shared
@@ -63,6 +64,7 @@
 // (q.k + relh) + relw; p = bf16(e / sum); o_h = bf16(p @ v); out =
 // bf16(bf16(o @ Wo) + bf16(bo)).
 #include "linear_wgmma.cuh"
+#include "window_rel.cuh"
 
 namespace iuvl {
 namespace {
@@ -82,21 +84,6 @@ struct WbSmem {
   static constexpr size_t kBytes =
       ((kSlots + kNP) * kLd + kN * kRelLd + 4 * 16 * kLdP) * sizeof(bf16);
 };
-
-// x as three bf16 parts (two values packed in each): hi = bf16(x), mid =
-// bf16(x - hi), lo = bf16(x - hi - mid), so that hi + mid + lo is x to
-// about 2^-25 of x and a bf16 q times it is the fp32 product (hi + lo
-// alone leave x to 2^-17, coarser than the fp32 sum's own rounding).
-__device__ __forceinline__ void split_bf16(float2 x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
-  const float2 hf = __bfloat1622float2(h);
-  const float2 r = make_float2(x.x - hf.x, x.y - hf.y);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r.x, r.y);
-  const float2 mf = __bfloat1622float2(m);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = pack_bf16(r.x - mf.x, r.y - mf.y);
-}
 
 // s = (q.k + relh[row, g]) + relw[row, c] for the strip's 16-key groups p <
 // groups of the 64-slot tile kt (group p is grid row g = 4 kt + p, its
@@ -164,56 +151,9 @@ __global__ void __launch_bounds__(kWbThreads, 2) wb_attention_kernel(
   for (int i = lane; i < 16 * (kNP - kN); i += 32)
     Pw[(i / (kNP - kN)) * kLdP + kN + i % (kNP - kN)] = to_bf(0.f);
 
-  // relh (t 0) of grid row g and relw (t 1) of grid column g: the line's 14
-  // query rows (token t ? 14 r + g : 14 g + r) times the table slice T[g]
-  // (14 x D fp32, B[c][a] = T[g][a][c]), as products with its three bf16
-  // parts, the small parts summed apart from the large.
-  for (int line = warp; line < 2 * kWin; line += kWbThreads / 32) {
-    const int t = line / kWin, g = line - t * kWin;
-    const float* T = (t ? rw : rh) + static_cast<size_t>(g) * kWin * D;
-    const int r_lo = lo, r_hi = lo + 8;
-    const int tok_lo = t ? r_lo * kWin + g : g * kWin + r_lo;
-    const int tok_hi = t ? r_hi * kWin + g : g * kWin + r_hi;
-    float acc[2][4] = {}, small[2][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = kk * 16 + q2 + (e >> 1) * 8;
-        const bool hi_row = e & 1;
-        a[e] = (hi_row ? r_hi : r_lo) < kWin
-                   ? *reinterpret_cast<const uint32_t*>(
-                         qh + static_cast<size_t>(hi_row ? tok_hi : tok_lo) * D + c)
-                   : 0u;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int arow = nt * 8 + lo;  // the B column this lane loads: a
-        uint32_t bh[2], bm[2], bl[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float2 x = arow < kWin ? *reinterpret_cast<const float2*>(
-                                             T + static_cast<size_t>(arow) * D + kk * 16 + q2 +
-                                             8 * u)
-                                       : make_float2(0.f, 0.f);
-          split_bf16(x, bh[u], bm[u], bl[u]);
-        }
-        mma16816(small[nt], a, bl[0], bl[1]);
-        mma16816(small[nt], a, bm[0], bm[1]);
-        mma16816(acc[nt], a, bh[0], bh[1]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r_lo : r_hi, a = nt * 8 + q2 + (e & 1);
-        if (r < kWin && a < kWin)
-          REL[(e < 2 ? tok_lo : tok_hi) * kRelLd + t * kWin + a] =
-              to_bf(acc[nt][e] + small[nt][e]);
-      }
-  }
+  rel_features<D>(qh, D, rh, rw, warp, kWbThreads / 32, [&](int tok, int t, int a, float v) {
+    REL[tok * kRelLd + t * kWin + a] = to_bf(v);
+  });
   cp_async_wait<0>();
   __syncthreads();  // K, V and every token's relh | relw are in shared memory
 

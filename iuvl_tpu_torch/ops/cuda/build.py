@@ -46,8 +46,8 @@ SIGNATURES = {
     "iuvl_masks_upscale": (P,) * 9 + (I, I, P),
     "iuvl_t2i_stream": (P,) * 11 + (I,) * 5 + (P,),
     "iuvl_i2t_block_step": (P,) * 11 + (I, I, I, I, F, F, P),
-    "iuvl_window_block_bwd": (P,) * 21 + (I, I, I, I, P),
-    "iuvl_block_tail_bwd": (P,) * 21 + (I, I, I, F, P),
+    "iuvl_window_block_bwd": (P,) * 19 + (I,) * 6 + (P,),
+    "iuvl_block_tail_bwd": (P,) * 21 + (I, I, I, I, F, P),
     "iuvl_flash_fwd": (P,) * 5 + (I, I, I, I, P),
     "iuvl_flash_bwd": (P,) * 10 + (I, I, I, I, P),
     "iuvl_tap_scatter": (P, P, P, I, I, I, P),
@@ -161,6 +161,32 @@ def launch(name: str, device, *args) -> None:
     if err != 0:
         msg = lib.iuvl_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg}) at launch")
+
+
+def split_k(m: int, n: int, k: int, sms: int) -> int:
+    """Blocks a tile for ``csrc/linear_wgmma.cuh``'s split-K GEMM of an (m,
+    n) output over a depth k (a weight gradient, the token rows the depth):
+    the fewest of 1, 2, 4 and 8 that give at least 1.5 blocks an SM, and
+    leave no split empty. (On an H100 the best of the four at B9's and
+    B10's shapes or within 4% of it, but 11% behind at B10's batch 2 and
+    ViT-H's dWqkv: PERF.md §6.)"""
+    tiles, steps = -(-m // 128) * -(-n // 128), -(-k // 64)
+    splits = 1
+    while (splits < 8 and 2 * tiles * splits < 3 * sms
+           and (2 * splits - 1) * -(-steps // (2 * splits)) < steps):
+        splits *= 2
+    return splits
+
+
+def split_k_last_rows(k: int, splits: int) -> int:
+    """Depth rows of the last split of ``split_k``'s partition of k."""
+    return k - (splits - 1) * -(-(-(-k // 64)) // splits) * 64
+
+
+def colsum_scratch(rows: int, cols: int, jobs: int) -> int:
+    """fp32 values of ``csrc/linear_wgmma.cuh``'s column-sum chunks for
+    ``jobs`` sums over ``rows`` rows of at most ``cols`` columns."""
+    return jobs * -(-rows // 128) * cols
 
 
 def require(kernel: str, name: str, t, dtype, shape, device) -> None:

@@ -16,7 +16,7 @@ import math
 import torch
 
 from ..common import gelu, layer_norm_f32
-from .build import launch, require
+from .build import colsum_scratch, launch, require, split_k
 
 EPS = 1e-6
 
@@ -109,14 +109,14 @@ def block_tail_backward_plain(x, a, g, scale, bias, w1, b1, w2t, eps=EPS):
 
 def block_tail_backward(x, a, g, scale, bias, w1, b1, w2t):
     """Backward of :func:`block_tail`: the CUDA kernel for CUDA tensors
-    (bf16, any T, C % 128 == 0, H % 128 == 0), the plain version for CPU
+    (bf16, any T, C % 8 == 0, H % 8 == 0), the plain version for CPU
     tensors.
     Arguments and results as :func:`block_tail_backward_plain`."""
     if x.device.type == "cpu":
         return block_tail_backward_plain(x, a, g, scale, bias, w1, b1, w2t)
     t, c = x.shape
     hidden = w1.shape[0]
-    if c % 128 or hidden % 128:
+    if c % 8 or hidden % 8:
         raise ValueError(f"block_tail_backward kernel: unsupported C={c}, H={hidden}")
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     args = dict(x=x, a=a, g=g, scale=scale, bias=bias, w1=w1, b1=b1, w2t=w2t)
@@ -126,13 +126,17 @@ def block_tail_backward(x, a, g, scale, bias, w1, b1, w2t):
         dtype = f32 if name in ("scale", "bias") else bf
         require("block_tail_backward", name, tensor, dtype, shapes[name], dev)
     empty = lambda *s, dtype=f32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
-    scratch = (empty(t, c, dtype=bf), empty(t, 2), empty(t, hidden), empty(t, hidden),
-               empty(t, hidden, dtype=bf), empty(t, hidden, dtype=bf))
+    # Scratch: y, the LayerNorm statistics, hpre (later dy and dy * xhat,
+    # (T, C) fp32 each, in its bytes), h, dhpre, the column sums' chunks.
+    scratch = (empty(t, c, dtype=bf), empty(t, 2), empty(t, max(hidden, 4 * c), dtype=bf),
+               empty(t, hidden, dtype=bf), empty(t, hidden, dtype=bf),
+               empty(colsum_scratch(t, max(hidden, c), 4)))
     dxa = torch.empty_like(x)
     grads = (empty(c), empty(c), empty(hidden, c), empty(hidden), empty(c, hidden), empty(c))
+    splits = split_k(hidden, c, t, torch.cuda.get_device_properties(dev).multi_processor_count)
     launch("iuvl_block_tail_bwd", dev, *(t_.data_ptr() for t_ in args.values()),
            *(t_.data_ptr() for t_ in scratch), dxa.data_ptr(),
-           *(t_.data_ptr() for t_ in grads), t, c, hidden, EPS)
+           *(t_.data_ptr() for t_ in grads), t, c, hidden, splits, EPS)
     block_tail_backward.launches += 1
     return (dxa, *grads)
 

@@ -14,9 +14,10 @@ from __future__ import annotations
 import torch
 
 from ..rel_pos_attention import rel_pos_features, rowbias_attention
-from .build import launch, require
+from .build import colsum_scratch, launch, require, split_k
 
 WIN, HEAD_DIMS = 14, (64, 80)  # ViT-B/L heads of 64, ViT-H of 80
+TABLE_SPLITS = 16  # csrc/window_block_bwd.cu kTableSplits
 
 
 def window_attention_block_plain(xw, wqkv, bqkv, wo, bo, rh, rw, heads: int):
@@ -132,17 +133,22 @@ def window_block_backward(xw, g, wqkv, bqkv, wo, rh, rw, heads: int):
     for name, tensor in args.items():
         dtype = bf if name in ("xw", "g", "wqkv", "wo") else f32
         require("window_block_backward", name, tensor, dtype, shapes[name], dev)
-    t, n_pad = nw * n, -(-n // 16) * 16
+    t = nw * n
     empty = lambda *s, dtype=bf: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
-    scratch = (empty(t, 3 * c, dtype=f32), empty(t, 3 * c), empty(t, 3 * c), empty(t, c),
-               empty(t, c), empty(nw * heads, n_pad, n_pad), empty(nw * heads, n_pad, n_pad),
-               empty(nw * heads, 2, win, win, d, dtype=f32))
+    # Scratch: qkv and do head-major, the head outputs and dqkv token-major,
+    # the compact drelh | drelw rows, the table gradients' 16 split partials
+    # and the column sums' chunks.
+    scratch = (empty(nw, 3, heads, n, d), empty(nw, heads, n, d), empty(t, c), empty(t, 3 * c),
+               empty(nw * heads, n, 2 * win),
+               empty(TABLE_SPLITS * 2 * n * d + colsum_scratch(t, 3 * c, 2), dtype=f32))
     dx = torch.empty_like(xw)
     grads = (empty(3 * c, c, dtype=f32), empty(3 * c, dtype=f32), empty(c, c, dtype=f32),
              empty(c, dtype=f32), empty(2, win, win, d, dtype=f32))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     launch("iuvl_window_block_bwd", dev, *(t_.data_ptr() for t_ in args.values()),
            *(t_.data_ptr() for t_ in scratch), dx.data_ptr(),
-           *(t_.data_ptr() for t_ in grads), nw, c, win, d)
+           *(t_.data_ptr() for t_ in grads), nw, c, win, d, split_k(3 * c, c, t, sms),
+           split_k(c, c, t, sms))
     window_block_backward.launches += 1
     dwqkv, dbqkv, dwo, dbo, drhw = grads
     return dx, dwqkv, dbqkv, dwo, dbo, drhw[0], drhw[1]

@@ -63,6 +63,15 @@ process, one mode a kernel (``--kernels``, any of them in one run):
   of the tokens and the masks to the plain version, two launches
   bit-equal, times in turns, the plain version, the bound (operations) and
   each kernel's device time.
+- ``window_block_bwd``: B9 (``window_block_bwd.cu``
+  ``iuvl_window_block_bwd``), the windowed block's backward, at B1's
+  shapes: rel L2 of each of its seven outputs to the plain version,
+  two launches bit-equal, times in turns, the plain version, the bound
+  (operations), each launch's device time in launch order for both trees,
+  and its five GEMMs through ``torch.matmul`` as a yardstick.
+- ``block_tail_bwd``: B10 (``mlp_block_bwd.cu`` ``iuvl_block_tail_bwd``),
+  the block tail's backward, at B3's shapes: the readings of
+  ``window_block_bwd``.
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -127,32 +136,39 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                "iuvl_masks_upscale": [P] * 9 + [I] * 2 + [P],
                # the parent's B12 adds into a table its wrapper zeroes.
                "iuvl_tap_scatter": [P] * 3 + [I] * 3 + [P],
-               # the parent's B1 (a cluster of 4 blocks a window, qkv and o
-               # scratch) and B2 (32-query tiles, an fp32 accumulator pacc).
+               # the parent's B1 (qkv and o scratch), B2 (o and lse scratch)
+               # and B3 (y and h scratch): this tree's entries.
                "iuvl_window_block": [P] * 10 + [I] * 4 + [P],
-               "iuvl_rowbias_proj": [P] * 9 + [I] * 6 + [P],
-               # the parent's B3 (one kernel, w2 transposed, no scratch) and
-               # B16 (its operand list with the qp0 table, six workspaces).
-               "iuvl_block_tail": [P] * 9 + [I, I, I, F, P],
-               "iuvl_decode_tail": [P] + [I] * 5 + [P]}
+               "iuvl_rowbias_proj": [P] * 10 + [I] * 6 + [P],
+               "iuvl_block_tail": [P] * 11 + [I, I, I, F, P],
+               # the parent's B16 (its operand list with the qp0 table, six
+               # workspaces).
+               "iuvl_decode_tail": [P] + [I] * 5 + [P],
+               # the parent's B9 and B10 (a wmma GEMM, fp32 scratch).
+               "iuvl_window_block_bwd": [P] * 21 + [I] * 4 + [P],
+               "iuvl_block_tail_bwd": [P] * 21 + [I, I, I, F, P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
           "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
           "upscale": "mask_upscale.cu", "window_block": "window_block.cu",
           "rowbias_proj": "flash_attention.cu", "block_tail": "mlp_block.cu",
-          "decode_tail": "decode_chunk.cu"}
+          "decode_tail": "decode_chunk.cu", "window_block_bwd": "window_block_bwd.cu",
+          "block_tail_bwd": "mlp_block_bwd.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
            "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
            "t2i": ("iuvl_t2i_stream",), "upscale": ("iuvl_masks_upscale",),
            "window_block": ("iuvl_window_block",), "rowbias_proj": ("iuvl_rowbias_proj",),
-           "block_tail": ("iuvl_block_tail",), "decode_tail": ("iuvl_decode_tail",)}
+           "block_tail": ("iuvl_block_tail",), "decode_tail": ("iuvl_decode_tail",),
+           "window_block_bwd": ("iuvl_window_block_bwd",),
+           "block_tail_bwd": ("iuvl_block_tail_bwd",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
            "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale",
            "window_block", "wb_", "rowbias_proj", "linear_", "block_tail", "tail_ln",
-           "tok_", "row_pass", "upscale_kernel")
+           "tok_", "row_pass", "upscale_kernel", "gemm_f32", "colsum", "sum_parts",
+           "round_bias", "window_attn_bwd", "wbb_", "splitk", "tail_")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -223,10 +239,9 @@ def compile_source(tree: Path, work: Path, kind: str, label: str = "parent", sig
     return lib
 
 
-def kernel_split(fn, work: Path, calls=5) -> str:
-    """Device ms a call of each kernel ``fn`` launches, with the launch's
-    registers a thread, shared memory a block and grid (torch.profiler's
-    chrome trace)."""
+def kernel_events(fn, work: Path, calls=5) -> list:
+    """The kernel events of ``calls`` calls of ``fn`` in launch order
+    (torch.profiler's chrome trace), after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -236,18 +251,45 @@ def kernel_split(fn, work: Path, calls=5) -> str:
         torch.cuda.synchronize()
     path = work / "trace.json"
     prof.export_chrome_trace(str(path))
+    return sorted((ev for ev in json.loads(path.read_text()).get("traceEvents", [])
+                   if ev.get("cat") == "kernel"), key=lambda ev: ev["ts"])
+
+
+def event_name(ev) -> str:
+    return re.sub(r"\(.*", "", ev["name"].replace("iuvl::(anonymous namespace)::", ""))
+
+
+def event_info(ev) -> str:
+    a = ev.get("args", {})
+    return (f"{a.get('registers per thread')} regs, {a.get('shared memory')} B smem, "
+            f"grid {a.get('grid')}")
+
+
+def kernel_split(fn, work: Path, calls=5) -> str:
+    """Device ms a call of each kernel ``fn`` launches, with the launch's
+    registers a thread, shared memory a block and grid."""
     rows = {}
-    for ev in json.loads(path.read_text()).get("traceEvents", []):
-        if ev.get("cat") != "kernel":
-            continue
-        name = re.sub(r"\(.*", "", ev["name"].replace("iuvl::(anonymous namespace)::", ""))
-        a = ev.get("args", {})
-        r = rows.setdefault(name[:70], dict(
-            us=0.0, info=f"{a.get('registers per thread')} regs, "
-                         f"{a.get('shared memory')} B smem, grid {a.get('grid')}"))
+    for ev in kernel_events(fn, work, calls):
+        r = rows.setdefault(event_name(ev)[:70], dict(us=0.0, info=event_info(ev)))
         r["us"] += float(ev.get("dur", 0))
     return "; ".join(f"{name} {r['us'] / 1e3 / calls:.4f} ms ({r['info']})"
                      for name, r in rows.items())
+
+
+def launch_split(fn, work: Path, calls=5) -> str:
+    """Device ms of each launch of one call of ``fn``, in launch order (the
+    mean over ``calls`` calls), with the launch's registers, shared memory
+    and grid."""
+    evs = kernel_events(fn, work, calls)
+    per = len(evs) // calls
+    if per * calls != len(evs):
+        return f"{len(evs)} launches in {calls} calls: not a whole number a call"
+    out = []
+    for i in range(per):
+        us = sum(float(evs[i + c * per].get("dur", 0)) for c in range(calls)) / calls
+        out.append(f"{i + 1}. {event_name(evs[i]).replace('void ', '')[:60]} {us / 1e3:.4f} ms "
+                   f"({event_info(evs[i])})")
+    return "; ".join(out)
 
 
 GEN = None  # the run's seeded CUDA generator (main)
@@ -579,7 +621,10 @@ def ab_report(tag, new, parent, plain, bound, bad, limit, work) -> None:
         return
     want, again = plain(), new()
     err, same = rel(got, want), torch.equal(got, again)
-    e_par = f"{rel(parent(), want):.3e}" if parent else "refused"
+    par = parent() if parent else None
+    e_par = (f"{rel(par, want):.3e}, bit-equal to this tree's {torch.equal(par, got)}"
+             if parent else "refused")
+    del par
     if not err <= limit or not same:
         bad.append(f"{tag} rel_l2 {err:.3e}, bit-equal {same}")
     if parent:
@@ -774,8 +819,9 @@ def rowbias_proj_ab(parent_tree: Path, work: Path, bad: list) -> None:
 
         def parent():
             out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
-            pacc = torch.empty((b, n, c), dtype=torch.float32, device="cuda")
-            assert lib.iuvl_rowbias_proj(*ptr(*args[:7], out, pacc), b, heads, n, c, d, side,
+            o = torch.empty((b, heads, n, d), dtype=torch.bfloat16, device="cuda")
+            lse = torch.empty((b, heads, n), dtype=torch.float32, device="cuda")
+            assert lib.iuvl_rowbias_proj(*ptr(*args[:7], out, o, lse), b, heads, n, c, d, side,
                                          stream()) == 0
             return out
 
@@ -820,9 +866,8 @@ def window_block_ab(parent_tree: Path, work: Path, bad: list) -> None:
                 t(c, c, std=c ** -0.5), t(c, std=0.3).float(), rh, rw, heads)
 
         def parent():
-            n_pad = -(-n // 16) * 16
-            qkv = torch.empty((nw, n_pad, 3 * c), dtype=torch.bfloat16, device="cuda")
-            o = torch.empty((nw, n_pad, c), dtype=torch.bfloat16, device="cuda")
+            qkv = torch.empty((nw, 3, heads, n, d), dtype=torch.bfloat16, device="cuda")
+            o = torch.empty((nw, n, c), dtype=torch.bfloat16, device="cuda")
             out = torch.empty_like(args[0])
             assert lib.iuvl_window_block(*ptr(*args[:7], qkv, o, out), nw, c, win, d,
                                          stream()) == 0
@@ -844,8 +889,7 @@ BLOCK_TAIL_SHAPES = (("vit_b_1024", 4096, 768), ("b2", 8192, 768), ("vit_h", 409
 
 def block_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
     """B3 (``mlp_block.cu`` ``iuvl_block_tail``) at BLOCK_TAIL_SHAPES; the
-    readings of ``i2t``. The parent's entry takes lin2's weight transposed
-    (H, C) and no scratch."""
+    readings of ``i2t``."""
     lib = compile_source(parent_tree, work, "block_tail")
     for tag, n, c in BLOCK_TAIL_SHAPES:
         h = 4 * c
@@ -853,20 +897,20 @@ def block_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
         scale, bias = (1.0 + t(c, std=0.1)).float(), t(c, std=0.3).float()
         w1, b1 = t(h, c, std=c ** -0.5), t(h, std=0.3)
         w2, b2 = t(c, h, std=h ** -0.5), t(c, std=0.3)
-        w2t = w2.t().contiguous()
         args = (x, a, scale, bias, w1, b1, w2, b2)
 
         def parent():
-            out = torch.empty_like(x)
-            assert lib.iuvl_block_tail(*ptr(x, a, scale, bias, w1, b1, w2t, b2, out), n, c, h,
-                                       mb.EPS, stream()) == 0
+            out, y = torch.empty_like(x), torch.empty_like(x)
+            hid = torch.empty((n, h), dtype=torch.bfloat16, device="cuda")
+            assert lib.iuvl_block_tail(*ptr(*args, out, y, hid), n, c, h, mb.EPS,
+                                       stream()) == 0
             return out
 
         ab_report(f"block_tail@{tag} (T {n}, C {c}, H {h})", lambda: mb.block_tail(*args),
                   parent, lambda: mb.block_tail_plain(*args),
                   bound_of((x, a, scale, bias, w1, b1, w2, b2, x), 4 * n * c * h), bad, 5e-4,
                   work)
-        del args, x, a, w1, w2, w2t
+        del args, x, a, w1, w2
         torch.cuda.empty_cache()
 
 
@@ -991,10 +1035,143 @@ def decode_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
         torch.cuda.empty_cache()
 
 
+def multi_report(label, names, new, parent, plain, bound, limits, bad, work) -> None:
+    """``ab_report`` for a function of several outputs ``names``: rel L2 of
+    each to ``plain`` (this tree's and the parent's), two launches
+    bit-equal, times in turns, the plain version's time, the bound and each
+    tree's device time split by launch."""
+    got = refused(new, label, bad, "this tree")
+    if got is None:
+        return
+    want, again = plain(), new()
+    errs = {n: rel(x, y) for n, x, y in zip(names, got, want)}
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    par = parent()
+    e_par = ", ".join(f"{n} {rel(x, y):.3e}" for n, x, y in zip(names, par, want))
+    del par, again
+    over = {n: e for n, e in errs.items() if not e <= limits[n]}
+    if over or not same:
+        bad.append(f"{label} rel_l2 over the bounds {over}, bit-equal {same}")
+    t_par, t_new = in_turns(parent, new)
+    print(f"{label}: rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (parent {e_par}); two launches bit-equal {same}; ms this tree {t_new[0]:.4f} "
+          f"{t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
+          f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; plain {ms(plain, 3):.4f}; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    print(f"{label} device split, this tree: {launch_split(new, work)}", flush=True)
+    print(f"{label} device split, parent: {launch_split(parent, work)}", flush=True)
+
+
+def matmul_yardstick(label, products) -> None:
+    """Each (name, a, b) product a @ b through one torch.matmul (bf16 in,
+    bf16 out), timed alone: what cuBLAS takes for the same GEMMs."""
+    times = [(name, ms(lambda a=a, b=b: torch.matmul(a, b))) for name, a, b in products]
+    print(f"{label} yardstick torch.matmul: " + ", ".join(f"{n} {t_:.4f}" for n, t_ in times)
+          + f"; sum {sum(t_ for _, t_ in times):.4f} ms", flush=True)
+
+
+# B9's shapes: those of B1 (WINDOW_BLOCK_SHAPES).
+WB_BWD_NAMES = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "drh", "drw")
+WB_BWD_BOUNDS = {"dx": 1e-3, "dwqkv": 5e-4, "dbqkv": 5e-4, "dwo": 5e-4, "dbo": 1e-5,
+                 "drh": 5e-4, "drw": 5e-4}
+
+
+def window_block_bwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B9 (``window_block_bwd.cu`` ``iuvl_window_block_bwd``), the windowed
+    block's backward, at WINDOW_BLOCK_SHAPES: rel L2 of every output to the
+    plain version (chip_smoke.py's bounds), two launches bit-equal, times in
+    turns, the plain version, the bound (operations, chip_smoke.py's count),
+    each launch's device time and, as a yardstick, its five GEMMs through
+    torch.matmul. The parent's entry takes the wmma design's scratch (an fp32 GEMM
+    output, the p and ds rows, the table partials)."""
+    lib = compile_source(parent_tree, work, "window_block_bwd")
+    win, n = wb.WIN, wb.WIN * wb.WIN
+    for tag, nw, c, heads in WINDOW_BLOCK_SHAPES:
+        d = c // heads
+        rh, rw = rel_pos_tables(t(2 * win - 1, d, std=0.3), t(2 * win - 1, d, std=0.3),
+                                (win, win))
+        xw, g = t(nw, n, c), t(nw, n, c)
+        wqkv, bqkv = t(3 * c, c, std=c ** -0.5), t(3 * c, std=0.3).float()
+        wo = t(c, c, std=c ** -0.5)
+        args = (xw, g, wqkv, bqkv, wo, rh, rw, heads)
+
+        def parent():
+            tt, n_pad, dev = nw * n, -(-n // 16) * 16, xw.device
+            e = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device=dev)  # noqa
+            f32 = torch.float32
+            scratch = (e(tt, 3 * c, dtype=f32), e(tt, 3 * c), e(tt, 3 * c), e(tt, c),
+                       e(tt, c), e(nw * heads, n_pad, n_pad), e(nw * heads, n_pad, n_pad),
+                       e(nw * heads, 2, win, win, d, dtype=f32))
+            dx = torch.empty_like(xw)
+            grads = (e(3 * c, c, dtype=f32), e(3 * c, dtype=f32), e(c, c, dtype=f32),
+                     e(c, dtype=f32), e(2, win, win, d, dtype=f32))
+            assert lib.iuvl_window_block_bwd(*ptr(*args[:7], *scratch, dx, *grads), nw, c, win,
+                                             d, stream()) == 0
+            return dx, grads[0], grads[1], grads[2], grads[3], grads[4][0], grads[4][1]
+
+        flops = 22 * nw * n * c * c + 12 * nw * n * n * c
+        label = f"window_block_bwd@{tag} (windows {nw}, C {c}, heads {heads} of {d})"
+        multi_report(label, WB_BWD_NAMES, lambda: wb.window_block_backward(*args), parent,
+                     lambda: wb.window_block_backward_plain(*args),
+                     bound_of((*args[:7], xw, wqkv, wo), flops), WB_BWD_BOUNDS, bad, work)
+        x2, g2 = xw.reshape(-1, c), g.reshape(-1, c)
+        dqkv, o = t(nw * n, 3 * c), t(nw * n, c)
+        matmul_yardstick(label, (("qkv = x Wqkv^T", x2, wqkv.t()), ("do = g Wo", g2, wo),
+                                 ("dx = dqkv Wqkv", dqkv, wqkv), ("dWqkv = dqkv^T x", dqkv.t(), x2),
+                                 ("dWo = g^T o", g2.t(), o)))
+        del args, xw, g, dqkv, o
+        torch.cuda.empty_cache()
+
+
+# B10's shapes: those of B3 (BLOCK_TAIL_SHAPES).
+BT_BWD_NAMES = ("dxa", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+BT_BWD_BOUNDS = {"dxa": 1e-3, "dscale": 5e-4, "dbias": 5e-4, "dw1": 5e-4, "db1": 5e-4,
+                 "dw2": 5e-4, "db2": 1e-5}
+
+
+def block_tail_bwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B10 (``mlp_block_bwd.cu`` ``iuvl_block_tail_bwd``), the block tail's
+    backward, at BLOCK_TAIL_SHAPES: the readings of ``window_block_bwd``.
+    The parent's entry takes the wmma design's scratch (y, the LayerNorm statistics,
+    two (T, H) fp32 and two (T, H) bf16 arrays)."""
+    lib = compile_source(parent_tree, work, "block_tail_bwd")
+    for tag, n, c in BLOCK_TAIL_SHAPES:
+        h = 4 * c
+        x, a, g = t(n, c), t(n, c), t(n, c)
+        scale, bias = (1.0 + t(c, std=0.1)).float(), t(c, std=0.3).float()
+        w1, b1 = t(h, c, std=c ** -0.5), t(h, std=0.3)
+        w2t = t(h, c, std=h ** -0.5)
+        args = (x, a, g, scale, bias, w1, b1, w2t)
+
+        def parent():
+            f32, dev = torch.float32, x.device
+            e = lambda *s, dtype=f32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+            scratch = (e(n, c, dtype=torch.bfloat16), e(n, 2), e(n, h), e(n, h),
+                       e(n, h, dtype=torch.bfloat16), e(n, h, dtype=torch.bfloat16))
+            dxa = torch.empty_like(x)
+            grads = (e(c), e(c), e(h, c), e(h), e(c, h), e(c))
+            assert lib.iuvl_block_tail_bwd(*ptr(*args, *scratch, dxa, *grads), n, c, h, mb.EPS,
+                                           stream()) == 0
+            return (dxa, *grads)
+
+        label = f"block_tail_bwd@{tag} (T {n}, C {c}, H {h})"
+        multi_report(label, BT_BWD_NAMES, lambda: mb.block_tail_backward(*args), parent,
+                     lambda: mb.block_tail_backward_plain(*args),
+                     bound_of((*args, x, scale, bias, w1, b1, w1, w2t, w2t), 10 * n * c * h),
+                     BT_BWD_BOUNDS, bad, work)
+        y, hh = t(n, c), t(n, h)
+        matmul_yardstick(label, (("hpre = y W1^T", y, w1.t()), ("dh = g W2", g, w2t.t()),
+                                 ("dy = dhpre W1", hh, w1), ("dW1 = dhpre^T y", hh.t(), y),
+                                 ("dW2 = g^T h", g.t(), hh)))
+        del args, x, a, g, w1, w2t, y, hh
+        torch.cuda.empty_cache()
+
+
 MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
          "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab,
          "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab,
-         "block_tail": block_tail_ab, "decode_tail": decode_tail_ab}
+         "block_tail": block_tail_ab, "decode_tail": decode_tail_ab,
+         "window_block_bwd": window_block_bwd_ab, "block_tail_bwd": block_tail_bwd_ab}
 
 
 def main() -> int:
