@@ -73,7 +73,9 @@ Phases (any failure raises, so the exit code is non-zero):
    encoding the image), its masks and upscaled embedding gated the same
    way. One more request of CHUNK prompts of 20 points each (26 tokens)
    goes through the per-op decode (B4, B5 at T 26) and the whole-chunk
-   decode (B16 at 32 slots), each gated against its plain paths. Then the
+   decode (B16 at 32 slots), each gated against its plain paths, and one of
+   64 prompts of 80 points each (86 tokens: B5 past 64 tokens, B16 at 96
+   slots) the same way. Then the
    same REQUESTS requests through attn_impl 'rowbias' and 'pallas_rp'
    (JAX's unfused encoder route: B2b / B14 in all 12 blocks, no B1-B3),
    gated against the plain paths, and through attn_impl 'window' (B13 in
@@ -181,7 +183,9 @@ KERNEL_BOUNDS = {
     "flash_attention": {"o": 5e-3, "lse": 1e-5, "dq": 5e-3, "dk": 5e-3, "dv": 1e-3},
     # The deformable core: the forward and B8's dots sum fp32 products in
     # another order; the gather and B8's contrib are exact (a copy, one
-    # rounding of one product); the scatter adds with fp32 atomics.
+    # rounding of one product); the scatter sums each cell's rows in the
+    # plain version's order (each bucket's rows in row order, a long
+    # bucket in 256-row pieces), so it reads 0.
     "ms_deform_level_fwd": {"out": 5e-7},
     "deform_gather_rows": {"g4": 0.0},
     "deform_bwd_glue_q": {"contrib": 0.0, "dots": 5e-7},
@@ -324,7 +328,8 @@ DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "flash_relpos_bwd", "flash_attention_fwd", "flash_attention_bwd",
                  "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
                  "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj",
-                 "block_tail", "decode_tail", "window_block_backward", "block_tail_backward")
+                 "block_tail", "decode_tail", "window_block_backward", "block_tail_backward",
+                 "ms_deform_level_fwd", "deform_scatter_dv")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -1113,9 +1118,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
           "heads 0/1 swapped in v": _swap(0, 0, 1)}, 10),
         ("deform_bwd_glue_q", glue, glue_faults, 10),
         ("deform_bwd_glue", glue, glue_faults, 10),
-        ("deform_scatter_dv", scatter_dv,
-         {"misses the last 16 rows": _tile_missed(0, 0, 16),
-          "slot 2 at offset w - 1": _wrong_wrap(md.deform_scatter_dv_plain)}, 10),
+        ("deform_scatter_dv", scatter_dv, scatter_faults(), 10),
         ("onehot_deform_level_forward", onehot,
          {"slot s read from slot s+1's columns": lambda a: (torch.roll(a[0], -d, dims=-1),)
           + a[1:],
@@ -1126,7 +1129,86 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # B16 past 32 slots (C3): prompts of 34 and 50 points (40 and 56
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
-        for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev)
+        for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev) \
+        + c8_b7_cases(i2t, dev)
+
+
+def _bucket_last_row_dropped(a):
+    """The plain scatter without the last row (in row order) of its longest
+    bucket whose last row is not zero (the cells that clipped points crowd
+    into carry zero rows): a bucket's sum that stops one row short."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+
+    contrib, idx, hw = a[:3]
+    _, order, start = md.scatter_buckets_plain(idx, hw)
+    lens = start[1:] - start[:-1]
+    last = order[(start[1:] - 1).clamp(min=0)]
+    live = (lens > 0) & (contrib[last].float().abs().sum(1) > 0)
+    contrib = contrib.clone()
+    contrib[last[int(torch.argmax(lens * live))]] = 0
+    return (contrib,) + a[1:]
+
+
+def scatter_faults() -> dict:
+    """B7 scatter's planted faults: the last rows missed, a bucket's last
+    row dropped, slot 2's bucket read at c - w + 1 (offset w - 1)."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+
+    return {"misses the last 16 rows": _tile_missed(0, 0, 16),
+            "a bucket's last row dropped": _bucket_last_row_dropped,
+            "slot 2 at offset w - 1": _wrong_wrap(md.deform_scatter_dv_plain)}
+
+
+def c8_b7_cases(i2t, dev):
+    """C8: B5 at T 80 (per-prompt keys, the kernel phase's weights and keys)
+    and B16 at 96 slots (80 points, 5 output tokens and the pad point: 86
+    tokens); B7's forward and scatter at the res5 level (32^2, buckets of
+    ~84 rows, some past the scatter's 256-row pieces) and the scatter with
+    every point of a head within a 2 x 2 cell window of res3 (four buckets
+    of ~21,500 rows a head). Their own draws."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+
+    rs = np.random.RandomState(SEED + 16)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+
+    kp, vp = t(CHUNK, 80, i2t[2].shape[-1]), t(CHUNK, 80, i2t[3].shape[-1])
+    # At 256 prompts of 96 slots t2i_plan gives B4 one key range: no merge
+    # to miss.
+    one_range = {k: v for k, v in DECODE_TAIL_FAULTS.items() if "key range" not in k}
+    cases = [("i2t_block_step@t80", i2t[:2] + (kp, vp) + i2t[4:], I2T_FAULTS, 5),
+             ("decode_tail@tp96", decode_tail_case(rs, dev, 96, 86), one_range, 3)]
+    nh, pts, d = 8, 4, 64
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]
+    lq = ref.shape[0]
+
+    def scatter_case(side, xy):
+        idx, wslot = wide_idx_wslot(side, side, xy[0, ..., 0], xy[0, ..., 1])
+        aw = torch.from_numpy(rs.rand(nh, lq, pts).astype(np.float32) / 12).to(dev)
+        g4 = md.deform_gather_rows_plain(t(nh, side * side, d), idx, side)
+        glue = (g4, t(nh * lq, d, dtype=torch.float32),
+                (wslot * aw[..., None]).reshape(-1, 4).contiguous(), pts)
+        return (dg.deform_bwd_glue_plain(*glue)[0], idx, side * side, side)
+
+    side = 32
+    xy = ref[None, None, :, None, :] * side - 0.5 + torch.from_numpy(
+        rs.randn(2, nh, lq, pts, 2).astype(np.float32) * 2.5).to(dev)
+    aw = torch.from_numpy(rs.rand(2, nh, lq, pts).astype(np.float32) / 12).to(dev)
+    fwd = (t(2, nh, side * side, d), xy[..., 0].contiguous(), xy[..., 1].contiguous(), aw, side,
+           side)
+    cases.append(("ms_deform_level_fwd@32x32", fwd,
+                  {"slot 2 at offset w - 1": _wrong_wrap(md.ms_deform_level_fwd_plain),
+                   "validity mask dropped": _no_validity(md.ms_deform_level_fwd_plain)}, 10))
+    cases.append(("deform_scatter_dv@32x32", scatter_case(side, xy), scatter_faults(), 10))
+    side = 128
+    corner = torch.from_numpy(rs.randint(0, side - 1, (1, nh, 1, 1, 2)).astype(np.float32))
+    xy = (corner + 2 * torch.from_numpy(rs.rand(1, nh, lq, pts, 2).astype(np.float32))).to(dev)
+    cases.append(("deform_scatter_dv@skewed", scatter_case(side, xy), scatter_faults(), 10))
+    return cases
 
 
 def block_tail_case(t, n: int, c: int) -> tuple:
@@ -1798,6 +1880,7 @@ def serving_phase(dev) -> dict:
                                             timing)
             chunk_request(r, chunk, image, points, labels, totals, timing)
         many_tokens_request(model, plain, chunk, rs, dev, totals)
+        many_tokens_request(model, plain, chunk, rs, dev, totals, MOST_POINTS, MOST_PROMPTS)
         encode_split(model, image)
     del chunk
     torch.cuda.empty_cache()
@@ -1850,16 +1933,21 @@ IMPL_BWD = {"rowbias": "flash_rowbias_bwd", "pallas_rp": "flash_relpos_bwd"}
 ENCODE_PER_REQUEST = {"window_attention_block": 8, "flash_attention_rowbias_proj": 4,
                       "block_tail": 12}
 MANY_POINTS = 20  # a click loop's prompt: 20 points + the pad point + 5 output tokens = 26
+# C8: 80 points + the pad point + 5 output tokens = 86 tokens, past the 64
+# that B5 and B16 once took (96 slots).
+MOST_POINTS, MOST_PROMPTS = 80, 64
 
 
-def many_tokens_request(model, plain, chunk, rs, dev, totals) -> None:
-    """One request of CHUNK prompts of MANY_POINTS points each (26 tokens)
-    through the per-op decode ('auto': B4 and B5 at T 26) and through the
-    whole-chunk decode ('chunk': B16 at Tp 32), each gated against its own
-    plain bf16 path's distance from fp32."""
+def many_tokens_request(model, plain, chunk, rs, dev, totals, n_points: int = MANY_POINTS,
+                        prompts: int = CHUNK) -> None:
+    """One request of ``prompts`` prompts of ``n_points`` points each (26
+    tokens by default) through the per-op decode ('auto': B4 and B5 at T
+    n_points + 6) and through the whole-chunk decode ('chunk': B16 at that
+    many tokens in slots of 16), each gated against its own plain bf16
+    path's distance from fp32."""
     image = torch.from_numpy(rs.rand(1, 1024, 1024, 3).astype(np.float32) * 255).to(dev)
-    points = torch.from_numpy(rs.rand(CHUNK, MANY_POINTS, 2).astype(np.float32) * 1024).to(dev)
-    labels = torch.from_numpy(rs.randint(0, 2, (CHUNK, MANY_POINTS)).astype(np.int32)).to(dev)
+    points = torch.from_numpy(rs.rand(prompts, n_points, 2).astype(np.float32) * 1024).to(dev)
+    labels = torch.from_numpy(rs.randint(0, 2, (prompts, n_points)).astype(np.int32)).to(dev)
     for name, kern, ref_bf16, ref_32, want in (
             ("auto", model, plain["bfloat16"], plain["float32"],
              {**ENCODE_PER_REQUEST, "masks_upscale": 1, "t2i_stream": 3, "i2t_block_step": 2}),
@@ -1868,17 +1956,18 @@ def many_tokens_request(model, plain, chunk, rs, dev, totals) -> None:
         reset_launches()
         masks_k, enc, dec = serve(kern, image, points, labels)
         counts = launches()
-        check_launches(f"{MANY_POINTS}-point request {name}", counts, want)
+        check_launches(f"{n_points}-point request {name}", counts, want)
         for k, got in counts.items():
             totals[k] = totals.get(k, 0) + got
-        if tuple(masks_k.shape) != (CHUNK, 4, 256, 256) or not bool(torch.isfinite(masks_k).all()):
-            raise RuntimeError(f"{MANY_POINTS}-point request {name}: masks "
+        if (tuple(masks_k.shape) != (prompts, 4, 256, 256)
+                or not bool(torch.isfinite(masks_k).all())):
+            raise RuntimeError(f"{n_points}-point request {name}: masks "
                                f"{tuple(masks_k.shape)} or not finite")
         masks_p = serve(ref_bf16, image, points, labels)[0]
         masks_32 = serve(ref_32, image, points, labels)[0]
-        chunk_masks_gate(f"{MANY_POINTS}-point request {name} ({3 + MANY_POINTS + 3} tokens)",
+        chunk_masks_gate(f"{n_points}-point request {name} ({3 + n_points + 3} tokens)",
                          masks_k, masks_p, masks_32,
-                         f"decode {dec[0] * 1e3:.2f} ms for {CHUNK} prompts; ",
+                         f"decode {dec[0] * 1e3:.2f} ms for {prompts} prompts; ",
                          ref="chunk plain" if name == "chunk" else "plain")
 
 

@@ -7,9 +7,9 @@
 // GELUs, and the mask contraction. Writes the (B, Tp, 256) bf16 tokens
 // and the (B, N, 64) fp32 mask logits, columns (di, dj, ei, ej, t), and
 // leaves keys2 in a (B, N, 256) bf16 workspace. Tp, the token slots
-// (t_valid of them real), is a template parameter, 16 (a one-point
-// prompt's 7 tokens), 32 (the interactive click loop's 26), 48 or 64
-// (prompts of up to 58 points). Any N >= 1.
+// (t_valid of them real), is any multiple of 16: 16 (a one-point prompt's 7
+// tokens), 32 (the interactive click loop's 26), ..., 96 (an 80-point
+// prompt's 86). Any N >= 1.
 //
 // The TPU kernel kept a prompt's 2 MB keys row (N 4096 x C 256 bf16) in
 // VMEM and ran the whole chain for one prompt per grid step, with
@@ -22,7 +22,8 @@
 // steps are the functions of B5 (the image -> token block step) and B4 (the
 // token -> image attention), and the upscale is B6's: this entry runs their
 // kernels (twoway_attention.cuh, mask_upscale.cuh) between three token
-// passes of its own, ten launches in a fixed order on the stream:
+// passes of its own, ten launches in a fixed order on the stream (past 64
+// slots more, below):
 //
 //   1. tok_front   (a block a prompt): block 1's self-attention and norm1,
 //                  then t2i1's queries.
@@ -48,8 +49,16 @@
 // The token passes keep Tp rows of every token-side operand in shared
 // memory; the MLP hidden (Tp x 2048) streams through it in chunks of kHc
 // columns, its second product summed in registers across the chunks, so
-// Tp 64 fits (past 64 it does not). Their products run on wmma 16x16x16
-// with weight fragments read from L2.
+// Tp 64 fits (211 KB in tok_front). Their products run on wmma 16x16x16
+// with weight fragments read from L2. Past 64 slots (C8) the token passes
+// run a block a (prompt, 64-row tile), the last tile Tp % 64 rows: tok_mid
+// and tok_tail are row-local (the hypernetwork reads the mask tokens, rows
+// 1-4 of the first tile), and tok_front, whose self-attention reads every
+// slot's k and v, splits in two: tok_front_kv writes the tiles' k and v to
+// a (B, 2, Tp, C) workspace, then tok_front_att attends each tile's
+// queries over them from device memory (the max, the sum and p v in three
+// passes over the slots, the scores recomputed: the arithmetic of
+// tok_front's registers). Up to 64 slots the passes are the ones above.
 //
 // Bound on the card (chip_smoke.py `work`): operations. At the chunk
 // serving shape (256 prompts, N 4096) the least work is ~0.72 TFLOP
@@ -117,7 +126,8 @@ struct TailArgs {  // T: the token slots, Tp
   bf16* q_ws;    // (B, T, I): t2i1's queries, then the final attention's
   bf16* kv_ws;   // (B, 2, T, I): i2t1's token-side k, v
   bf16* hyper;   // (B, M, C8)
-  int n, t_valid, splits;
+  bf16* kv_self; // (B, 2, T, C): block 1's self-attention k, v past 64 slots
+  int n, t_valid, splits, tp;
 };
 
 __device__ __forceinline__ uint4 load8(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
@@ -342,6 +352,122 @@ __global__ void __launch_bounds__(kThreads) tok_front_kernel(TailArgs a) {
   });
 }
 
+// ------------------------------------------------ tok_front past 64 slots --
+template <int kT>
+constexpr size_t kFrontKvSmem = 3 * kT * kLdC * sizeof(bf16) + kWarps * 256 * sizeof(float);
+
+// Rows r0 + 64 blockIdx.y .. + kT of prompt blockIdx.x: block 1's
+// self-attention k = bf16(round((t + tpe) Wk^T) + bk) and v (of t) into
+// a.kv_self, as tok_front makes them in shared memory.
+template <int kT>
+__global__ void __launch_bounds__(kThreads) tok_front_kv_kernel(TailArgs a, int r0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sT = reinterpret_cast<bf16*>(smem);
+  bf16* sE = sT + kT * kLdC;
+  bf16* sU = sE + kT * kLdC;
+  float* st = reinterpret_cast<float*>(sU + kT * kLdC) + (threadIdx.x >> 5) * 256;
+  const int b = blockIdx.x;
+  const size_t row = static_cast<size_t>(b) * a.tp + r0 + blockIdx.y * 64;
+  stage_rows(sT, kLdC, a.t + row * kC, kC, kT, kC);
+  stage_rows(sE, kLdC, a.tpe + row * kC, kC, kT, kC);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  add_rows<kT>(sU, sT, sE);
+  __syncthreads();
+  const Attn& w = a.self1;
+  bf16* k = a.kv_self + (static_cast<size_t>(b) * 2 * a.tp + r0 + blockIdx.y * 64) * kC;
+  bf16* v = k + static_cast<size_t>(a.tp) * kC;
+  tok_gemm<kT>(sU, kLdC, kC, w.wk, kC, st,
+           [&](int r, int c, const float* x) { store_biased(k + r * kC + c, x, w.bk + c); });
+  tok_gemm<kT>(sT, kLdC, kC, w.wv, kC, st,
+           [&](int r, int c, const float* x) { store_biased(v + r * kC + c, x, w.bv + c); });
+}
+
+template <int kT>
+constexpr size_t kFrontAttSmem = 4 * kT * kLdC * sizeof(bf16) + kWarps * 256 * sizeof(float);
+
+// tok_front for the kT rows of a tile, its self-attention over the Tp
+// slots' k and v in a.kv_self.
+template <int kT>
+__global__ void __launch_bounds__(kThreads) tok_front_att_kernel(TailArgs a, int r0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sT = reinterpret_cast<bf16*>(smem);  // t
+  bf16* sE = sT + kT * kLdC;                 // tpe
+  bf16* sU = sE + kT * kLdC;                 // t + tpe; then the residual sum, t1, t1 + tpe
+  bf16* sQ = sU + kT * kLdC;                 // self-attention q, then its output
+  bf16* sY = sU;
+  float* st = reinterpret_cast<float*>(sQ + kT * kLdC) + (threadIdx.x >> 5) * 256;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const size_t row = static_cast<size_t>(b) * a.tp + r0 + blockIdx.y * 64;
+  stage_rows(sT, kLdC, a.t + row * kC, kC, kT, kC);
+  stage_rows(sE, kLdC, a.tpe + row * kC, kC, kT, kC);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  add_rows<kT>(sU, sT, sE);
+  __syncthreads();
+  const Attn& w = a.self1;
+  tok_gemm<kT>(sU, kLdC, kC, w.wq, kC, st,
+           [&](int r, int c, const float* v) { store_biased(sQ + r * kLdC + c, v, w.bq + c); });
+  __syncthreads();
+  const bf16* sK = a.kv_self + static_cast<size_t>(b) * 2 * a.tp * kC;
+  const bf16* sV = sK + static_cast<size_t>(a.tp) * kC;
+  for (int pair = tid; pair < kT * kH; pair += kThreads) {
+    const int q = pair >> 3, h = pair & 7;
+    float qv[kHs];
+#pragma unroll
+    for (int u = 0; u < kHs / 8; ++u) {
+      const uint4 x = load8(sQ + q * kLdC + h * kHs + u * 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qv[u * 8 + j] = at8(x, j);
+    }
+    auto score = [&](int t) {
+      float dot = 0.f;
+#pragma unroll
+      for (int u = 0; u < kHs / 8; ++u) {
+        const uint4 x = load8(sK + t * kC + h * kHs + u * 8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dot += qv[u * 8 + j] * at8(x, j);
+      }
+      return dot * kScaleC;
+    };
+    float mx = kNegInf;
+    for (int t = 0; t < a.t_valid; ++t) mx = fmaxf(mx, score(t));
+    float den = 0.f;
+    for (int t = 0; t < a.t_valid; ++t) den += expf(score(t) - mx);
+    float o[kHs] = {};
+    for (int t = 0; t < a.t_valid; ++t) {
+      const float p = round_bf(expf(score(t) - mx) / den);
+#pragma unroll
+      for (int u = 0; u < kHs / 8; ++u) {
+        const uint4 x = load8(sV + t * kC + h * kHs + u * 8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[u * 8 + j] += p * at8(x, j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHs / 8; ++u) store8(sQ + q * kLdC + h * kHs + u * 8, o + u * 8);
+  }
+  __syncthreads();
+  tok_gemm<kT>(sQ, kLdC, kC, w.wo, kC, st, [&](int r, int c, const float* v) {
+    store_residual(sY + r * kLdC + c, sT + r * kLdC + c, v, w.bo + c);
+  });
+  __syncthreads();
+  ln_rows(sY, sY, kLdC, kT, a.ln[LN11][0], a.ln[LN11][1], a.tstate + row * kC);
+  __syncthreads();
+  add_rows<kT>(sU, sY, sE);  // in place: sY is sU
+  __syncthreads();
+  bf16* q1 = a.q_ws + row * kI;
+  tok_gemm<kT>(sU, kLdC, kC, a.t2i1.wq, kI, st, [&](int r, int c, const float* v) {
+    const uint4 bv = load8(a.t2i1.bq + c);
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = round_bf(round_bf(v[j]) + at8(bv, j)) * kScaleI;
+    store8(q1 + r * kI + c, o);
+  });
+}
+
 // ---------------------------------------------------------------- tok_mid --
 template <int kT>
 constexpr size_t kMidSmem = (4 * kT * kLdC + kT * kLdI + kT * kLdH) * sizeof(bf16) +
@@ -404,8 +530,10 @@ __device__ void mlp_stream(const bf16* X, bf16* sH, const TailArgs& a, float* st
     }
 }
 
+// Rows r0 + 64 blockIdx.y .. + kT of prompt blockIdx.x (up to 64 slots: all
+// kT = Tp of them).
 template <int kT>
-__global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
+__global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a, int r0) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT1 = reinterpret_cast<bf16*>(smem);  // t1
   bf16* sE = sT1 + kT * kLdC;                 // tpe
@@ -415,9 +543,10 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
   bf16* sH = sA + kT * kLdI;                  // a chunk of the MLP's hidden
   float* st = reinterpret_cast<float*>(sH + kT * kLdH) + (threadIdx.x >> 5) * 256;
   const int b = blockIdx.x;
-  stage_rows(sT1, kLdC, a.tstate + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
-  stage_rows(sE, kLdC, a.tpe + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
-  stage_rows(sA, kLdI, a.att + static_cast<size_t>(b) * kT * kI, kI, kT, kI);
+  const size_t row = static_cast<size_t>(b) * a.tp + r0 + blockIdx.y * 64;
+  stage_rows(sT1, kLdC, a.tstate + row * kC, kC, kT, kC);
+  stage_rows(sE, kLdC, a.tpe + row * kC, kC, kT, kC);
+  stage_rows(sA, kLdI, a.att + row * kI, kI, kT, kI);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -431,19 +560,18 @@ __global__ void __launch_bounds__(kThreads) tok_mid_kernel(TailArgs a) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.m_b2 + c);
   });
   __syncthreads();
-  ln_rows(sY, sT1, kLdC, kT, a.ln[LN31][0], a.ln[LN31][1],
-          a.tstate + static_cast<size_t>(b) * kT * kC);
+  ln_rows(sY, sT1, kLdC, kT, a.ln[LN31][0], a.ln[LN31][1], a.tstate + row * kC);
   __syncthreads();
   add_rows<kT>(sU, sT1, sE);
   __syncthreads();
-  bf16* kv = a.kv_ws + static_cast<size_t>(b) * 2 * kT * kI;
+  bf16* kv = a.kv_ws + (static_cast<size_t>(b) * 2 * a.tp + r0 + blockIdx.y * 64) * kI;
   tok_gemm<kT>(sU, kLdC, kC, a.i2t1.wk, kI, st, [&](int r, int c, const float* v) {
     store_biased(kv + r * kI + c, v, a.i2t1.bk + c);
   });
   tok_gemm<kT>(sT1, kLdC, kC, a.i2t1.wv, kI, st, [&](int r, int c, const float* v) {
-    store_biased(kv + (kT + r) * kI + c, v, a.i2t1.bv + c);
+    store_biased(kv + (a.tp + r) * kI + c, v, a.i2t1.bv + c);
   });
-  bf16* qf = a.q_ws + static_cast<size_t>(b) * kT * kI;
+  bf16* qf = a.q_ws + row * kI;
   tok_gemm<kT>(sU, kLdC, kC, a.fin.wq, kI, st, [&](int r, int c, const float* v) {
     const uint4 bv = load8(a.fin.bq + c);
     float o[8];
@@ -478,8 +606,9 @@ __device__ void hyper_layer(const float* x, const bf16* W, const bf16* bias, int
   }
 }
 
+// Rows as tok_mid's; the hypernetwork in the first tile's block.
 template <int kT>
-__global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
+__global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a, int r0) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sT1 = reinterpret_cast<bf16*>(smem);
   bf16* sY = sT1 + kT * kLdC;
@@ -487,9 +616,10 @@ __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
   float* hx = reinterpret_cast<float*>(sA + kT * kLdI);  // kM x kC
   float* hy = hx + kM * kC;
   float* st = hy + kM * kC + (threadIdx.x >> 5) * 256;
-  const int b = blockIdx.x;
-  stage_rows(sT1, kLdC, a.tstate + static_cast<size_t>(b) * kT * kC, kC, kT, kC);
-  stage_rows(sA, kLdI, a.att + static_cast<size_t>(b) * kT * kI, kI, kT, kI);
+  const int b = blockIdx.x, r = r0 + blockIdx.y * 64;
+  const size_t row = static_cast<size_t>(b) * a.tp + r;
+  stage_rows(sT1, kLdC, a.tstate + row * kC, kC, kT, kC);
+  stage_rows(sA, kLdI, a.att + row * kI, kI, kT, kI);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -497,7 +627,8 @@ __global__ void __launch_bounds__(kThreads) tok_tail_kernel(TailArgs a) {
     store_residual(sY + r * kLdC + c, sT1 + r * kLdC + c, v, a.fin.bo + c);
   });
   __syncthreads();
-  ln_rows(sY, sY, kLdC, kT, a.ln[LNF][0], a.ln[LNF][1], a.tok + static_cast<size_t>(b) * kT * kC);
+  ln_rows(sY, sY, kLdC, kT, a.ln[LNF][0], a.ln[LNF][1], a.tok + row * kC);
+  if (r != 0) return;  // the mask tokens are rows 1-4 of the first tile
   __syncthreads();
   for (int i = threadIdx.x; i < kM * kC; i += kThreads)
     hx[i] = to_f(sY[(1 + i / kC) * kLdC + i % kC]);
@@ -519,29 +650,57 @@ using namespace iuvl;
 
 namespace {
 
+// The function's launches in the header's order. kT: Tp (up to 64, a block
+// a prompt in each token pass), or 0 past 64 slots (the tiled passes).
 template <int kT>
 int launch_tail(const TailArgs& a, int batch, int n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_kernel(tok_front_kernel<kT>, dim3(batch), kFrontSmem<kT>, stream, a);
+  const int tp = a.tp, full = kT ? 0 : tp / 64, rem = kT ? 0 : tp % 64;
+  int err = 0;
+  // One token pass: Tp <= 64 a block a prompt; past 64 a block a (prompt,
+  // 64-row tile), then a block a prompt for the last Tp % 64 rows.
+#define TOK_PASS(KERNEL, SMEM)                                                              \
+  do {                                                                                      \
+    if (kT) {                                                                               \
+      if (!err) err = launch_kernel(KERNEL<kT ? kT : 16>, dim3(batch), SMEM<kT ? kT : 16>,  \
+                                    stream, a, 0);                                          \
+    } else {                                                                                \
+      if (!err) err = launch_kernel(KERNEL<64>, dim3(batch, full), SMEM<64>, stream, a, 0); \
+      if (!err && rem == 16)                                                                \
+        err = launch_kernel(KERNEL<16>, dim3(batch), SMEM<16>, stream, a, full * 64);       \
+      if (!err && rem == 32)                                                                \
+        err = launch_kernel(KERNEL<32>, dim3(batch), SMEM<32>, stream, a, full * 64);       \
+      if (!err && rem == 48)                                                                \
+        err = launch_kernel(KERNEL<48>, dim3(batch), SMEM<48>, stream, a, full * 64);       \
+    }                                                                                       \
+  } while (0)
+  if (kT) {
+    err = launch_kernel(tok_front_kernel<kT ? kT : 16>, dim3(batch), kFrontSmem<kT ? kT : 16>,
+                        stream, a);
+  } else {
+    TOK_PASS(tok_front_kv_kernel, kFrontKvSmem);
+    TOK_PASS(tok_front_att_kernel, kFrontAttSmem);
+  }
   if (!err)
-    err = twoway::i2t_block_run<true>(a.keys0, a.pewq0, a.kbd0, a.vbd0, kT * kI, a.i0_wq,
+    err = twoway::i2t_block_run<true>(a.keys0, a.pewq0, a.kbd0, a.vbd0, tp * kI, a.i0_wq,
                                       a.i0_bq, a.i0_wo, a.i0_bo, a.ln[LN40][0], a.ln[LN40][1],
                                       a.keys1, batch, 1, n, a.t_valid, kScaleI, kEps, st);
   if (!err)
     err = twoway::t2i_stream_run(a.q_ws, a.keys1, a.pewk1, a.t2i1.wk, a.t2i1.bk, a.t2i1.wv,
                                  a.t2i1.bv, a.att, nullptr, a.part_o, a.part_ml, batch, batch, n,
-                                 kT, a.splits, st);
-  if (!err) err = launch_kernel(tok_mid_kernel<kT>, dim3(batch), kMidSmem<kT>, stream, a);
+                                 tp, a.splits, st);
+  TOK_PASS(tok_mid_kernel, kMidSmem);
   if (!err)
-    err = twoway::i2t_block_run<true>(a.keys1, a.pewq1, a.kv_ws, a.kv_ws + kT * kI, 2 * kT * kI,
+    err = twoway::i2t_block_run<true>(a.keys1, a.pewq1, a.kv_ws, a.kv_ws + tp * kI, 2 * tp * kI,
                                       a.i2t1.wq, a.i2t1.bq, a.i2t1.wo, a.i2t1.bo, a.ln[LN41][0],
                                       a.ln[LN41][1], a.keys2, batch, batch, n, a.t_valid,
                                       kScaleI, kEps, st);
   if (!err)
     err = twoway::t2i_stream_run(a.q_ws, a.keys2, a.pewkf, a.fin.wk, a.fin.bk, a.fin.wv,
                                  a.fin.bv, a.att, nullptr, a.part_o, a.part_ml, batch, batch, n,
-                                 kT, a.splits, st);
-  if (!err) err = launch_kernel(tok_tail_kernel<kT>, dim3(batch), kTailSmem<kT>, stream, a);
+                                 tp, a.splits, st);
+  TOK_PASS(tok_tail_kernel, kTailSmem);
+#undef TOK_PASS
   if (!err)
     err = upscale::masks_upscale_run<true>(a.keys2, a.u_w1, a.u_b1, a.u_lnw, a.u_lnb, a.u_w2,
                                            a.u_b2, a.hyper, a.masks, batch, n, st);
@@ -552,14 +711,16 @@ int launch_tail(const TailArgs& a, int batch, int n, void* stream) {
 
 // p: kOperands pointers in the order of iuvl_tpu_torch/ops/cuda/decode_chunk.py
 // `_operands` (inputs, precomputes, weights), then tokens_out, masks and
-// the eight workspaces (keys1, keys2, B4's partials (o, then m and l, one
+// the nine workspaces (keys1, keys2, B4's partials (o, then m and l, one
 // fp32 buffer), B4's merged output, token state, queries, i2t1's k and v,
-// hyper). tp (the token slots) 16, 32, 48 or 64, 1 <= t_valid <= tp, any
-// N >= 1; `splits` B4's key ranges (twoway_attention.py t2i_plan).
+// hyper, and block 1's self-attention k and v (B, 2, tp, 256) bf16, read
+// past 64 slots only). tp (the token slots) any multiple of 16, 1 <=
+// t_valid <= tp, any N >= 1; `splits` B4's key ranges (twoway_attention.py
+// t2i_plan).
 extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int n, int tp,
                                 int t_valid, int splits, void* stream) {
-  if (count != kOperands + 10 || tp < 16 || tp > 64 || tp % 16 || t_valid < 1 || t_valid > tp ||
-      n < 1 || batch < 1 || splits < 1)
+  if (count != kOperands + 11 || tp < 16 || tp % 16 || t_valid < 1 || t_valid > tp || n < 1 ||
+      batch < 1 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a;
   int i = 0;
@@ -594,13 +755,16 @@ extern "C" int iuvl_decode_tail(const void* const* p, int count, int batch, int 
   a.q_ws = static_cast<bf16*>(out());
   a.kv_ws = static_cast<bf16*>(out());
   a.hyper = static_cast<bf16*>(out());
+  a.kv_self = static_cast<bf16*>(out());
   a.n = n;
+  a.tp = tp;
   a.t_valid = t_valid;
   a.splits = splits;
   switch (tp) {
     case 16: return launch_tail<16>(a, batch, n, stream);
     case 32: return launch_tail<32>(a, batch, n, stream);
     case 48: return launch_tail<48>(a, batch, n, stream);
-    default: return launch_tail<64>(a, batch, n, stream);
+    case 64: return launch_tail<64>(a, batch, n, stream);
+    default: return launch_tail<0>(a, batch, n, stream);
   }
 }

@@ -16,15 +16,36 @@
 // hw 128^2, 21504 queries x 4 points; chip_smoke.py `work` computes them):
 // all three move bytes and do few operations.
 // - forward: v (bf16, 34 MB for two images), x, y, aw (fp32, 17 MB) in,
-//   the fp32 (B, nh, Lq, 64) level output (88 MB) out. A warp per (image,
-//   head, query), two channels a lane, 16 tap rows of 128 bytes; fp32 sums.
+//   the fp32 (B, nh, Lq, 64) level output (88 MB) out: 0.041 ms. The
+//   values stay in L2, so what bounds the kernel is latency: a query's 16
+//   tap rows hang on its points' coordinates. A lane group of 8 serves a
+//   query (4 a warp), a lane 8 channels: the group's lanes load and clip
+//   one point each, share the tap rows and weights by shuffles, and issue
+//   all 4P row loads (16 bytes a lane, a 128-byte row a group) before the
+//   first multiply-add. Each channel sums in the parent's order (points,
+//   then slots 0-3, acc += (w_s a) v in fp32), so the bits are the same;
+//   P 4 is unrolled, any other P runs 8 points at a time.
 // - gather: the rows g4 (R, 4d) = 352 MB bf16 per image out, from a 17 MB
 //   map that stays in L2. A warp a row, 16 bytes a lane.
-// - scatter: contrib (R, 4d) 352 MB in, d_value (nh, hw, 64) fp32 out. A
-//   warp a row, 8 channels a lane, added with vector fp32 atomics
-//   (atomicAdd on float4, sm_90): rows of nearby queries hit the same
-//   cells, so the order of their sums is not fixed and results differ
-//   between runs by fp32 rounding (chip_smoke.py's bound allows for it).
+// - scatter: contrib (R, 4d) 352 MB in, d_value (nh, hw, 64) fp32 out:
+//   0.116 ms. No atomics, each cell summed in a fixed order, written once:
+//   1. the rows sorted by (head, top-left cell) into a CSR, stably (rows of
+//      a bucket in row order): an LSD radix sort of its own, passes of up
+//      to 9 bits (2 at every level of the pixel decoder), each pass a count
+//      a block (a warp's rows ranked by __match_any_sync), one exclusive
+//      scan, and a stable placement; then each bucket's start.
+//   2. a warp a destination cell, a lane group a slot plane: group s sums
+//      plane s of the bucket at (cell - off_s) mod hw, its rows in order in
+//      fp32, 8 row loads in flight a lane (the next 8 row indices loaded
+//      ahead); the four sums are folded in JAX's order (S0 + S1 + S2 + S3)
+//      and the cell is written once, zero when empty (the wrapper hands
+//      torch.empty).
+//   3. a bucket of more than kChunk (256) rows is summed in pieces: a warp
+//      a kChunk-row piece of the sorted order sums the runs of long buckets
+//      at its two ends into a partial, and the cell's group adds its
+//      bucket's partials in order. The work of a warp stays bounded when a
+//      head's rows crowd into a few cells.
+//   The plain version (ops/cuda/msdeform.py) sums in the same order.
 #include "common.cuh"
 
 namespace iuvl {
@@ -71,44 +92,8 @@ __device__ __forceinline__ int tap_row(int idx, int slot, int w, int hw) {
   return (idx + off) % hw;
 }
 
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// out[b, h, q, :] = sum over points k and slots s of wa[k, s] * v[b, h, row(k, s), :]
-template <typename T>
-__global__ void level_fwd_kernel(const T* __restrict__ v, const float* __restrict__ x,
-                                 const float* __restrict__ y, const float* __restrict__ aw,
-                                 float* __restrict__ out, int total, int lq, int p, int h,
-                                 int w) {
-  const int warp = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x +
-                                     threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= total) return;
-  const int hw = h * w;
-  const T* map = v + static_cast<size_t>(warp / lq) * hw * kD + 2 * lane;
-  const size_t q = static_cast<size_t>(warp) * p;
-  float acc0 = 0.f, acc1 = 0.f;
-  for (int k = 0; k < p; ++k) {
-    const WideTaps t = wide_taps(x[q + k], y[q + k], h, w);
-    const float a = aw[q + k];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const float wa = t.w[s] * a;
-      const float2 val = load2(map + static_cast<size_t>(tap_row(t.idx, s, w, hw)) * kD);
-      acc0 += wa * val.x;
-      acc1 += wa * val.y;
-    }
-  }
-  *reinterpret_cast<float2*>(out + static_cast<size_t>(warp) * kD + 2 * lane) =
-      make_float2(acc0, acc1);
-}
-
-// Lane l of a row's warp owns slot l / 8, channels 8 (l % 8) .. + 7: 8
-// elements, one 16-byte piece in bf16, two in fp32.
+// Lane l of a row's group of 8 owns channels 8 (l % 8) .. + 7 of a 64-wide
+// row: 8 elements, one 16-byte piece in bf16, two in fp32.
 template <typename T>
 struct Piece {
   static constexpr int kVecs = sizeof(T) * 8 / 16;
@@ -138,7 +123,77 @@ __device__ __forceinline__ void piece_floats(const Piece<float>& pc, float f[8])
   for (int i = 0; i < 8; ++i) f[i] = s[i];
 }
 
-// g4[r, 64 s + c] = v[head(r), row(idx[r], s), c]
+// ------------------------------------------------------------- forward --
+// kN points of the group's query, point j's top-left index and folded slot
+// weights held by the group's lane src0 + j: their 4 kN tap rows loaded,
+// then acc[c] += wa[j][s] * v[row(j, s)][c] in point, then slot, order.
+template <typename T, int kN>
+__device__ __forceinline__ void fwd_points(float (&acc)[8], const T* map, int idx,
+                                           const float (&wa)[4], int src0, int w, int hw) {
+  float wt[kN][4];
+  Piece<T> val[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int ij = __shfl_sync(0xffffffffu, idx, src0 + j);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wt[j][s] = __shfl_sync(0xffffffffu, wa[s], src0 + j);
+      val[j][s] = load_piece(map + static_cast<size_t>(tap_row(ij, s, w, hw)) * kD);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float f[8];
+      piece_floats(val[j][s], f);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] += wt[j][s] * f[c];
+    }
+}
+
+// out[b, h, q, :] = sum over points k and slots s of wa[k, s] * v[b, h, row(k, s), :].
+// A group of 8 lanes a query; kP: the points (4, unrolled), or 0 for any P,
+// 8 points at a time, one point's rows in flight at once. The groups of a
+// query past `total` follow the last query and store nothing (the
+// shuffles take the whole warp).
+template <typename T, int kP>
+__global__ void __launch_bounds__(256) level_fwd_kernel(
+    const T* __restrict__ v, const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ aw, float* __restrict__ out, int total, int lq, int p, int h,
+    int w) {
+  const int q = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 3);
+  const int lane = threadIdx.x & 31, sub = lane & 7, src0 = lane & 24;
+  const int qq = min(q, total - 1), np = kP ? kP : p, hw = h * w;
+  const T* map = v + static_cast<size_t>(qq / lq) * hw * kD + 8 * sub;
+  const size_t pt = static_cast<size_t>(qq) * np;
+  float acc[8] = {};
+  for (int k0 = 0; k0 < np; k0 += 8) {
+    int idx = 0;
+    float wa[4] = {};
+    if (k0 + sub < np) {  // lane sub clips point k0 + sub
+      const WideTaps t = wide_taps(x[pt + k0 + sub], y[pt + k0 + sub], h, w);
+      const float a = aw[pt + k0 + sub];
+      idx = t.idx;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wa[s] = t.w[s] * a;
+    }
+    if (kP) {
+      fwd_points<T, kP ? kP : 1>(acc, map, idx, wa, src0, w, hw);
+    } else {
+      for (int j = 0; j < min(8, np - k0); ++j) fwd_points<T, 1>(acc, map, idx, wa, src0 + j, w, hw);
+    }
+  }
+  if (q < total) {
+    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(q) * kD + 8 * sub);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+// -------------------------------------------------------------- gather --
+// g4[r, 64 s + c] = v[head(r), row(idx[r], s), c]: a warp a row, lane l
+// slot l / 8.
 template <typename T>
 __global__ void gather_kernel(const T* __restrict__ v, const int* __restrict__ idx,
                               T* __restrict__ g4, int rows, int per_head, int hw, int w) {
@@ -154,27 +209,348 @@ __global__ void gather_kernel(const T* __restrict__ v, const int* __restrict__ i
   for (int i = 0; i < Piece<T>::kVecs; ++i) dst[i] = pc.u[i];
 }
 
-// dv[head(r), row(idx[r], s), c] += contrib[r, 64 s + c], in fp32
-template <typename T>
-__global__ void scatter_kernel(const T* __restrict__ contrib, const int* __restrict__ idx,
-                               float* __restrict__ dv, int rows, int per_head, int hw, int w) {
-  const int r = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x +
-                                  threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const int slot = lane >> 3, c = 8 * (lane & 7);
-  float f[8];
-  piece_floats(load_piece(contrib + static_cast<size_t>(r) * 4 * kD + 8 * lane), f);
-  float4* dst = reinterpret_cast<float4*>(
-      dv + (static_cast<size_t>(r / per_head) * hw + tap_row(idx[r], slot, w, hw)) * kD + c);
-  atomicAdd(dst, make_float4(f[0], f[1], f[2], f[3]));
-  atomicAdd(dst + 1, make_float4(f[4], f[5], f[6], f[7]));
+// ------------------------------------------------------------- scatter --
+constexpr int kSortWarps = 8;                          // a sort block's warps
+constexpr int kSortWarpRows = 256;                     // rows a warp ranks, 32 a round
+constexpr int kSortTile = kSortWarps * kSortWarpRows;  // rows a sort block
+constexpr int kMaxDigitBits = 9;                       // bits a pass: 512 bins at most
+constexpr int kChunk = 256;                            // rows of a long bucket's piece
+
+// A row's sort key on the first pass (head * hw + top-left cell; the row is
+// its own index), else the previous pass's output.
+template <bool kFirst>
+__device__ __forceinline__ int sort_key(const int* keys, const int* idx, int i, int per_head,
+                                        int hw) {
+  return kFirst ? (i / per_head) * hw + idx[i] : keys[i];
 }
 
-constexpr int kRowThreads = 256;  // 8 warps a block, a warp per row
+// cnt[warp][bin]: the warp's rows of the block's tile with each digit, 32
+// rows a round in row order, each group of equal digits counted by its
+// first lane. Returns nothing; the block syncs after.
+template <bool kFirst>
+__device__ __forceinline__ void warp_digit_counts(int (*cnt)[1 << kMaxDigitBits],
+                                                  const int* keys, const int* idx, int rows,
+                                                  int per_head, int hw, int shift, int mask) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kSortTile + warp * kSortWarpRows;
+  for (int i = 0; i < kSortWarpRows; i += 32) {
+    const int r = r0 + i + lane;
+    const int dg = r < rows ? (sort_key<kFirst>(keys, idx, r, per_head, hw) >> shift) & mask : -1;
+    const unsigned m = __match_any_sync(0xffffffffu, dg);
+    if (dg >= 0 && lane == __ffs(m) - 1) cnt[warp][dg] += __popc(m);
+    __syncwarp();
+  }
+}
 
-unsigned row_blocks(size_t warps) {
-  return static_cast<unsigned>((warps * 32 + kRowThreads - 1) / kRowThreads);
+// hist[bin * tiles + tile]: the tile's rows with each digit.
+template <bool kFirst>
+__global__ void __launch_bounds__(kSortWarps * 32) sort_count_kernel(
+    const int* __restrict__ keys, const int* __restrict__ idx, int* __restrict__ hist, int rows,
+    int per_head, int hw, int shift, int bins) {
+  __shared__ int cnt[kSortWarps][1 << kMaxDigitBits];
+  for (int i = threadIdx.x; i < kSortWarps * bins; i += blockDim.x) cnt[i / bins][i % bins] = 0;
+  __syncthreads();
+  warp_digit_counts<kFirst>(cnt, keys, idx, rows, per_head, hw, shift, bins - 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
+    int sum = 0;
+#pragma unroll
+    for (int wp = 0; wp < kSortWarps; ++wp) sum += cnt[wp][b];
+    hist[b * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+// Each bin's row of hist (its tiles' counts) scanned in place, exclusive,
+// and the row's total into totals[bin]: a warp a bin, 8 tiles a lane a
+// round, all its loads issued at once.
+__global__ void __launch_bounds__(256) sort_scan_kernel(int* __restrict__ hist,
+                                                        int* __restrict__ totals, int bins,
+                                                        int tiles) {
+  const int bin = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x +
+                                    threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (bin >= bins) return;
+  int* row = hist + static_cast<size_t>(bin) * tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < tiles; t0 += 256) {
+    int v[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + 8 * lane + j;
+      v[j] = t < tiles ? row[t] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += v[j];
+    int inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += up;
+    }
+    int run = carry + inc - sum;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + 8 * lane + j;
+      if (t < tiles) row[t] = run;
+      run += v[j];
+    }
+    carry += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (lane == 0) totals[bin] = carry;
+}
+
+// One stable counting pass: each row to the rows of smaller digits (the
+// bins' totals, scanned here), plus its digit's rows in earlier tiles
+// (hist, scanned), plus its tile's rows before it with that digit (earlier
+// warps, then earlier rounds of its warp, then lower lanes).
+template <bool kFirst>
+__global__ void __launch_bounds__(kSortWarps * 32) sort_place_kernel(
+    const int* __restrict__ keys, const int* __restrict__ order, const int* __restrict__ idx,
+    const int* __restrict__ hist, const int* __restrict__ totals, int* __restrict__ keys_out,
+    int* __restrict__ order_out, int rows, int per_head, int hw, int shift, int bins) {
+  __shared__ int cnt[kSortWarps][1 << kMaxDigitBits];
+  __shared__ int base[1 << kMaxDigitBits];
+  __shared__ int warp_sums[kSortWarps];
+  for (int i = threadIdx.x; i < kSortWarps * bins; i += blockDim.x) cnt[i / bins][i % bins] = 0;
+  {  // base[b] = the totals of the bins below b: two bins a thread
+    constexpr int kPer = (1 << kMaxDigitBits) / (kSortWarps * 32);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b0 = kPer * threadIdx.x;
+    int v[kPer], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      v[j] = b0 + j < bins ? totals[b0 + j] : 0;
+      sum += v[j];
+    }
+    int inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += up;
+    }
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    int run = inc - sum;
+    for (int wp = 0; wp < warp; ++wp) run += warp_sums[wp];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      base[b0 + j] = run;
+      run += v[j];
+    }
+  }
+  __syncthreads();
+  warp_digit_counts<kFirst>(cnt, keys, idx, rows, per_head, hw, shift, bins - 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
+    int run = base[b] + hist[b * gridDim.x + blockIdx.x];
+#pragma unroll
+    for (int wp = 0; wp < kSortWarps; ++wp) {
+      const int c = cnt[wp][b];
+      cnt[wp][b] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kSortTile + warp * kSortWarpRows;
+  for (int i = 0; i < kSortWarpRows; i += 32) {
+    const int r = r0 + i + lane;
+    const int key = r < rows ? sort_key<kFirst>(keys, idx, r, per_head, hw) : 0;
+    const int dg = r < rows ? (key >> shift) & (bins - 1) : -1;
+    const unsigned m = __match_any_sync(0xffffffffu, dg);
+    const int pos = dg >= 0 ? cnt[warp][dg] + __popc(m & ((1u << lane) - 1)) : 0;
+    __syncwarp();
+    if (dg >= 0 && lane == __ffs(m) - 1) cnt[warp][dg] += __popc(m);
+    __syncwarp();
+    if (dg >= 0) {
+      keys_out[pos] = key;
+      order_out[pos] = kFirst ? r : order[r];
+    }
+  }
+}
+
+// start[k] = the first position of the sorted keys at or past bucket k,
+// for k in [0, buckets]: a binary search a bucket.
+__global__ void bucket_start_kernel(const int* __restrict__ keys, int* __restrict__ start,
+                                    int rows, int buckets) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k > buckets) return;
+  int lo = 0, hi = rows;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < k) lo = mid + 1;
+    else hi = mid;
+  }
+  start[k] = lo;
+}
+
+// acc += plane `plane` of the rows at sorted positions [a, b), in order:
+// the group's 8 lanes take 8 positions' row indices at a time (the next 8
+// fetched before this batch's rows) and load those rows' pieces before
+// adding them. gmask: the group's lanes.
+template <typename T>
+__device__ __forceinline__ void sum_rows(float (&acc)[8], const T* contrib, const int* order,
+                                         int a, int b, int plane, int sub, unsigned gmask) {
+  int next = a + sub < b ? order[a + sub] : 0;
+  for (int p0 = a; p0 < b; p0 += 8) {
+    const int n = min(8, b - p0), mine = next;
+    next = p0 + 8 + sub < b ? order[p0 + 8 + sub] : 0;
+    Piece<T> val[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int r = __shfl_sync(gmask, mine, u, 8);
+      if (u < n) val[u] = load_piece(contrib + static_cast<size_t>(r) * 4 * kD + plane * kD + 8 * sub);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (u < n) {
+        float f[8];
+        piece_floats(val[u], f);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[c] += f[c];
+      }
+    }
+  }
+}
+
+// A warp a piece (kChunk positions) of the sorted order: the sums of the
+// runs at its two ends that belong to long buckets (more than kChunk
+// rows), all four planes: part[piece][0] its first run's, part[piece][1]
+// its last run's where that is another bucket.
+template <typename T>
+__global__ void __launch_bounds__(256, 3) dv_piece_kernel(
+    const T* __restrict__ contrib, const int* __restrict__ keys, const int* __restrict__ order,
+    const int* __restrict__ start, float* __restrict__ part, int rows) {
+  const int piece = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x +
+                                      threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31, plane = lane >> 3, sub = lane & 7;
+  const int c0 = piece * kChunk;
+  if (c0 >= rows) return;
+  const int c1 = min(rows, c0 + kChunk);
+  const int kf = keys[c0], kl = keys[c1 - 1];
+  for (int end = 0; end < 2; ++end) {
+    const int k = end ? kl : kf;
+    if (end && kl == kf) break;
+    const int s0 = start[k], s1 = start[k + 1];
+    if (s1 - s0 <= kChunk) continue;
+    float acc[8] = {};
+    sum_rows(acc, contrib, order, max(c0, s0), min(c1, s1), plane, sub, 0xffu << (lane & 24));
+    float4* o = reinterpret_cast<float4*>(part + (static_cast<size_t>(piece) * 2 + end) * 4 * kD +
+                                          plane * kD + 8 * sub);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+// dv[head, c] = S0[c] + S1[c - 1] + S2[c - w] + S3[c - w - 1] (cells mod
+// hw): a warp a (head, cell), group s summing plane s of its bucket (the
+// rows, or a long bucket's pieces' partials, in order), the four sums
+// folded left to right in lanes 0-7, which write the cell's 256 bytes.
+template <typename T>
+__global__ void __launch_bounds__(256, 4) dv_cell_kernel(
+    const T* __restrict__ contrib, const int* __restrict__ order, const int* __restrict__ start,
+    const float* __restrict__ part, float* __restrict__ dv, int cells, int hw, int w) {
+  const int cell = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x +
+                                     threadIdx.x) >> 5);
+  if (cell >= cells) return;
+  const int lane = threadIdx.x & 31, plane = lane >> 3, sub = lane & 7;
+  const int head = cell / hw, c = cell % hw;
+  const int off = (plane & 1) + (plane >> 1) * w;
+  const int k = head * hw + ((c - off) % hw + hw) % hw;
+  const int s0 = start[k], s1 = start[k + 1];
+  float acc[8] = {};
+  if (s1 - s0 <= kChunk) {
+    sum_rows(acc, contrib, order, s0, s1, plane, sub, 0xffu << (lane & 24));
+  } else {
+    // The bucket's last run in piece i0 unless it starts the piece, then
+    // the first run of each later piece it reaches.
+    const int i0 = s0 / kChunk, i1 = (s1 - 1) / kChunk;
+    for (int i = i0; i <= i1; ++i) {
+      const int end = i == i0 && s0 != i0 * kChunk ? 1 : 0;
+      const float4* pp = reinterpret_cast<const float4*>(
+          part + (static_cast<size_t>(i) * 2 + end) * 4 * kD + plane * kD + 8 * sub);
+      const float4 lo = pp[0], hi = pp[1];
+      acc[0] += lo.x, acc[1] += lo.y, acc[2] += lo.z, acc[3] += lo.w;
+      acc[4] += hi.x, acc[5] += hi.y, acc[6] += hi.z, acc[7] += hi.w;
+    }
+  }
+  float d[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float s1v = __shfl_down_sync(0xffffffffu, acc[j], 8);
+    const float s2v = __shfl_down_sync(0xffffffffu, acc[j], 16);
+    const float s3v = __shfl_down_sync(0xffffffffu, acc[j], 24);
+    d[j] = acc[j] + s1v;
+    d[j] += s2v;
+    d[j] += s3v;
+  }
+  if (plane == 0) {
+    float4* o = reinterpret_cast<float4*>(dv + static_cast<size_t>(cell) * kD + 8 * sub);
+    o[0] = make_float4(d[0], d[1], d[2], d[3]);
+    o[1] = make_float4(d[4], d[5], d[6], d[7]);
+  }
+}
+
+constexpr int kRowThreads = 256;  // 8 warps a block
+
+unsigned blocks_for(size_t threads) {
+  return static_cast<unsigned>((threads + kRowThreads - 1) / kRowThreads);
+}
+
+template <typename T>
+int fwd_launch(const T* v, const float* x, const float* y, const float* aw, float* out,
+               size_t total, int lq, int p, int h, int w, cudaStream_t s) {
+  const unsigned grid = blocks_for(total * 8);
+  if (p == 4)
+    level_fwd_kernel<T, 4><<<grid, kRowThreads, 0, s>>>(v, x, y, aw, out, static_cast<int>(total),
+                                                       lq, p, h, w);
+  else
+    level_fwd_kernel<T, 0><<<grid, kRowThreads, 0, s>>>(v, x, y, aw, out, static_cast<int>(total),
+                                                       lq, p, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int scatter_run(const T* contrib, const int* idx, float* dv, int* ws, int* start, float* part,
+                int nh, int per_head, int hw, int w, int digit_bits, int passes,
+                cudaStream_t s) {
+  const int rows = nh * per_head, buckets = nh * hw, bins = 1 << digit_bits;
+  const int tiles = (rows + kSortTile - 1) / kSortTile;
+  int* keys[2] = {ws, ws + 2 * static_cast<size_t>(rows)};
+  int* order[2] = {ws + rows, ws + 3 * static_cast<size_t>(rows)};
+  int* hist = ws + 4 * static_cast<size_t>(rows);
+  int* totals = hist + static_cast<size_t>(bins) * tiles;
+  const unsigned scan_grid = blocks_for(static_cast<size_t>(bins) * 32);
+  int cur = 0;
+  if (rows > 0) {
+    for (int pass = 0; pass < passes; ++pass) {
+      const int shift = pass * digit_bits, out = pass & 1;
+      if (pass == 0) {
+        sort_count_kernel<true><<<tiles, kSortWarps * 32, 0, s>>>(nullptr, idx, hist, rows,
+                                                                  per_head, hw, shift, bins);
+        sort_scan_kernel<<<scan_grid, kRowThreads, 0, s>>>(hist, totals, bins, tiles);
+        sort_place_kernel<true><<<tiles, kSortWarps * 32, 0, s>>>(
+            nullptr, nullptr, idx, hist, totals, keys[out], order[out], rows, per_head, hw, shift,
+            bins);
+      } else {
+        sort_count_kernel<false><<<tiles, kSortWarps * 32, 0, s>>>(keys[cur], idx, hist, rows,
+                                                                   per_head, hw, shift, bins);
+        sort_scan_kernel<<<scan_grid, kRowThreads, 0, s>>>(hist, totals, bins, tiles);
+        sort_place_kernel<false><<<tiles, kSortWarps * 32, 0, s>>>(
+            keys[cur], order[cur], idx, hist, totals, keys[out], order[out], rows, per_head, hw,
+            shift, bins);
+      }
+      cur = out;
+    }
+  }
+  bucket_start_kernel<<<blocks_for(static_cast<size_t>(buckets) + 1), kRowThreads, 0, s>>>(
+      keys[cur], start, rows, buckets);
+  const int pieces = (rows + kChunk - 1) / kChunk;
+  if (pieces > 0)
+    dv_piece_kernel<<<blocks_for(static_cast<size_t>(pieces) * 32), kRowThreads, 0, s>>>(
+        contrib, keys[cur], order[cur], start, part, rows);
+  dv_cell_kernel<<<blocks_for(static_cast<size_t>(buckets) * 32), kRowThreads, 0, s>>>(
+      contrib, order[cur], start, part, dv, buckets, hw, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -189,18 +565,15 @@ extern "C" int iuvl_msdeform_fwd(const void* v, const void* x, const void* y, co
                                  int bf16_values, void* stream) {
   const size_t total = static_cast<size_t>(b) * nh * lq;
   if (total == 0) return 0;
+  if (p < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* yf = static_cast<const float*>(y);
   const auto* af = static_cast<const float*>(aw);
   auto* o = static_cast<float*>(out);
-  if (bf16_values)
-    level_fwd_kernel<<<row_blocks(total), kRowThreads, 0, s>>>(
-        static_cast<const bf16*>(v), xf, yf, af, o, static_cast<int>(total), lq, p, h, w);
-  else
-    level_fwd_kernel<<<row_blocks(total), kRowThreads, 0, s>>>(
-        static_cast<const float*>(v), xf, yf, af, o, static_cast<int>(total), lq, p, h, w);
-  return static_cast<int>(cudaGetLastError());
+  return bf16_values
+             ? fwd_launch(static_cast<const bf16*>(v), xf, yf, af, o, total, lq, p, h, w, s)
+             : fwd_launch(static_cast<const float*>(v), xf, yf, af, o, total, lq, p, h, w, s);
 }
 
 // One image: v (nh, hw, 64); idx (nh, per_head) int32 top-left rows in
@@ -212,30 +585,38 @@ extern "C" int iuvl_deform_gather(const void* v, const void* idx, void* g4, int 
   auto s = static_cast<cudaStream_t>(stream);
   const auto* ix = static_cast<const int*>(idx);
   if (bf16_values)
-    gather_kernel<<<row_blocks(rows), kRowThreads, 0, s>>>(
+    gather_kernel<<<blocks_for(rows * 32), kRowThreads, 0, s>>>(
         static_cast<const bf16*>(v), ix, static_cast<bf16*>(g4), static_cast<int>(rows),
         per_head, hw, w);
   else
-    gather_kernel<<<row_blocks(rows), kRowThreads, 0, s>>>(
+    gather_kernel<<<blocks_for(rows * 32), kRowThreads, 0, s>>>(
         static_cast<const float*>(v), ix, static_cast<float*>(g4), static_cast<int>(rows),
         per_head, hw, w);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One image: contrib (nh * per_head, 256) bf16 or fp32; idx as for the
-// gather; dv (nh, hw, 64) fp32, zeroed by the caller.
-extern "C" int iuvl_deform_scatter(const void* contrib, const void* idx, void* dv, int nh,
-                                   int per_head, int hw, int w, int bf16_values, void* stream) {
-  const size_t rows = static_cast<size_t>(nh) * per_head;
-  if (rows == 0) return 0;
+// gather; dv (nh, hw, 64) fp32, every cell written. Workspaces from the
+// wrapper (ops/cuda/msdeform.py scatter_plan): ws int32, two key and two
+// row arrays of nh * per_head, then the counts of (2^digit_bits bins) x
+// (one a 2048-row tile) and the bins' totals; start int32 (nh * hw + 1);
+// part fp32 (pieces of 256 sorted rows, 2, 256). `passes` radix passes of `digit_bits` bits
+// (at most 9) cover the keys head * hw + cell.
+extern "C" int iuvl_deform_scatter(const void* contrib, const void* idx, void* dv, void* ws,
+                                   void* start, void* part, int nh, int per_head, int hw, int w,
+                                   int digit_bits, int passes, int bf16_values, void* stream) {
+  if (nh < 1 || hw < 1 || per_head < 0 || digit_bits < 1 || digit_bits > kMaxDigitBits ||
+      passes < 1 || (static_cast<long long>(nh) * hw - 1) >> (digit_bits * passes) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* ix = static_cast<const int*>(idx);
   auto* d = static_cast<float*>(dv);
-  if (bf16_values)
-    scatter_kernel<<<row_blocks(rows), kRowThreads, 0, s>>>(
-        static_cast<const bf16*>(contrib), ix, d, static_cast<int>(rows), per_head, hw, w);
-  else
-    scatter_kernel<<<row_blocks(rows), kRowThreads, 0, s>>>(
-        static_cast<const float*>(contrib), ix, d, static_cast<int>(rows), per_head, hw, w);
-  return static_cast<int>(cudaGetLastError());
+  auto* wsi = static_cast<int*>(ws);
+  auto* st = static_cast<int*>(start);
+  auto* pt = static_cast<float*>(part);
+  return bf16_values
+             ? scatter_run(static_cast<const bf16*>(contrib), ix, d, wsi, st, pt, nh, per_head, hw,
+                           w, digit_bits, passes, s)
+             : scatter_run(static_cast<const float*>(contrib), ix, d, wsi, st, pt, nh, per_head,
+                           hw, w, digit_bits, passes, s);
 }

@@ -29,7 +29,7 @@ extern "C" int iuvl_t2i_stream(const void* q, const void* keys, const void* pe_w
 // keys: (Bk, N, 256) bf16 with Bk 1 or B; pe_wq: (N, 128) bf16; kp, vp:
 // (B, T, 128) bf16; wq: (128, 256) and wo: (256, 128) bf16 (out, in); bq:
 // (128) and bo: (256) bf16; ln_w, ln_b: (256) fp32; out: (B, N, 256) bf16.
-// 1 <= T <= 64, any N >= 1.
+// Any T >= 1 and N >= 1.
 extern "C" int iuvl_i2t_block_step(const void* keys, const void* pe_wq, const void* kp,
                                    const void* vp, const void* wq, const void* bq, const void* wo,
                                    const void* bo, const void* ln_w, const void* ln_b, void* out,

@@ -56,7 +56,7 @@
 // C5: any N >= 1. The last key tile is masked: its rows past N load as
 // zeros, their scores are -inf, and nothing is written for them.
 //
-// i2t (1 <= T <= 64) runs one persistent block an SM that stages Wq and Wo
+// i2t (any T >= 1) runs one persistent block an SM that stages Wq and Wo
 // (137 KB) once and walks a contiguous range of (row group, prompt) work
 // items; each warp owns a 16-row strip of the group, and the strips stream
 // through one cp.async slot a warp (the next strip's load issued as soon as
@@ -78,7 +78,12 @@
 // for that, and its region holds the warps' residual rows meanwhile, so the
 // x strips stay put across the prompts. C5: any N >= 1; the last strip's
 // rows past N are zero-filled in the copy, read the last row's PE and are
-// not written.
+// not written. C8: past 64 tokens the prompt's k and v pass through one
+// 64-row stage a tile at a time, twice an item: first kp alone, for each
+// row's max and sum of exp over all T tokens (fp32, rescaled online from
+// tile to tile), then kp and vp, for p = exp(s - m) / l, rounded to bf16,
+// and p v summed in fp32 registers across the tiles. The scores are
+// computed twice; up to 64 tokens nothing changes (a template parameter).
 //
 // Rounding points follow the TPU kernels: products accumulate in fp32 and
 // are rounded to bf16, then each bias or PE term is added and rounded in
@@ -448,7 +453,7 @@ int t2i_launch(int grid, size_t smem, cudaStream_t stream, const bf16* q, const 
 // block an SM. Shared memory: region A (Wq, or with batch-1 keys the
 // warps' y strips), Wo, bq and bo, the token k / v ring (two stages of T
 // padded to 16 rows for T <= 16, else one) and one 16-row x strip a warp.
-constexpr int kMaxTok = 64;                              // tokens the kernel holds
+constexpr int kKvTile = 64;                              // tokens a k / v stage holds
 constexpr int kStrip = 16;                               // image rows a warp's strip
 constexpr size_t kRegionA = size_t{kI} * kLdC * 2;       // Wq; batch-1: y strips
 constexpr size_t kRegionB = size_t{kC} * kLdI * 2;       // Wo
@@ -566,6 +571,80 @@ __device__ __forceinline__ void i2t_attend(uint32_t (&att)[8][4], const uint32_t
   }
 }
 
+// Scores of head h for the warp's 16 rows against a 64-token tile (kp in
+// shared memory), scaled, the tokens at or past `valid` at kNegInf.
+__device__ __forceinline__ void i2t_tile_scores(float (&s)[8][4], const uint32_t (&qa)[4],
+                                                const bf16* sKp, int h, int valid,
+                                                float scale) {
+  const int q2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    uint32_t b[4];
+    ldb_rows(b, sKp, kLdI, p * 16, h * 16);  // B[k][t] = kp[t][16 h + k]
+    mma16816(s[2 * p], qa, b[0], b[1]);
+    mma16816(s[2 * p + 1], qa, b[2], b[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 8 * j + q2 + (e & 1) < valid ? s[j][e] * scale : kNegInf;
+}
+
+// T > 64, the first pass over a tile of `valid` tokens: each head's and lane
+// row's (g, g + 8) running max m and sum l of exp(s - m), rescaled to the
+// new max tile by tile.
+__device__ __forceinline__ void i2t_tile_stats(float (&m)[8][2], float (&l)[8][2],
+                                               const uint32_t (&qa)[8][4], const bf16* sKp,
+                                               int valid, float scale) {
+#pragma unroll
+  for (int h = 0; h < 8; ++h) {
+    float s[8][4];
+    i2t_tile_scores(s, qa[h], sKp, h, valid, scale);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float mx = m[h][u];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * u], s[j][2 * u + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * u] - mx) + expf(s[j][2 * u + 1] - mx);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h][u] = l[h][u] * expf(m[h][u] - mx) + sum;
+      m[h][u] = mx;
+    }
+  }
+}
+
+// T > 64, the second pass over the tile: p = exp(s - m) * inv (inv = 1 / l
+// of the first pass) rounded to bf16, and o[h] += p v_h in fp32 registers.
+__device__ __forceinline__ void i2t_tile_pv(float (&o)[8][2][4], const float (&m)[8][2],
+                                            const float (&inv)[8][2], const uint32_t (&qa)[8][4],
+                                            const bf16* sKp, const bf16* sVp, int valid,
+                                            float scale) {
+#pragma unroll
+  for (int h = 0; h < 8; ++h) {
+    float s[8][4];
+    i2t_tile_scores(s, qa[h], sKp, h, valid, scale);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[h][e >> 1]) * inv[h][e >> 1];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t a[4], b[4];
+      acc_to_a(a, s[2 * p], s[2 * p + 1]);      // p rounded to bf16
+      ldb_cols(b, sVp, kLdI, h * 16, p * 16);  // B[t][c] = vp[t][16 h + c]
+      mma16816(o[h][0], a, b[0], b[1]);
+      mma16816(o[h][1], a, b[2], b[3]);
+    }
+  }
+}
+
 // Y = bf16(X + bf16(bf16(att Wo^T) + bo)) for the warp's 16 rows, in four
 // quarters of 64 columns (fp32 sums in registers), written to the y strip
 // in shared memory (X's own place with per-prompt keys: each lane writes
@@ -664,8 +743,9 @@ __device__ __forceinline__ void i2t_norm(bf16* out, const bf16* Y, const float* 
 // it every strip is full and the masks fold away at compile time.
 // kResFirst: i2t_out's rounding order. A prompt's k and v rows start
 // kv_stride elements after the previous prompt's (tokens * 128 for B5;
-// B16 hands its Tp-slot buffers, t_valid tokens of them read).
-template <bool kTail, bool kResFirst>
+// B16 hands its Tp-slot buffers, t_valid tokens of them read). kTiled: T >
+// 64, the tokens pass through a one-tile stage twice an item (C8).
+template <bool kTail, bool kResFirst, bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
     const bf16* __restrict__ keys, const bf16* __restrict__ pe_wq, const bf16* __restrict__ kp,
     const bf16* __restrict__ vp, const bf16* __restrict__ wq, const bf16* __restrict__ bq,
@@ -675,7 +755,7 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   const int nw = blockDim.x >> 5, nt = blockDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tpad = (tokens + 15) / 16 * 16, np = tpad / 16;
+  const int tpad = kTiled ? kKvTile : (tokens + 15) / 16 * 16, np = tpad / 16;
   bf16* sA = reinterpret_cast<bf16*>(smem);  // Wq, or batch-1's y strips
   bf16* sWo = sA + kI * kLdC;
   bf16* sbq = sWo + kC * kLdI;
@@ -704,6 +784,13 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
     cp_rows<kI>(d, kLdI, kp + g0, 0, tpad, tokens, tid, nt);
     cp_rows<kI>(d + tpad * kLdI, kLdI, vp + g0, 0, tpad, tokens, tid, nt);
   };
+  // kTiled: tile k of prompt p's kp (and vp) rows into the one stage.
+  auto stage_tile = [&](int p, int k, bool with_v) {
+    const size_t g0 = static_cast<size_t>(p) * kv_stride;
+    cp_rows<kI>(sKV, kLdI, kp + g0, k * kKvTile, kKvTile, tokens, tid, nt);
+    if (with_v)
+      cp_rows<kI>(sKV + kKvTile * kLdI, kLdI, vp + g0, k * kKvTile, kKvTile, tokens, tid, nt);
+  };
   // Rows of strip s (the last strip's rows past n are zero-filled and
   // never written).
   auto rows_of = [&](int s) { return kTail ? min(kStrip, n - s * kStrip) : kStrip; };
@@ -719,7 +806,7 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
   cp_rows<kI>(sbq, kI, bq, 0, 1, 1, tid, nt);
   cp_rows<kC>(sbo, kC, bo, 0, 1, 1, tid, nt);
   int slot = 0, cur_p = prompt_of(i0);
-  stage_kv(0, cur_p);
+  if (!kTiled) stage_kv(0, cur_p);
   if (!shared_keys) stage_x(i0);
   cp_async_commit();
   if (stages == 2 && next_prompt(i0) < i1) {
@@ -734,7 +821,7 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
   for (int i = i0; i < i1; ++i) {
     const int p = prompt_of(i), g = group_of(i), s = g * nw + warp;
     cp_async_wait<0>();  // this item's x strip; a prefetched token stage
-    if (p != cur_p) {  // the token ring turns over (block-uniform)
+    if (!kTiled && p != cur_p) {  // the token ring turns over (block-uniform)
       if (stages == 2) {
         __syncthreads();  // the prefetched stage has landed everywhere; the old one is free
         slot ^= 1;
@@ -764,7 +851,47 @@ __global__ void __launch_bounds__(kThreads, 1) i2t_block_kernel(
       cur_g = g;
     }
     __syncwarp();
-    if (s < strips) {
+    if constexpr (kTiled) {
+      float m[8][2], l[8][2], o[8][2][4];
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          m[h][u] = kNegInf;
+          l[h][u] = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[h][u][e] = 0.f;
+        }
+      if (s < strips && !shared_keys)
+        i2t_qp(qa, X, sA, pe_wq + static_cast<size_t>(s) * kStrip * kI, sbq, rows_of(s));
+      const int tiles = (tokens + kKvTile - 1) / kKvTile;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int k = 0; k < tiles; ++k) {
+          __syncthreads();  // every warp is done with the stage
+          stage_tile(p, k, pass == 1);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          if (s < strips) {
+            const int valid = min(kKvTile, tokens - k * kKvTile);
+            if (pass == 0) i2t_tile_stats(m, l, qa, sKV, valid, scale);
+            else i2t_tile_pv(o, m, l, qa, sKV, sKV + kKvTile * kLdI, valid, scale);
+          }
+        }
+        if (pass == 0)
+#pragma unroll
+          for (int h = 0; h < 8; ++h) l[h][0] = 1.f / l[h][0], l[h][1] = 1.f / l[h][1];
+      }
+      if (s < strips) {
+#pragma unroll
+        for (int h = 0; h < 8; ++h) acc_to_a(att[h], o[h][0], o[h][1]);
+        i2t_out<kResFirst>(att, X, Y, sWo, sbo);
+        __syncwarp();
+        i2t_norm(out + (static_cast<size_t>(p) * n + s * kStrip) * kC, Y, ln_w, ln_b, eps,
+                 rows_of(s));
+        __syncwarp();
+      }
+    } else if (s < strips) {
       const bf16* sKp = sKV + slot * 2 * tpad * kLdI;
       const bf16* sVp = sKp + tpad * kLdI;
       if (!shared_keys)
@@ -849,15 +976,16 @@ int i2t_block_run(const bf16* keys, const bf16* pe_wq, const bf16* kp, const bf1
                   int kv_stride, const bf16* wq, const bf16* bq, const bf16* wo, const bf16* bo,
                   const float* ln_w, const float* ln_b, bf16* out, int batch, int keys_batch,
                   int n, int tokens, float scale, float eps, cudaStream_t st) {
-  if (batch < 1 || tokens < 1 || tokens > kMaxTok || n < 1 ||
-      (keys_batch != 1 && keys_batch != batch))
+  if (batch < 1 || tokens < 1 || n < 1 || (keys_batch != 1 && keys_batch != batch))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool tiled = tokens > kKvTile;
   const DeviceInfo dev = device_info();
   const int sms = dev.sms, max_smem = dev.smem_per_block;
   // Two token stages where they fit beside 8 warps' x strips, else one;
-  // fewer warps only where one stage does not fit beside 8 strips.
-  const size_t stage = size_t{2} * ((tokens + 15) / 16 * 16) * kLdI * 2;
-  int stages = 2, nw = kWarps;
+  // fewer warps only where one stage does not fit beside 8 strips. Past 64
+  // tokens one stage of a 64-token tile.
+  const size_t stage = size_t{2} * (tiled ? kKvTile : (tokens + 15) / 16 * 16) * kLdI * 2;
+  int stages = tiled ? 1 : 2, nw = kWarps;
   auto bytes = [&] { return kRegionA + kRegionB + kParams + stages * stage + nw * kSlot; };
   while (bytes() > static_cast<size_t>(max_smem)) {
     if (stages == 2) stages = 1;
@@ -865,7 +993,10 @@ int i2t_block_run(const bf16* keys, const bf16* pe_wq, const bf16* kp, const bf1
   }
   const int groups = ((n + kStrip - 1) / kStrip + nw - 1) / nw;
   const int grid = min(sms, batch * groups);
-  auto kernel = n % kStrip ? i2t_block_kernel<true, kResFirst> : i2t_block_kernel<false, kResFirst>;
+  auto kernel = tiled ? (n % kStrip ? i2t_block_kernel<true, kResFirst, true>
+                                    : i2t_block_kernel<false, kResFirst, true>)
+                      : (n % kStrip ? i2t_block_kernel<true, kResFirst, false>
+                                    : i2t_block_kernel<false, kResFirst, false>);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes()));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -350,7 +350,7 @@ class MaskDecoder(nn.Module):
         two-way transformer, the hypernetwork and the upscale in
         ``decode_tail`` (B16 for ``'chunk'`` on CUDA tensors, its plain
         version on the CPU and for ``'chunk_plain'``); the tokens padded to
-        a multiple of 16 slots (B16 takes 16 to 64). ``hyper_in`` and
+        a multiple of 16 slots (B16 takes any). ``hyper_in`` and
         ``iou_pred`` come from the output tokens as in the per-op path."""
         if src.shape[0] != 1:
             raise ValueError(

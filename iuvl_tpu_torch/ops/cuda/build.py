@@ -53,7 +53,7 @@ SIGNATURES = {
     "iuvl_tap_scatter": (P, P, P, I, I, I, P),
     "iuvl_msdeform_fwd": (P,) * 5 + (I,) * 7 + (P,),
     "iuvl_deform_gather": (P,) * 3 + (I,) * 5 + (P,),
-    "iuvl_deform_scatter": (P,) * 3 + (I,) * 5 + (P,),
+    "iuvl_deform_scatter": (P,) * 6 + (I,) * 7 + (P,),
     "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 3 + (P,),
     "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),

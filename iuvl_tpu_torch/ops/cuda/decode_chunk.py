@@ -47,10 +47,9 @@ from .build import launch, require
 from .twoway_attention import _heads, _merge, _sm_count, t2i_plan, t2i_stream_plain
 
 C, I, HEADS, M, MLP = 256, 128, 8, 4, 2048
-# The kernel's token slots, Tp. JAX pads a prompt's tokens to any multiple of
-# 16; the kernel's token passes hold Tp rows in shared memory and stop at 64
-# (58 points with the 5 output tokens and the pad point): ROADMAP.md Queue C.
-SLOTS = (16, 32, 48, 64)
+# The kernel's token slots, Tp: any multiple of SLOT (JAX pads a prompt's
+# tokens to one); past 64 the token passes run in 64-row tiles.
+SLOT = 16
 LN_EPS, LN2D_EPS = 1e-5, 1e-6
 ATTN_SITES = ("self1", "t2i1", "i2t1", "final")
 NORMS = ("ln40", "ln11", "ln21", "ln31", "ln41", "lnf")
@@ -201,7 +200,7 @@ def _operands(t, tpe, keys0, key_pe, W):
     return ops
 
 
-def _shapes(b: int, n: int, tp: int = SLOTS[0]) -> dict:
+def _shapes(b: int, n: int, tp: int = SLOT) -> dict:
     c4, c8 = C // 4, C // 8
     s = dict(t=(b, tp, C), tpe=(b, tp, C), keys0=(1, n, C), pewq0=(n, I), pewq1=(n, I),
              pewk1=(n, I), pewkf=(n, I), kbd0=(b, tp, I), vbd0=(b, tp, I))
@@ -223,9 +222,9 @@ def _shapes(b: int, n: int, tp: int = SLOTS[0]) -> dict:
 def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
                 return_keys2: bool = False):
     """The whole-chunk decode tail: the CUDA kernel for CUDA tensors (bf16,
-    C 256, 8 heads of 16 in the cross attentions, Tp 16, 32, 48 or 64 slots
-    (up to 64 tokens; the token passes hold Tp rows in shared memory), M 4
-    mask tokens, MLP width 2048, any N >= 1; LayerNorm params fp32),
+    C 256, 8 heads of 16 in the cross attentions, Tp any multiple of 16
+    slots, M 4 mask tokens, MLP width 2048, any N >= 1; LayerNorm params
+    fp32),
     the plain version for CPU tensors. Returns (tokens_out (B, Tp, C), masks_flat
     (B, N, 16 M) fp32, columns (di, dj, ei, ej, t)), and with
     ``return_keys2`` also keys2 (B, N, C), the keys after block 1 (on the
@@ -237,14 +236,13 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
     n = keys0.shape[1]
     internal = W["i2t0"]["qw"].shape[0]
     m = W["hyper"][0][0].shape[0]
-    if (c, internal, n_heads, m) != (C, I, HEADS, M) or tp not in SLOTS or n < 1 \
+    if (c, internal, n_heads, m) != (C, I, HEADS, M) or tp < SLOT or tp % SLOT or n < 1 \
             or not 1 <= t_valid <= tp or keys0.shape[0] != 1:
         raise ValueError(
             f"decode_tail kernel: unsupported C={c}, internal {internal}, heads {n_heads} "
             f"(head width {internal // n_heads}), Tp={tp}, t_valid {t_valid}, M={m}, N={n}, "
-            f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp in "
-            f"{SLOTS} (at most {SLOTS[-1]} tokens), 1 <= t_valid <= Tp, M 4, N >= 1, "
-            "one shared image)")
+            f"keys batch {keys0.shape[0]} (needs C 256, 8 heads of 16 (internal 128), Tp a "
+            f"multiple of {SLOT}, 1 <= t_valid <= Tp, M 4, N >= 1, one shared image)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys0.device
     ops = _operands(t, tpe, keys0, key_pe, W)
     shapes = _shapes(b, n, tp)
@@ -264,7 +262,9 @@ def decode_tail(t, tpe, keys0, key_pe, W, n_heads: int, t_valid: int,
             torch.empty((b, tp, C), dtype=bf, device=dev),             # token state
             torch.empty((b, tp, I), dtype=bf, device=dev),             # t2i queries
             torch.empty((b, 2, tp, I), dtype=bf, device=dev),          # i2t1 token k, v
-            torch.empty((b, M, C // 8), dtype=bf, device=dev)]         # hypernetwork out
+            torch.empty((b, M, C // 8), dtype=bf, device=dev),         # hypernetwork out
+            # block 1's self-attention k, v (read past 64 slots only)
+            torch.empty((b, 2, tp, C) if tp > 64 else (0,), dtype=bf, device=dev)]
     ptrs = [x.data_ptr() for _, x in ops] + [tok.data_ptr(), masks.data_ptr()] \
         + [x.data_ptr() for x in work]
     array = (ctypes.c_void_p * len(ptrs))(*ptrs)

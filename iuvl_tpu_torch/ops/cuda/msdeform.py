@@ -7,6 +7,12 @@ gather ``_flat_gather_rows(_wide_map(v)[i], base + idx)`` and the dv4
 scatter with its inverse-roll fold. Kernels: ``csrc/msdeform.cu``, whose
 header says what bounds them on the card.
 
+The scatter sums each cell's rows in a fixed order (no atomics): the rows
+bucketed by (head, top-left cell), stably, each bucket summed in row order,
+a bucket of more than :data:`SCATTER_CHUNK` rows in pieces cut where the
+sorted order's ``SCATTER_CHUNK``-row pieces begin, the pieces' sums added
+in order, then JAX's fold. Its plain version sums in that same order.
+
 Layouts are JAX's: a level's values ``(B, nh, hw, d)``, the pixel
 coordinates ``x``, ``y`` and attention weights ``(B, nh, Lq, P)`` fp32, the
 top-left indices ``idx`` of one image ``(nh, Lq, P)`` int32 (without the head
@@ -23,6 +29,10 @@ import torch
 from .build import launch, require
 
 VALUE_DTYPES = (torch.bfloat16, torch.float32)
+# The scatter kernel's rows a sort block, most bits a radix pass, and rows
+# a piece of a long bucket (csrc/msdeform.cu kSortTile, kMaxDigitBits,
+# kChunk).
+SCATTER_TILE, SCATTER_DIGIT_BITS, SCATTER_CHUNK = 2048, 9, 256
 
 
 def tap_offsets(w: int) -> tuple[int, int, int, int]:
@@ -45,17 +55,60 @@ def deform_gather_rows_plain(v: torch.Tensor, idx: torch.Tensor, w: int) -> torc
     return torch.cat([table[rows] for rows in _tap_rows(idx, hw, w)], dim=-1)
 
 
+def scatter_plan(buckets: int) -> tuple[int, int]:
+    """The scatter kernel's radix sort of the keys head * hw + cell in
+    [0, buckets): (bits a pass, passes), passes of at most
+    SCATTER_DIGIT_BITS bits, as even as they come."""
+    bits = max(1, (buckets - 1).bit_length())
+    passes = -(-bits // SCATTER_DIGIT_BITS)
+    return -(-bits // passes), passes
+
+
+def scatter_buckets_plain(idx: torch.Tensor, hw: int):
+    """The scatter's buckets: the keys head * hw + top-left cell of the rows
+    (R,) (head-major, R = nh * Lq * P), the rows sorted stably by key (R,)
+    and each bucket's first position in that order (nh * hw + 1,), int64."""
+    nh = idx.shape[0]
+    keys = (torch.arange(nh, device=idx.device)[:, None] * hw
+            + idx.reshape(nh, -1).long()).reshape(-1)
+    start = torch.zeros(nh * hw + 1, dtype=torch.long, device=idx.device)
+    start[1:] = torch.cumsum(torch.bincount(keys, minlength=nh * hw), 0)
+    return keys, torch.argsort(keys, stable=True), start
+
+
+def _sums_in_order(rows: torch.Tensor, first: torch.Tensor, count: torch.Tensor,
+                   out: int) -> torch.Tensor:
+    """Each segment's rows summed in order in fp32: segment i is rows[first[i]
+    + k] for k < count[i], added k by k from zero -> (out, width)."""
+    sums = torch.zeros((out, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        act = torch.nonzero(count > k).squeeze(1)
+        sums[act] += rows[first[act] + k].float()
+    return sums
+
+
 def deform_scatter_dv_plain(contrib: torch.Tensor, idx: torch.Tensor, hw: int,
                             w: int) -> torch.Tensor:
     """One image's d_value: each slot plane of contrib (R, 4d) added at its
     tap rows, in fp32 -> (nh, hw, d): JAX's dv4 scatter and inverse-roll
-    fold."""
+    fold, each cell's sums in the kernel's order (the module's docstring)."""
     nh = idx.shape[0]
     d = contrib.shape[1] // 4
-    dv = torch.zeros((nh * hw, d), dtype=torch.float32, device=contrib.device)
-    for k, rows in enumerate(_tap_rows(idx, hw, w)):
-        dv.index_add_(0, rows, contrib[:, k * d:(k + 1) * d].float())
-    return dv.view(nh, hw, d)
+    keys, order, start = scatter_buckets_plain(idx, hw)
+    key_at = keys[order]
+    pos = torch.arange(order.numel(), device=idx.device)
+    long_bucket = (start[1:] - start[:-1])[key_at] > SCATTER_CHUNK
+    new = (pos == start[key_at]) | (long_bucket & (pos % SCATTER_CHUNK == 0))
+    first = pos[new]
+    count = torch.diff(first, append=first.new_tensor([order.numel()]))
+    pieces = _sums_in_order(contrib[order], first, count, first.numel())
+    per_bucket = torch.bincount(key_at[first], minlength=nh * hw)
+    s = _sums_in_order(pieces, torch.cumsum(per_bucket, 0) - per_bucket, per_bucket, nh * hw)
+    s = s.view(nh, hw, 4, d)
+    dv = s[:, :, 0]
+    for k, off in enumerate(tap_offsets(w)[1:], start=1):
+        dv = dv + torch.roll(s[:, :, k], off, dims=1)
+    return dv
 
 
 def ms_deform_level_fwd_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -131,9 +184,17 @@ def deform_scatter_dv(contrib: torch.Tensor, idx: torch.Tensor, hw: int, w: int)
     _check_values("deform_scatter_dv", "contrib", contrib, 256)
     require("deform_scatter_dv", "contrib", contrib, contrib.dtype, (nh * per_head, 256), dev)
     require("deform_scatter_dv", "idx", idx, torch.int32, (nh, *idx.shape[1:]), dev)
-    dv = torch.zeros((nh, hw, 64), dtype=torch.float32, device=dev)
-    launch("iuvl_deform_scatter", dev, contrib.data_ptr(), idx.data_ptr(), dv.data_ptr(), nh,
-           per_head, hw, w, int(contrib.dtype == torch.bfloat16))
+    rows = nh * per_head
+    digit_bits, passes = scatter_plan(nh * hw)
+    i32 = torch.int32
+    tiles = -(-rows // SCATTER_TILE)
+    ws = torch.empty(4 * rows + (tiles + 1) * (1 << digit_bits), dtype=i32, device=dev)
+    start = torch.empty(nh * hw + 1, dtype=i32, device=dev)
+    part = torch.empty(-(-rows // SCATTER_CHUNK) * 2 * 256, dtype=torch.float32, device=dev)
+    dv = torch.empty((nh, hw, 64), dtype=torch.float32, device=dev)
+    launch("iuvl_deform_scatter", dev, contrib.data_ptr(), idx.data_ptr(), dv.data_ptr(),
+           ws.data_ptr(), start.data_ptr(), part.data_ptr(), nh, per_head, hw, w, digit_bits,
+           passes, int(contrib.dtype == torch.bfloat16))
     deform_scatter_dv.launches += 1
     return dv
 

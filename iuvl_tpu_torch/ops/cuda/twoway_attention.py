@@ -24,7 +24,6 @@ from .build import launch, require
 
 C, I, HEADS = 256, 128, 8
 LN_EPS = 1e-5
-I2T_MAX_TOKENS = 64  # a prompt's tokens that B5's kernel holds in shared memory
 T2I_KEY_TILE = 64  # keys a tile of B4's kernel
 T2I_TOKEN_PASS = 64  # tokens a pass of B4's kernel (four 16-row tiles)
 
@@ -131,18 +130,18 @@ def i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads:
 def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
     """Image -> token block step (attention, out-projection, residual,
     LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
-    (bf16, C 256, I 128, 8 heads, 1 <= T <= 64, any N >= 1; LN params
-    fp32), the plain version for CPU tensors."""
+    (bf16, C 256, I 128, 8 heads, any T >= 1 (past 64 the kernel takes the
+    tokens in 64-row tiles) and N >= 1; LN params fp32), the plain version
+    for CPU tensors."""
     if keys.device.type == "cpu":
         return i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
     b, t, i = kp.shape
     bk_keys, n, c = keys.shape
-    if ((c, i, heads) != (C, I, HEADS) or not 1 <= t <= I2T_MAX_TOKENS or n < 1
-            or bk_keys not in (1, b)):
+    if (c, i, heads) != (C, I, HEADS) or t < 1 or n < 1 or bk_keys not in (1, b):
         raise ValueError(
             f"i2t_block_step kernel: unsupported C={c}, I={i}, heads={heads}, T={t}, N={n}, "
             f"keys batch {bk_keys} for {b} prompts (needs C 256, I 128, 8 heads, "
-            f"1 <= T <= {I2T_MAX_TOKENS}, N >= 1)")
+            "T >= 1, N >= 1)")
     bf, f32, dev = torch.bfloat16, torch.float32, keys.device
     args = dict(keys=keys, pe_wq=pe_wq, kp=kp, vp=vp, wq=wq, bq=bq, wo=wo, bo=bo,
                 ln_w=ln_w, ln_b=ln_b)

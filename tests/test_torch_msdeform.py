@@ -4,9 +4,12 @@ CPU, fp32, at small shapes (those of ``tests/test_ops_parity.py``):
 
 - ``ms_deform_attn_flat`` and :class:`FlatLevel`'s backward against
   ``_ms_deform_attn_flat`` and ``jax.vjp`` of ``_flat_level``, at batch 1
-  and 2, for locations inside the maps and in [-0.3, 1.3] (zero padding);
+  and 2, for locations inside the maps and in [-0.3, 1.3] (zero padding),
+  and at batch 2 with every point of a head within a 2 x 2 cell window
+  (buckets past the scatter's 256-row pieces);
 - the gather against ``_flat_gather_rows(_wide_map(v), base + idx)``, the
-  scatter (with its fold) against that gather's transpose (``jax.vjp``);
+  scatter (with its fold) against that gather's transpose (``jax.vjp``),
+  its buckets against numpy's stable argsort;
 - B8 (both entry points) against ``deform_bwd_glue_q`` and
   ``deform_bwd_glue`` run in interpret mode;
 - ``impl='auto'``: ``flat`` at batch 2, ``wide`` at batch 1.
@@ -39,19 +42,29 @@ def _close(port, ref, name=""):
 
 
 def _inputs(rs, b, lo, hi, lq=7, nh=4, d=16, p=4):
+    """Values, locations in [lo, hi) and softmaxed weights; lo None: each
+    head's points of a level within a 2 x 2 cell window (pixel x, y in
+    [c, c + 2) from a corner cell c)."""
     s = sum(h * w for h, w in SHAPES)
     value = rs.randn(b, s, nh, d).astype(np.float32)
-    loc = rs.uniform(lo, hi, size=(b, lq, nh, len(SHAPES), p, 2)).astype(np.float32)
+    if lo is None:
+        size = np.array([[w, h] for h, w in SHAPES], np.float32)  # (L, 2): x, y
+        corner = np.floor(rs.uniform(0, (size - 1)[:, None], size=(1, 1, nh, len(SHAPES), 1, 2)))
+        pix = corner + 2 * rs.rand(b, lq, nh, len(SHAPES), p, 2)
+        loc = ((pix + 0.5) / size[:, None, :]).astype(np.float32)
+    else:
+        loc = rs.uniform(lo, hi, size=(b, lq, nh, len(SHAPES), p, 2)).astype(np.float32)
     w = rs.rand(b, lq, nh, len(SHAPES), p).astype(np.float32)
     w /= w.reshape(b, lq, nh, -1).sum(-1)[..., None, None]
     return value, loc, w
 
 
-@pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("lo, hi", [(0.05, 0.95), (-0.3, 1.3)])
-def test_flat_core_and_vjp_match_jax(b, lo, hi):
+@pytest.mark.parametrize("b, lo, hi, lq", [
+    pytest.param(b, lo, hi, 7, id=f"{lo}-{hi}-{b}") for lo, hi in ((0.05, 0.95), (-0.3, 1.3))
+    for b in (1, 2)] + [pytest.param(2, None, None, 300, id="clustered-2")])
+def test_flat_core_and_vjp_match_jax(b, lo, hi, lq):
     rs = np.random.RandomState(21 + b)
-    value, loc, w = _inputs(rs, b, lo, hi)
+    value, loc, w = _inputs(rs, b, lo, hi, lq)
     g = rs.randn(b, loc.shape[1], value.shape[2] * value.shape[3]).astype(np.float32)
 
     def core(v, l, a):
@@ -120,6 +133,31 @@ def test_scatter_matches_the_transpose_of_the_gather():
     got = tkm.deform_scatter_dv(torch.from_numpy(contrib), idx, hw, w)
     assert got.dtype == torch.float32 and got.shape == v.shape
     _close(got, vjp(jnp.asarray(contrib))[0], "d_value")
+
+
+def test_scatter_buckets_are_numpy_stable_argsort_order():
+    """The scatter's buckets: rows sorted by (head, top-left cell), each
+    bucket's rows in row order (numpy's stable argsort), its start the
+    count of smaller keys; with crowded cells, 300 rows one cell."""
+    rs = np.random.RandomState(6)
+    nh, hw = 3, 20
+    idx = rs.randint(0, hw, (nh, 100, 4))
+    idx[1, :75] = 7
+    keys, order, start = tkm.scatter_buckets_plain(torch.from_numpy(idx).int(), hw)
+    want_keys = (np.arange(nh)[:, None] * hw + idx.reshape(nh, -1)).reshape(-1)
+    np.testing.assert_array_equal(keys.numpy(), want_keys)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(want_keys, kind="stable"))
+    np.testing.assert_array_equal(start.numpy(), np.searchsorted(np.sort(want_keys),
+                                                                 np.arange(nh * hw + 1)))
+    assert int((start[1:] - start[:-1]).max()) > tkm.SCATTER_CHUNK
+
+
+def test_scatter_plan_covers_the_keys():
+    for buckets, want in ((8 * 128 * 128, (9, 2)), (8 * 64 * 64, (8, 2)), (8 * 32 * 32, (7, 2)),
+                          (1, (1, 1)), (512, (9, 1)), (513, (5, 2))):
+        bits, passes = tkm.scatter_plan(buckets)
+        assert (bits, passes) == want and bits <= tkm.SCATTER_DIGIT_BITS
+        assert (buckets - 1) >> (bits * passes) == 0
 
 
 def test_bwd_glue_matches_jax_kernels():

@@ -7,7 +7,11 @@ package:
   whole-chunk decode (``'chunk_plain'``: 32 token slots, 26 valid), against
   JAX's ``'off'`` and ``'chunk_xla'`` on bridged weights (1e-4; 3e-4 for
   the chunk oracle, as tests/test_torch_decode_chunk.py).
-- C3: the chunk decode of 40- and 58-point prompts (48 and 64 slots).
+- C3: the chunk decode of 40- and 58-point prompts (48 and 64 slots); C8:
+  of 60- and 80-point prompts (66 and 86 tokens in 80 and 96 slots, past
+  the 64 that B5 and B16 once took), and the per-op decode (``'auto'``,
+  whose wrappers run their plain versions here) of the same prompts
+  against JAX's ``'off'``.
 - C2: the port's copy of ``rowbias_supported`` equals JAX's, and the global
   block's serving route follows it (B2 where it holds, B11's forward on the
   augmented q, k otherwise), both computing the plain function.
@@ -55,15 +59,22 @@ def test_decode_of_20_point_prompts_matches_jax(params, port_impl, jax_impl, ato
     _decode_matches_jax(params, port_impl, jax_impl, atol, POINTS)
 
 
-@pytest.mark.parametrize("points", [40, 58])
+@pytest.mark.parametrize("points", [40, 58, 60, 80])
 def test_chunk_decode_of_40_and_58_point_prompts_matches_jax(params, points):
-    """C3: prompts of 40 and 58 points (46 and 64 tokens) pad to 48 and 64
-    slots, the slot counts B16 now takes (its largest: 64); the chunk
-    decode against JAX's ``'chunk_xla'``."""
-    from iuvl_tpu_torch.ops.cuda.decode_chunk import SLOTS
+    """C3 and C8: prompts of 40, 58, 60 and 80 points (46, 64, 66 and 86
+    tokens) pad to 48, 64, 80 and 96 slots, each a count B16 takes (any
+    multiple of 16); the chunk decode against JAX's ``'chunk_xla'``."""
+    from iuvl_tpu_torch.ops.cuda.decode_chunk import SLOT
 
-    assert -(-(points + 6) // 16) * 16 in SLOTS and SLOTS[-1] == 64
+    assert SLOT == 16 and -(-(points + 6) // SLOT) * SLOT == {40: 48, 58: 64, 60: 80, 80: 96}[points]
     _decode_matches_jax(params, "chunk_plain", "chunk_xla", 3e-4, points)
+
+
+@pytest.mark.parametrize("points", [60, 80])
+def test_auto_decode_of_60_and_80_point_prompts_matches_jax(params, points):
+    """C8: the per-op decode of prompts past 64 tokens (66 and 86), whose
+    B5 now takes any token count, against JAX's ``'off'``."""
+    _decode_matches_jax(params, "auto", "off", 1e-4, points)
 
 
 def _decode_matches_jax(params, port_impl, jax_impl, atol, n_points):

@@ -30,10 +30,11 @@ process, one mode a kernel (``--kernels``, any of them in one run):
 - ``i2t``: B5 (``twoway_attention.cu`` ``iuvl_i2t_block_step``) on a
   256-prompt chunk over N 4096 image tokens: per-prompt keys at T 7 (the
   kernel phase's case), batch-1 keys at T 7 (the decoder's block 0),
-  per-prompt keys at T 26 (a 20-click prompt) and T 64, then N 2500 (which
-  the parent refuses): rel L2 of the output to the plain version, two
-  launches bit-equal, times in turns, the plain version, and the bound
-  (the bytes the function must move).
+  per-prompt keys at T 26 (a 20-click prompt) and T 64, N 2500, then T 80
+  with per-prompt and batch-1 keys (C8, which the parent refuses): rel L2
+  of the output to the plain version, two launches bit-equal, the
+  parent's bits up to T 64, times in turns, the plain version, and the
+  bound (the bytes the function must move).
 - ``t2i``: B4 (``twoway_attention.cu`` ``iuvl_t2i_stream``) on a
   256-prompt chunk over N 4096: per-prompt keys at T 7 (the kernel phase's
   case), batch-1 keys at T 7 (block 0), per-prompt keys at T 26 and T 64,
@@ -59,10 +60,11 @@ process, one mode a kernel (``--kernels``, any of them in one run):
 - ``decode_tail``: B16 (``decode_chunk.cu`` ``iuvl_decode_tail``), the
   whole-chunk decode tail, on 256 prompts over N 4096 at 16 slots (7
   tokens), 48 (40) and 64 (56), an interactive round (8 prompts, 26 tokens
-  in 32 slots), and N 2500 (ViT-B 800^2, which the parent refuses): rel L2
-  of the tokens and the masks to the plain version, two launches
-  bit-equal, times in turns, the plain version, the bound (operations) and
-  each kernel's device time.
+  in 32 slots), N 2500 (ViT-B 800^2), then past 64 slots (C8, which the
+  parent refuses): 256 and 8 prompts at 96 (86 tokens), 64 at 80 (66): rel
+  L2 of the tokens and the masks to the plain version, two launches
+  bit-equal, the parent's bits up to 64 slots, times in turns, the plain
+  version, the bound (operations) and each kernel's device time.
 - ``window_block_bwd``: B9 (``window_block_bwd.cu``
   ``iuvl_window_block_bwd``), the windowed block's backward, at B1's
   shapes: rel L2 of each of its seven outputs to the plain version,
@@ -72,6 +74,17 @@ process, one mode a kernel (``--kernels``, any of them in one run):
 - ``block_tail_bwd``: B10 (``mlp_block_bwd.cu`` ``iuvl_block_tail_bwd``),
   the block tail's backward, at B3's shapes: the readings of
   ``window_block_bwd``.
+- ``msdeform_fwd``: B7's forward (``msdeform.cu`` ``iuvl_msdeform_fwd``)
+  at the batch-2 step's three levels (128^2, 64^2, 32^2; 8 heads of 64,
+  21,504 queries x 4 points near their reference points), a skewed input
+  (every point of a head within a 2 x 2 cell window) and P 3: rel L2 to
+  the plain version, two launches bit-equal, the parent's bits, times in
+  turns, the plain version, the bound (bytes), each tree's device time.
+- ``deform_scatter``: B7's d_value scatter (``iuvl_deform_scatter``) of
+  one image at the same shapes, the whole wrapper of each tree (the
+  parent's zero-fill and atomics): the same readings (the parent's two
+  launches differ), ``index_add_`` on the wide map's rows, the buckets'
+  mean and longest row counts, and this tree's device time by launch.
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -141,19 +154,23 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                "iuvl_window_block": [P] * 10 + [I] * 4 + [P],
                "iuvl_rowbias_proj": [P] * 10 + [I] * 6 + [P],
                "iuvl_block_tail": [P] * 11 + [I, I, I, F, P],
-               # the parent's B16 (its operand list with the qp0 table, six
-               # workspaces).
-               "iuvl_decode_tail": [P] + [I] * 5 + [P],
+               # the parent's B16 (eight workspaces, Tp <= 64).
+               "iuvl_decode_tail": [P] + [I] * 6 + [P],
                # the parent's B9 and B10 (a wmma GEMM, fp32 scratch).
                "iuvl_window_block_bwd": [P] * 21 + [I] * 4 + [P],
-               "iuvl_block_tail_bwd": [P] * 21 + [I, I, I, F, P]}
+               "iuvl_block_tail_bwd": [P] * 21 + [I, I, I, F, P],
+               # the parent's B7 forward and its scatter (fp32 atomics into a
+               # map its wrapper zeroes).
+               "iuvl_msdeform_fwd": [P] * 5 + [I] * 7 + [P],
+               "iuvl_deform_scatter": [P] * 3 + [I] * 5 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
           "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
           "upscale": "mask_upscale.cu", "window_block": "window_block.cu",
           "rowbias_proj": "flash_attention.cu", "block_tail": "mlp_block.cu",
           "decode_tail": "decode_chunk.cu", "window_block_bwd": "window_block_bwd.cu",
-          "block_tail_bwd": "mlp_block_bwd.cu"}
+          "block_tail_bwd": "mlp_block_bwd.cu", "msdeform_fwd": "msdeform.cu",
+          "deform_scatter": "msdeform.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
            "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
@@ -161,14 +178,16 @@ ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "window_block": ("iuvl_window_block",), "rowbias_proj": ("iuvl_rowbias_proj",),
            "block_tail": ("iuvl_block_tail",), "decode_tail": ("iuvl_decode_tail",),
            "window_block_bwd": ("iuvl_window_block_bwd",),
-           "block_tail_bwd": ("iuvl_block_tail_bwd",)}
+           "block_tail_bwd": ("iuvl_block_tail_bwd",), "msdeform_fwd": ("iuvl_msdeform_fwd",),
+           "deform_scatter": ("iuvl_deform_scatter",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
            "seg_scatter", "seg_pass", "i2t_", "tap_scatter", "t2i_", "masks_upscale",
            "window_block", "wb_", "rowbias_proj", "linear_", "block_tail", "tail_ln",
            "tok_", "row_pass", "upscale_kernel", "gemm_f32", "colsum", "sum_parts",
-           "round_bias", "window_attn_bwd", "wbb_", "splitk", "tail_")
+           "round_bias", "window_attn_bwd", "wbb_", "splitk", "tail_", "level_fwd",
+           "scatter_kernel", "dv_")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -597,7 +616,8 @@ def seg_ab(parent_tree: Path, work: Path, bad: list) -> None:
 # B5's shapes: (tag, keys batch 1, tokens, N) for a 256-prompt chunk; N
 # 2500 (ViT-B at 800^2) is C5's, which the parent refuses.
 I2T_SHAPES = (("kernel_t7", False, 7, 4096), ("batch1_t7", True, 7, 4096),
-              ("t26", False, 26, 4096), ("t64", False, 64, 4096), ("n2500", False, 7, 2500))
+              ("t26", False, 26, 4096), ("t64", False, 64, 4096), ("n2500", False, 7, 2500),
+              ("t80", False, 80, 4096), ("batch1_t80", True, 80, 4096))
 I2T_PROMPTS = 256
 
 
@@ -668,9 +688,13 @@ def i2t_ab(parent_tree: Path, work: Path, bad: list) -> None:
         out_bytes = b * n * c * 2
         bound = bound_of(args, 0)
         bound = (bound[0] + out_bytes / 3.35e12 * 1e3, "bytes")
-        ab_report(f"i2t@{tag} (B {b}, keys batch {args[0].shape[0]}, N {n}, T {tok})",
-                  lambda: ta.i2t_block_step(*args, ta.HEADS), parent if n % 32 == 0 else None,
+        label = f"i2t@{tag} (B {b}, keys batch {args[0].shape[0]}, N {n}, T {tok})"
+        new = lambda: ta.i2t_block_step(*args, ta.HEADS)  # noqa: E731
+        # The parent takes T <= 64 (C8); there it must give the same bits.
+        ab_report(label, new, parent if tok <= 64 else None,
                   lambda: ta.i2t_block_step_plain(*args, ta.HEADS), bound, bad, 2e-4, work)
+        if tok <= 64 and not torch.equal(new(), parent()):
+            bad.append(f"{label}: not the parent's bits")
         del args
         torch.cuda.empty_cache()
 
@@ -917,7 +941,8 @@ def block_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
 # B16's shapes: (tag, prompts, slots, tokens, N).
 DECODE_TAIL_SHAPES = (("tp16", 256, 16, 7, 4096), ("tp48", 256, 48, 40, 4096),
                       ("tp64", 256, 64, 56, 4096), ("round8_tp32", 8, 32, 26, 4096),
-                      ("n2500", 256, 16, 7, 2500))
+                      ("n2500", 256, 16, 7, 2500), ("tp96", 256, 96, 86, 4096),
+                      ("round8_tp96", 8, 96, 86, 4096), ("tp80", 64, 80, 66, 4096))
 
 
 def decode_tail_args(b: int, tp: int, tv: int, n: int, seed: int = 0):
@@ -947,37 +972,25 @@ def decode_tail_args(b: int, tp: int, tv: int, n: int, seed: int = 0):
 
 
 def parent_decode_call(lib, args):
-    """The parent's B16 entry: its operand list (the qp0 table) and its six
-    workspaces (keys, 8 softmax partials, token state, queries, k / v,
-    hyper)."""
+    """The parent's B16 entry, from before Tp > 64: this tree's operand
+    list (its precomputes made in the call, as the wrapper makes them), the
+    tokens, the masks and eight workspaces (no self-attention k / v), B4's
+    split count; Tp 16, 32, 48 or 64."""
     tk, tpe, keys0, key_pe, w, _, tv = args
     b, tp, c = tk.shape
     n = keys0.shape[1]
-    pe = key_pe[0]
-    w0, wi, w1, wf = w["i2t0"], w["i2t1"], w["t2i1"], w["final"]
-    kbd0, vbd0 = dc._i2t0_token_kv(tk, tpe, w["i2t0_kv"])
-    ops = [tk, tpe, keys0, dc._proj(keys0[0], w0["qw"], w0["qb"], pe @ w0["qw"].t()),
-           pe @ wi["qw"].t(), pe @ w1["kw"].t(), pe @ wf["kw"].t(), kbd0, vbd0, w0["ow"],
-           w0["ob"]]
-    for site in dc.ATTN_SITES:
-        ops += [w[site][k] for k in ("qw", "qb", "kw", "kb", "vw", "vb", "ow", "ob")]
-    ops += list(w["mlp1"]) + [x for nm in dc.NORMS for x in w[nm]]
-    ops += [x for layer in w["hyper"] for x in layer] + list(w["up"])
-    ops = [x.contiguous() for x in ops]
+    _, splits = ta.t2i_plan(b, n, tp, b, torch.cuda.get_device_properties(0).multi_processor_count)
     bf, f32 = torch.bfloat16, torch.float32
 
     def call():
-        tok = torch.empty((b, tp, c), dtype=bf, device="cuda")
-        masks = torch.empty((b, n, 16 * dc.M), dtype=f32, device="cuda")
-        ws = [torch.empty((b, n, c), dtype=bf, device="cuda"),
-              torch.empty((b, 8, dc.HEADS, tp, 18), dtype=f32, device="cuda"),
-              torch.empty((b, tp, c), dtype=bf, device="cuda"),
-              torch.empty((b, tp, dc.I), dtype=bf, device="cuda"),
-              torch.empty((b, 2, tp, dc.I), dtype=bf, device="cuda"),
-              torch.empty((b, dc.M, c // 8), dtype=bf, device="cuda")]
+        ops = [x for _, x in dc._operands(tk, tpe, keys0, key_pe, w)]
+        e = lambda *shape, dtype=bf: torch.empty(shape, dtype=dtype, device="cuda")  # noqa
+        tok, masks = e(b, tp, c), e(b, n, 16 * dc.M, dtype=f32)
+        ws = [e(b, n, c), e(b, n, c), e(b * splits * tp * (dc.I + 2 * dc.HEADS), dtype=f32),
+              e(b, tp, dc.I), e(b, tp, c), e(b, tp, dc.I), e(b, 2, tp, dc.I), e(b, dc.M, c // 8)]
         ptrs = ptr(*ops, tok, masks, *ws)
         array = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        assert lib.iuvl_decode_tail(ctypes.addressof(array), len(ptrs), b, n, tp, tv,
+        assert lib.iuvl_decode_tail(ctypes.addressof(array), len(ptrs), b, n, tp, tv, splits,
                                     stream()) == 0
         return tok, masks
     return call
@@ -1002,12 +1015,16 @@ def decode_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
         errs = [rel(x[:, :tv] if j == 0 else x, y[:, :tv] if j == 0 else y)
                 for j, (x, y) in enumerate(zip(got, want))]
         same = all(torch.equal(x, y) for x, y in zip(got, again))
-        parent = parent_decode_call(lib, args) if n % 256 == 0 else None
+        parent = parent_decode_call(lib, args) if tp <= 64 else None
         e_par = "refused"
-        if parent:
+        if parent:  # the parent takes Tp <= 64 (C8); there it must give the same bits
             par = parent()
             e_par = ", ".join(f"{rel(x[:, :tv] if j == 0 else x, y[:, :tv] if j == 0 else y):.3e}"
                               for j, (x, y) in enumerate(zip(par, want)))
+            same_par = all(torch.equal(x, y) for x, y in zip(par, got))
+            e_par += f"; bit-equal to this tree's {same_par}"
+            if not same_par:
+                bad.append(f"{label}: not the parent's bits")
             del par
         if not (errs[0] <= 3.5e-3 and errs[1] <= 1.2e-2) or not same:
             bad.append(f"{label} rel_l2 tokens, masks {errs}, bit-equal {same}")
@@ -1167,11 +1184,120 @@ def block_tail_bwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
         torch.cuda.empty_cache()
 
 
+# B7's levels of the batch-2 train step: (tag, side, skewed). The skewed
+# case puts every point of a head within a 2 x 2 cell window of the 128^2
+# level: four buckets of ~21,500 rows a head.
+DEFORM_SHAPES = (("res3", 128, False), ("res4", 64, False), ("res5", 32, False),
+                 ("skewed", 128, True))
+
+
+def deform_level(side: int, skewed: bool):
+    """B7's inputs at one level of the batch-2 train step: 8 heads of 64,
+    the 21,504 queries of the three levels x 4 points sampling within a few
+    pixels of their reference points (chip_smoke.py's res3 case), or every
+    point of a head within a 2 x 2 cell window. Returns v (2, 8, side^2,
+    64) bf16, x, y, aw (2, 8, Lq, 4) fp32."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+
+    b, nh, pts, dev = 2, 8, 4, "cuda"
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]
+    lq = ref.shape[0]
+    if skewed:
+        corner = torch.randint(0, side - 1, (1, nh, 1, 1, 2), device=dev, generator=GEN)
+        xy = corner + 2 * torch.rand(b, nh, lq, pts, 2, device=dev, generator=GEN)
+    else:
+        xy = ref[None, None, :, None, :] * side - 0.5 + 2.5 * torch.randn(
+            b, nh, lq, pts, 2, device=dev, generator=GEN)
+    aw = torch.rand(b, nh, lq, pts, device=dev, generator=GEN) / 12
+    return (t(b, nh, side * side, 64), xy[..., 0].contiguous(), xy[..., 1].contiguous(), aw)
+
+
+def msdeform_fwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B7's forward (``msdeform.cu`` ``iuvl_msdeform_fwd``) at DEFORM_SHAPES,
+    and at res3 with 3 points (the generic-P path): rel L2 to the plain
+    version (chip_smoke.py's bound, 5e-7), two launches bit-equal, bit-equal
+    to the parent, times in turns, the plain version, the bound (bytes) and
+    each tree's device time by launch."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+
+    lib = compile_source(parent_tree, work, "msdeform_fwd")
+    for tag, side, skewed in DEFORM_SHAPES + (("res3_p3", 128, False),):
+        v, x, y, aw = deform_level(side, skewed)
+        if tag.endswith("_p3"):
+            x, y, aw = (a[..., :3].contiguous() for a in (x, y, aw))
+        b, nh, hw, d = v.shape
+        lq, p = x.shape[2:]
+        out = torch.empty((b, nh, lq, d), dtype=torch.float32, device="cuda")
+
+        def parent():
+            o = torch.empty_like(out)
+            assert lib.iuvl_msdeform_fwd(*ptr(v, x, y, aw, o), b, nh, lq, p, side, side, 1,
+                                         stream()) == 0
+            return o
+
+        label = f"msdeform_fwd@{tag} (B {b}, heads {nh}, {side}^2, Lq {lq}, P {p})"
+        ab_report(label, lambda: md.ms_deform_level_fwd(v, x, y, aw, side, side), parent,
+                  lambda: md.ms_deform_level_fwd_plain(v, x, y, aw, side, side),
+                  bound_of((v, x, y, aw, out), 0), bad, 5e-7, work)
+        got, par = md.ms_deform_level_fwd(v, x, y, aw, side, side), parent()
+        if not torch.equal(got, par):
+            bad.append(f"{label}: not the parent's bits")
+        del v, x, y, aw, out, got, par
+        torch.cuda.empty_cache()
+
+
+def deform_scatter_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B7's d_value scatter (``msdeform.cu`` ``iuvl_deform_scatter``) of
+    image 0 at DEFORM_SHAPES (bf16 contrib rows, a random cotangent), the
+    whole wrapper of each tree (the parent's zero-fill included): rel L2 to
+    the plain version (chip_smoke.py's bound, 5e-8), two launches bit-equal
+    (the parent's atomics are not), times in turns, ``index_add_`` on the
+    wide map's rows, the bound (bytes), the bucket lengths, and each tree's
+    device time by launch."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+
+    lib = compile_source(parent_tree, work, "deform_scatter")
+    for tag, side, skewed in DEFORM_SHAPES:
+        _, x, y, _ = deform_level(side, skewed)
+        idx, _ = wide_idx_wslot(side, side, x[0], y[0])
+        nh, lq, p = idx.shape
+        hw, rows = side * side, idx.numel()
+        contrib = t(rows, 256)
+
+        def parent():
+            dv = torch.zeros((nh, hw, 64), dtype=torch.float32, device="cuda")
+            assert lib.iuvl_deform_scatter(*ptr(contrib, idx, dv), nh, lq * p, hw, side, 1,
+                                           stream()) == 0
+            return dv
+
+        keys = (torch.arange(nh, device="cuda")[:, None] * hw + idx.view(nh, -1)).view(-1)
+        lens = torch.bincount(keys, minlength=nh * hw)
+        flat = (torch.arange(nh, device="cuda").view(nh, 1, 1) * hw + idx.long()).view(-1)
+        wide = contrib.float()
+        lib_call = lambda: torch.zeros((nh * hw, 256), device="cuda").index_add_(  # noqa: E731
+            0, flat, wide)
+        label = (f"deform_scatter@{tag} ({rows} rows into heads {nh} x {side}^2; bucket rows "
+                 f"mean {rows / (nh * hw):.1f}, max {int(lens.max())}, "
+                 f"{int((lens > 256).sum())} over 256)")
+        ab_report(label, lambda: md.deform_scatter_dv(contrib, idx, hw, side), parent,
+                  lambda: md.deform_scatter_dv_plain(contrib, idx, hw, side),
+                  bound_of((contrib, idx, torch.empty((nh, hw, 64), device="cuda")), 0), bad,
+                  5e-8, work)
+        print(f"{label}: index_add_ on the wide map's rows {ms(lib_call):.4f} ms", flush=True)
+        print(f"{label} launches, this tree: "
+              f"{launch_split(lambda: md.deform_scatter_dv(contrib, idx, hw, side), work)}",
+              flush=True)
+        del x, y, idx, contrib, wide, keys, lens, flat
+        torch.cuda.empty_cache()
+
+
 MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t": i2t_ab,
          "tap_scatter": tap_ab, "t2i": t2i_ab, "upscale": upscale_ab,
          "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab,
          "block_tail": block_tail_ab, "decode_tail": decode_tail_ab,
-         "window_block_bwd": window_block_bwd_ab, "block_tail_bwd": block_tail_bwd_ab}
+         "window_block_bwd": window_block_bwd_ab, "block_tail_bwd": block_tail_bwd_ab,
+         "msdeform_fwd": msdeform_fwd_ab, "deform_scatter": deform_scatter_ab}
 
 
 def main() -> int:
