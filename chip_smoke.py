@@ -12,7 +12,9 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the path that runs it (ViT-B, 1024^2, bf16; the deformable core B7 and
    its backward glue B8 at the res3 level of the batch-2 train step; the
-   one-hot level B15 at the res5 level of the hybrid eval; the whole-chunk
+   one-hot level B15 at the res5 level of the hybrid eval; all six
+   deformable entries also at head widths 32 and 128, and B15 also on a
+   16^2 and a 50^2 table (its L2 instance) and in fp32; the whole-chunk
    decode tail B16 at a 256-prompt chunk, its tokens on the 7 valid
    slots, and again at 48 and 64 slots, at N 2500 and at an interactive
    round (8 prompts, 26 tokens in 32 slots); B3 also at ViT-H, T 2500 and
@@ -43,8 +45,9 @@ Phases (any failure raises, so the exit code is non-zero):
    B10 weight gradient's split-K sum that misses its last split, an
    MN-major GEMM operand read one 8-row group off):
    each must move some output by more than its bound, and each output's
-   bound must catch some fault. B8's two entry points must agree exactly;
-   two launches of B1-B6, B9, B10, B16, the B2b / B14 / B11 forward and backward and of B17 on
+   bound must catch some fault. B8's two entry points must agree exactly at
+   every shape; two launches of B1-B10, B15, B16, the B2b / B14 / B11
+   forward and backward and of B17 on
    the same inputs must give the same bits, and B14's expander group words must equal
    their plain version's. Times from CUDA events after a warm-up (20 calls at the
    global shapes of B2b, B14 and B13); for B11 (SDPA forward, and forward
@@ -131,7 +134,12 @@ Phases (any failure raises, so the exit code is non-zero):
    SimpleFPN times, peak memory. Then each kernel path runs the seg eval
    pipeline (semantic, panoptic and instance heads into the mIoU, PQ and
    AP evaluators) over the images, its launches counted, the host times of
-   the post-processing and the metrics printed.
+   the post-processing and the metrics printed. Then C9_CONFIG (the same
+   SysLearner at SYSLEARNER_DIM 256: heads of 32 in the deformable core):
+   one image through evaluate_seg on the 'hybrid' kernels, plain bf16
+   'hybrid' and plain fp32, the kernel path held to the same gate, and one
+   batch-2 'auto' train step through the kernels (B7 and B8), each with
+   the launches of head width 64 and finite outputs and gradients.
 7. interactive: the full-width SysLearner (bf16, seeded weights), one
    seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
    clicks at their conv-dt argmax; ``encode_interactive`` once, then the
@@ -329,7 +337,8 @@ DETERMINISTIC = ("flash_rowbias_fwd", "flash_relpos_fwd", "flash_rowbias_bwd",
                  "segmented_scatter_add", "i2t_block_step", "tap_scatter", "t2i_stream",
                  "masks_upscale", "window_attention_block", "flash_attention_rowbias_proj",
                  "block_tail", "decode_tail", "window_block_backward", "block_tail_backward",
-                 "ms_deform_level_fwd", "deform_scatter_dv")
+                 "ms_deform_level_fwd", "deform_scatter_dv", "deform_gather_rows",
+                 "deform_bwd_glue_q", "deform_bwd_glue", "onehot_deform_level_forward")
 
 
 def relpos_fwd_plain(q, k, v, relh, relw, eh, ew):
@@ -1130,7 +1139,7 @@ def kernel_cases(rs: np.random.RandomState, dev):
         # tokens) in 48 and 64 slots, 8 of them pad slots.
         (f"decode_tail@tp{tp}", decode_tail_case(rs, dev, tp, tp - 8), DECODE_TAIL_FAULTS, 3)
         for tp in (48, 64)] + rowbias_general_cases(dev) + flash_train_cases(t, flash_train, dev) \
-        + c8_b7_cases(i2t, dev)
+        + c8_b7_cases(i2t, dev) + c9_cases(dev)
 
 
 def _bucket_last_row_dropped(a):
@@ -1208,6 +1217,78 @@ def c8_b7_cases(i2t, dev):
     corner = torch.from_numpy(rs.randint(0, side - 1, (1, nh, 1, 1, 2)).astype(np.float32))
     xy = (corner + 2 * torch.from_numpy(rs.rand(1, nh, lq, pts, 2).astype(np.float32))).to(dev)
     cases.append(("deform_scatter_dv@skewed", scatter_case(side, xy), scatter_faults(), 10))
+    return cases
+
+
+def c9_cases(dev):
+    """C9: the deformable kernels at head widths 32 and 128 (SysLearner
+    widths 256 and 1024 over 8 heads): B7's forward, gather and scatter and
+    B8 (both entries) at the res3 level of the batch-2 step (8 heads, the
+    21,504 queries x 4 points near their reference points, image 0 for the
+    per-image kernels), B15 at the hybrid eval's res5 level; B15 also at d
+    64 on a 16^2 and a 50^2 table (2,500 cells: past the shared memory, the
+    L2 instance) and in fp32. Each with its d-64 planted faults. Their own
+    draws."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot, wide_map
+
+    rs = np.random.RandomState(SEED + 17)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+
+    nh, pts = 8, 4
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]
+    lq = ref.shape[0]
+
+    def near(b, side):
+        xy = ref[None, None, :, None, :] * side - 0.5 + torch.from_numpy(
+            rs.randn(b, nh, lq, pts, 2).astype(np.float32) * 2.5).to(dev)
+        aw = torch.from_numpy(rs.rand(b, nh, lq, pts).astype(np.float32) / 12).to(dev)
+        return xy[..., 0].contiguous(), xy[..., 1].contiguous(), aw
+
+    def onehot_case(side, d, dtype=torch.bfloat16):
+        x, y, aw = near(1, side)
+        idx, wslot = wide_idx_wslot(side, side, x[0], y[0])
+        v = t(1, nh, side * side, d, dtype=dtype)
+        args = (wide_map(v, side).reshape(nh, side * side, 4 * d), idx.contiguous(),
+                (wslot * aw[0][..., None]).transpose(-1, -2).contiguous(), pts)
+        faults = {"slot s read from slot s+1's columns":
+                  lambda a: (torch.roll(a[0], -d, dims=-1),) + a[1:],
+                  "the last point dropped": _drop_last_point,
+                  "idx one cell off": _shift(1, 1, side * side - 1)}
+        if dtype == torch.bfloat16:  # in fp32 the rounding is the identity
+            faults["weights rounded per point, not per cell"] = _planted(_onehot_per_point)
+        return args, faults
+
+    cases = []
+    side = 128
+    for d in (32, 128):
+        x, y, aw = near(2, side)
+        v = t(2, nh, side * side, d)
+        idx, wslot = wide_idx_wslot(side, side, x[0], y[0])
+        gather = (v[0], idx, side)
+        glue = (md.deform_gather_rows_plain(*gather), t(nh * lq, d, dtype=torch.float32),
+                (wslot * aw[0][..., None]).reshape(-1, 4).contiguous(), pts)
+        glue_faults = {"dots slots 0/1 swapped": _out_cols_swapped(dg.deform_bwd_glue_plain, 1),
+                       "contrib to the wrong slot (wa slots 0/1 swapped)": _swap(2, 1, 1)}
+        cases += [
+            (f"ms_deform_level_fwd@d{d}", (v, x, y, aw, side, side),
+             {"slot 2 at offset w - 1": _wrong_wrap(md.ms_deform_level_fwd_plain),
+              "validity mask dropped": _no_validity(md.ms_deform_level_fwd_plain)}, 10),
+            (f"deform_gather_rows@d{d}", gather,
+             {"slot 2 at offset w - 1": _wrong_wrap(md.deform_gather_rows_plain),
+              "heads 0/1 swapped in v": _swap(0, 0, 1)}, 10),
+            (f"deform_bwd_glue_q@d{d}", glue, glue_faults, 10),
+            (f"deform_bwd_glue@d{d}", glue, glue_faults, 10),
+            (f"deform_scatter_dv@d{d}", (dg.deform_bwd_glue_plain(*glue)[0], idx, side * side,
+                                         side), scatter_faults(), 10),
+            (f"onehot_deform_level_forward@d{d}", *onehot_case(32, d), 20)]
+    for tag, side, dtype in (("n256", 16, torch.bfloat16), ("n2500", 50, torch.bfloat16),
+                             ("fp32", 32, torch.float32)):
+        cases.append((f"onehot_deform_level_forward@{tag}", *onehot_case(side, 64, dtype), 20))
     return cases
 
 
@@ -1723,7 +1804,7 @@ def kernel_phase(dev) -> list[dict]:
             if not same:
                 failed.append(f"{name}: expander_groups differs from its plain version")
         if name.startswith("deform_bwd_glue"):
-            glue_outs[name] = out
+            glue_outs.setdefault(shape, {})[base] = out
         ref = as_tuple(plain(*args))
         torch.cuda.synchronize()
         for o, r, oname in zip(out, ref, names):
@@ -1782,11 +1863,14 @@ def kernel_phase(dev) -> list[dict]:
                          plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
                          library_ms=library_ms, **({"shape": shape} if shape else {})))
-    same = all(torch.equal(a, b) for a, b in zip(glue_outs["deform_bwd_glue_q"],
-                                                 glue_outs["deform_bwd_glue"]))
-    log(f"kernel deform_bwd_glue_q and deform_bwd_glue on the same inputs: identical {same}")
-    if not same:
-        failed.append("deform_bwd_glue_q and deform_bwd_glue differ")
+    for shape, outs in glue_outs.items():
+        same = all(torch.equal(a, b) for a, b in zip(outs["deform_bwd_glue_q"],
+                                                     outs["deform_bwd_glue"]))
+        at = "@" + shape if shape else ""
+        log(f"kernel deform_bwd_glue_q and deform_bwd_glue{at} on the same inputs: identical "
+            f"{same}")
+        if not same:
+            failed.append(f"deform_bwd_glue_q and deform_bwd_glue{at} differ")
     if failed:
         raise RuntimeError("kernel checks failed: " + "; ".join(failed))
     return rows
@@ -2919,6 +3003,101 @@ def eval_phase(dev) -> dict:
     return totals
 
 
+# C9: the deformable core at head width 32 (SYSLEARNER_DIM 256 over 8 heads;
+# JAX's pipeline sets TEXT_WIDTH from it too).
+C9_CONFIG = dict(TRAIN_CONFIG, syslearner_dim=256, text_width=256)
+C9_EVAL_PATHS = {"plain_fp32": ("plain", "auto", "float32"),
+                 "plain_bf16_hybrid": ("plain", "hybrid", "bfloat16"),
+                 "kernels_hybrid": ("auto", "hybrid", "bfloat16")}
+
+
+def c9_phase(dev) -> dict:
+    """The main paths at head width 32 (C9_CONFIG): one seeded 1024^2 image
+    through evaluate_seg on the 'hybrid' kernels (B15 on res5), plain bf16
+    'hybrid' and plain fp32, on one set of weights and seeded class
+    embeddings, the kernel path held to the eval gate; then one batch-2
+    'auto' train step through the kernels (the flat core: B7 and B8). Both
+    launch what they launch at head width 64 and give finite outputs.
+    Returns the launch totals."""
+    from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion
+    from iuvl_tpu_torch.models.xdecoder import convert
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.train.optimizer import Optimizer
+    from iuvl_tpu_torch.train.train_step import TrainState, make_train_step
+
+    cfg = SysLearnerConfig(**C9_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    rs = np.random.RandomState(SEED + 41)
+    text = torch.from_numpy(rs.randn(N_CLASSES + 1, cfg.syslearner_dim).astype(np.float32))
+    text = text.to(dev)
+    models, weights = {}, None
+    for path, (attn, msdeform, dtype) in C9_EVAL_PATHS.items():
+        pcfg = dataclasses.replace(cfg, attn_impl=attn, msdeform_impl=msdeform, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev,
+                                        generator=gen if weights is None else None).eval()
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    image = make_batch(rs, 1, cfg.img_size, dev)[0]
+    totals, outs = {}, {}
+    with torch.no_grad():
+        for path, m in models.items():
+            reset_launches()
+            (cls, pred), secs = synced(lambda: m.evaluate_seg(image, text))
+            counts = launches()
+            check_launches(f"c9 eval {path}", counts,
+                           PER_IMAGE["hybrid"] if path.startswith("kernels") else {})
+            if path.startswith("kernels"):
+                totals = {k: v for k, v in counts.items() if v}
+            if not bool(torch.isfinite(cls).all() & torch.isfinite(pred).all()):
+                raise RuntimeError(f"c9 eval {path}: non-finite outputs")
+            outs[path] = (cls.float(), pred.float())
+            log(f"c9 eval {path} (head width 32): evaluate_seg {secs * 1e3:.1f} ms, launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+    del models
+    ref = outs.pop("plain_fp32")
+    failed = []
+    for j, label in enumerate(("mask_cls", "mask_pred")):
+        e = rel_l2(outs["kernels_hybrid"][j], ref[j])
+        y = rel_l2(outs["plain_bf16_hybrid"][j], ref[j])
+        log(f"c9 eval {label}: rel L2 to fp32 kernels_hybrid {e:.3e}, plain_bf16_hybrid {y:.3e}; "
+            f"ratio {e / y:.3f} (bound {SLICE_FACTOR})")
+        if not e <= SLICE_FACTOR * y:
+            failed.append(f"{label}: {e:.3e} > {SLICE_FACTOR} x {y:.3e}")
+    del outs, ref
+    if failed:
+        raise RuntimeError("c9 eval gate failed: " + "; ".join(failed))
+
+    model = build_syslearner(cfg, device=dev, generator=gen)
+    state = TrainState(Optimizer(model.named_parameters(), paths=convert.flax_paths(cfg),
+                                 base_lr=1e-4, total_steps=1000))
+    crit = SegCriterion(CriterionConfig(num_classes=N_CLASSES), impl=cfg.kernels_impl)
+    step = make_train_step(model, crit, match_points=MATCH_POINTS)
+    image, targets = make_batch(rs, 2, cfg.img_size, dev)
+    draws = step_draws(torch.Generator(device=dev).manual_seed(SEED + 42), 10, 2)
+    grads = {}
+    capture_grads(state, model, grads)
+    reset_launches()
+    (_, metrics), secs = synced(lambda: step(state, image, text, targets, draws))
+    counts = launches()
+    check_step_launches(0, counts, {}, PER_STEP[2])
+    for name, got in counts.items():
+        totals[name] = totals.get(name, 0) + got
+    bad = [k for k, v in metrics.items() if k != "assignments" and not bool(torch.isfinite(
+        torch.as_tensor(v)).all())]
+    bad += [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    log(f"c9 train step (batch 2, head width 32): {secs * 1e3:.1f} ms, loss_total "
+        f"{float(metrics['loss_total']):.4f}, grad_norm {float(metrics['grad_norm']):.4f}, "
+        f"{len(grads)} gradients")
+    if bad:
+        raise RuntimeError(f"c9 train step: non-finite {bad[:8]}")
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return totals
+
+
 INTERACTIVE_CONFIG = dict(sam_size="base", img_size=1024, dtype="bfloat16")
 INTERACTIVE_ROUNDS = 20
 INTERACTIVE_GATED = (1, 10, 20)  # rounds whose SAM decode is gated
@@ -3149,6 +3328,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(eval_phase(dev))
     log(f"eval phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(c9_phase(dev))
+    log(f"c9 phase (head width 32): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(interactive_phase(dev))
     log(f"interactive phase: {time.perf_counter() - t0:.1f} s")

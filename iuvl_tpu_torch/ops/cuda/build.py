@@ -51,12 +51,12 @@ SIGNATURES = {
     "iuvl_flash_fwd": (P,) * 5 + (I, I, I, I, P),
     "iuvl_flash_bwd": (P,) * 10 + (I, I, I, I, P),
     "iuvl_tap_scatter": (P, P, P, I, I, I, P),
-    "iuvl_msdeform_fwd": (P,) * 5 + (I,) * 7 + (P,),
-    "iuvl_deform_gather": (P,) * 3 + (I,) * 5 + (P,),
-    "iuvl_deform_scatter": (P,) * 6 + (I,) * 7 + (P,),
-    "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 3 + (P,),
-    "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 3 + (P,),
-    "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 5 + (P,),
+    "iuvl_msdeform_fwd": (P,) * 5 + (I,) * 8 + (P,),
+    "iuvl_deform_gather": (P,) * 3 + (I,) * 6 + (P,),
+    "iuvl_deform_scatter": (P,) * 6 + (I,) * 8 + (P,),
+    "iuvl_deform_bwd_glue_q": (P,) * 5 + (I,) * 4 + (P,),
+    "iuvl_deform_bwd_glue": (P,) * 5 + (I,) * 4 + (P,),
+    "iuvl_onehot_level_fwd": (P,) * 4 + (I,) * 6 + (P,),
     "iuvl_decode_tail": (P,) + (I,) * 6 + (P,),
     "iuvl_rowbias_fwd": (P,) * 7 + (I,) * 5 + (P,),
     "iuvl_relpos_groups": (P,) * 3 + (I,) * 3 + (P,),

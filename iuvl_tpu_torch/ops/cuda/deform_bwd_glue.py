@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .build import launch, require
+from .msdeform import check_head_width
 
 
 def deform_bwd_glue_plain(g4: torch.Tensor, gout: torch.Tensor, wa: torch.Tensor, p: int):
@@ -33,9 +34,10 @@ def _glue(entry: str, g4, gout, wa, p: int):
     r, fourd = g4.shape
     q = gout.shape[0]
     dev = g4.device
-    if g4.dtype not in (torch.bfloat16, torch.float32) or fourd != 256:
+    if g4.dtype not in (torch.bfloat16, torch.float32) or fourd % 4:
         raise ValueError(f"{entry}: g4 is {g4.dtype} of width {fourd}; the kernel takes "
-                         "bf16 or fp32 of width 256")
+                         "bf16 or fp32 of width 4 x d")
+    check_head_width(entry, fourd // 4)
     if q * p != r:
         raise ValueError(f"{entry}: {r} rows are not {q} queries x {p} points")
     require(entry, "g4", g4, g4.dtype, (r, fourd), dev)
@@ -44,14 +46,15 @@ def _glue(entry: str, g4, gout, wa, p: int):
     contrib = torch.empty_like(g4)
     dots = torch.empty((r, 4), dtype=torch.float32, device=dev)
     launch("iuvl_" + entry, dev, g4.data_ptr(), gout.data_ptr(), wa.data_ptr(),
-           contrib.data_ptr(), dots.data_ptr(), q, p, int(g4.dtype == torch.bfloat16))
+           contrib.data_ptr(), dots.data_ptr(), q, p, fourd // 4,
+           int(g4.dtype == torch.bfloat16))
     return contrib, dots
 
 
 def deform_bwd_glue_q(g4: torch.Tensor, gout: torch.Tensor, wa: torch.Tensor, p: int):
-    """B8, query-row layout: the CUDA kernel for CUDA tensors (d = 64, gout
-    fp32), the plain version for CPU tensors. Arguments and results as
-    :func:`deform_bwd_glue_plain`."""
+    """B8, query-row layout: the CUDA kernel for CUDA tensors (d in
+    ``msdeform.HEAD_WIDTHS``, gout fp32), the plain version for CPU tensors.
+    Arguments and results as :func:`deform_bwd_glue_plain`."""
     if g4.device.type == "cpu":
         return deform_bwd_glue_plain(g4, gout, wa, p)
     out = _glue("deform_bwd_glue_q", g4, gout, wa, p)

@@ -29,6 +29,10 @@ import torch
 from .build import launch, require
 
 VALUE_DTYPES = (torch.bfloat16, torch.float32)
+# The head widths d = syslearner_dim / nheads that the deformable kernels
+# (B7, B8, B15) take: 16-byte bf16 pieces of 8 channels, B15's 16-channel
+# groups, and B8's cotangent in registers, 16 values a lane at most.
+HEAD_WIDTHS = range(16, 129, 16)
 # The scatter kernel's rows a sort block, most bits a radix pass, and rows
 # a piece of a long bucket (csrc/msdeform.cu kSortTile, kMaxDigitBits,
 # kChunk).
@@ -129,16 +133,30 @@ def ms_deform_level_fwd_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return torch.stack(outs)
 
 
-def _check_values(kernel: str, name: str, t: torch.Tensor, width: int = 64) -> None:
-    if t.dtype not in VALUE_DTYPES or t.shape[-1] != width:
-        raise ValueError(f"{kernel}: {name} is {t.dtype} of width {t.shape[-1]}; the kernel "
-                         f"takes {VALUE_DTYPES} of width {width}")
+def check_head_width(kernel: str, d: int) -> None:
+    """Raise ValueError unless the deformable kernels take head width ``d``
+    (:data:`HEAD_WIDTHS`: a multiple of 16 from 16 to 128)."""
+    if d not in HEAD_WIDTHS:
+        raise ValueError(f"{kernel}: head width {d}; the kernel takes multiples of 16 from "
+                         f"{HEAD_WIDTHS.start} to {HEAD_WIDTHS.stop - 1}")
+
+
+def _check_values(kernel: str, name: str, t: torch.Tensor, slots: int = 1) -> int:
+    """The head width of ``t``, rows of ``slots`` head-width slots, after
+    checking its dtype and width."""
+    width = t.shape[-1]
+    if t.dtype not in VALUE_DTYPES or width % slots:
+        raise ValueError(f"{kernel}: {name} is {t.dtype} of width {width}; the kernel takes "
+                         f"{VALUE_DTYPES} of width {slots} x d")
+    check_head_width(kernel, width // slots)
+    return width // slots
 
 
 def ms_deform_level_fwd(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor, aw: torch.Tensor,
                         h: int, w: int) -> torch.Tensor:
     """B7 forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`ms_deform_level_fwd_plain` (d = 64)."""
+    CPU tensors. Arguments as :func:`ms_deform_level_fwd_plain` (d in
+    :data:`HEAD_WIDTHS`)."""
     if v.device.type == "cpu":
         return ms_deform_level_fwd_plain(v, x, y, aw, h, w)
     b, nh, hw, d = v.shape
@@ -150,7 +168,7 @@ def ms_deform_level_fwd(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor, aw: t
         require("ms_deform_level_fwd", name, t, torch.float32, (b, nh, lq, p), dev)
     out = torch.empty((b, nh, lq, d), dtype=torch.float32, device=dev)
     launch("iuvl_msdeform_fwd", dev, v.data_ptr(), x.data_ptr(), y.data_ptr(), aw.data_ptr(),
-           out.data_ptr(), b, nh, lq, p, h, w, int(v.dtype == torch.bfloat16))
+           out.data_ptr(), b, nh, lq, p, h, w, d, int(v.dtype == torch.bfloat16))
     ms_deform_level_fwd.launches += 1
     return out
 
@@ -168,7 +186,7 @@ def deform_gather_rows(v: torch.Tensor, idx: torch.Tensor, w: int) -> torch.Tens
     per_head = idx[0].numel()
     g4 = torch.empty((nh * per_head, 4 * d), dtype=v.dtype, device=dev)
     launch("iuvl_deform_gather", dev, v.data_ptr(), idx.data_ptr(), g4.data_ptr(), nh, per_head,
-           hw, w, int(v.dtype == torch.bfloat16))
+           hw, w, d, int(v.dtype == torch.bfloat16))
     deform_gather_rows.launches += 1
     return g4
 
@@ -181,8 +199,8 @@ def deform_scatter_dv(contrib: torch.Tensor, idx: torch.Tensor, hw: int, w: int)
     nh = idx.shape[0]
     per_head = idx[0].numel()
     dev = contrib.device
-    _check_values("deform_scatter_dv", "contrib", contrib, 256)
-    require("deform_scatter_dv", "contrib", contrib, contrib.dtype, (nh * per_head, 256), dev)
+    d = _check_values("deform_scatter_dv", "contrib", contrib, 4)
+    require("deform_scatter_dv", "contrib", contrib, contrib.dtype, (nh * per_head, 4 * d), dev)
     require("deform_scatter_dv", "idx", idx, torch.int32, (nh, *idx.shape[1:]), dev)
     rows = nh * per_head
     digit_bits, passes = scatter_plan(nh * hw)
@@ -190,10 +208,10 @@ def deform_scatter_dv(contrib: torch.Tensor, idx: torch.Tensor, hw: int, w: int)
     tiles = -(-rows // SCATTER_TILE)
     ws = torch.empty(4 * rows + (tiles + 1) * (1 << digit_bits), dtype=i32, device=dev)
     start = torch.empty(nh * hw + 1, dtype=i32, device=dev)
-    part = torch.empty(-(-rows // SCATTER_CHUNK) * 2 * 256, dtype=torch.float32, device=dev)
-    dv = torch.empty((nh, hw, 64), dtype=torch.float32, device=dev)
+    part = torch.empty(-(-rows // SCATTER_CHUNK) * 2 * 4 * d, dtype=torch.float32, device=dev)
+    dv = torch.empty((nh, hw, d), dtype=torch.float32, device=dev)
     launch("iuvl_deform_scatter", dev, contrib.data_ptr(), idx.data_ptr(), dv.data_ptr(),
-           ws.data_ptr(), start.data_ptr(), part.data_ptr(), nh, per_head, hw, w, digit_bits,
+           ws.data_ptr(), start.data_ptr(), part.data_ptr(), nh, per_head, hw, w, d, digit_bits,
            passes, int(contrib.dtype == torch.bfloat16))
     deform_scatter_dv.launches += 1
     return dv

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .build import launch, require
+from .msdeform import check_head_width
 
 # Queries per step of the plain version: its dense (BH, chunk, cells) fp32
 # weight matrix is 134 MB at the res5 shape (BH 8, 1024 cells).
@@ -54,15 +55,16 @@ def onehot_deform_level_forward(v4: torch.Tensor, idx: torch.Tensor, wslot: torc
                                 n_points: int) -> torch.Tensor:
     """B15: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Arguments as :func:`onehot_deform_level_forward_plain`
-    (d = 64, P <= 8)."""
+    (d in ``msdeform.HEAD_WIDTHS``, P <= 8)."""
     if v4.device.type == "cpu":
         return onehot_deform_level_forward_plain(v4, idx, wslot, n_points)
     bh, cells, d4 = v4.shape
     lq = idx.shape[1]
     dev = v4.device
-    if v4.dtype not in (torch.bfloat16, torch.float32) or d4 != 256:
+    if v4.dtype not in (torch.bfloat16, torch.float32) or d4 % 4:
         raise ValueError(f"onehot_deform_level_forward: v4 is {v4.dtype} of width {d4}; the "
-                         "kernel takes bf16 or fp32 of width 4 * 64")
+                         "kernel takes bf16 or fp32 of width 4 x d")
+    check_head_width("onehot_deform_level_forward", d4 // 4)
     if not 1 <= n_points <= MAX_POINTS:
         raise ValueError(f"onehot_deform_level_forward: {n_points} points; the kernel takes "
                          f"1 to {MAX_POINTS}")
@@ -72,7 +74,7 @@ def onehot_deform_level_forward(v4: torch.Tensor, idx: torch.Tensor, wslot: torc
             (bh, lq, 4, n_points), dev)
     out = torch.empty((bh, lq, d4 // 4), dtype=v4.dtype, device=dev)
     launch("iuvl_onehot_level_fwd", dev, v4.data_ptr(), idx.data_ptr(), wslot.data_ptr(),
-           out.data_ptr(), bh, cells, lq, n_points, int(v4.dtype == torch.bfloat16))
+           out.data_ptr(), bh, cells, lq, n_points, d4 // 4, int(v4.dtype == torch.bfloat16))
     onehot_deform_level_forward.launches += 1
     return out
 

@@ -12,7 +12,10 @@ CPU, fp32, at small shapes (those of ``tests/test_ops_parity.py``):
   its buckets against numpy's stable argsort;
 - B8 (both entry points) against ``deform_bwd_glue_q`` and
   ``deform_bwd_glue`` run in interpret mode;
-- ``impl='auto'``: ``flat`` at batch 2, ``wide`` at batch 1.
+- ``impl='auto'``: ``flat`` at batch 2, ``wide`` at batch 1;
+- the same at head widths 32 and 128 (SysLearner widths 256 and 1024 over
+  8 heads; the gather and B8 also in bf16), and the kernels' width check:
+  multiples of 16 from 16 to 128.
 
 On CPU tensors each wrapper runs its plain version, the function its CUDA
 kernel is held against on the card. Tolerance: the JAX suite's fp32 bar,
@@ -59,12 +62,9 @@ def _inputs(rs, b, lo, hi, lq=7, nh=4, d=16, p=4):
     return value, loc, w
 
 
-@pytest.mark.parametrize("b, lo, hi, lq", [
-    pytest.param(b, lo, hi, 7, id=f"{lo}-{hi}-{b}") for lo, hi in ((0.05, 0.95), (-0.3, 1.3))
-    for b in (1, 2)] + [pytest.param(2, None, None, 300, id="clustered-2")])
-def test_flat_core_and_vjp_match_jax(b, lo, hi, lq):
+def _flat_core_and_vjp_match_jax(b, lo, hi, lq, d=16):
     rs = np.random.RandomState(21 + b)
-    value, loc, w = _inputs(rs, b, lo, hi, lq)
+    value, loc, w = _inputs(rs, b, lo, hi, lq, d=d)
     g = rs.randn(b, loc.shape[1], value.shape[2] * value.shape[3]).astype(np.float32)
 
     def core(v, l, a):
@@ -87,6 +87,18 @@ def test_flat_core_and_vjp_match_jax(b, lo, hi, lq):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("b, lo, hi, lq", [
+    pytest.param(b, lo, hi, 7, id=f"{lo}-{hi}-{b}") for lo, hi in ((0.05, 0.95), (-0.3, 1.3))
+    for b in (1, 2)] + [pytest.param(2, None, None, 300, id="clustered-2")])
+def test_flat_core_and_vjp_match_jax(b, lo, hi, lq):
+    _flat_core_and_vjp_match_jax(b, lo, hi, lq)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flat_core_and_vjp_match_jax_at_other_head_widths(d):
+    _flat_core_and_vjp_match_jax(2, -0.3, 1.3, 7, d)
+
+
 def _level(rs, nh=4, h=6, w=5, lq=6, p=3, d=8):
     """One image's level: values, the top-left indices and slot weights of
     locations in [-0.3, 1.3], as the port computes them."""
@@ -106,23 +118,33 @@ def test_wide_idx_wslot_matches_jax():
     np.testing.assert_array_equal(wslot.numpy(), np.asarray(j_wslot))
 
 
-def test_gather_rows_match_jax_wide_map_gather():
+def _gather_rows_match_jax(d=8, dtype="float32"):
     rs = np.random.RandomState(4)
     nh, hw, w = 4, 30, 5
-    v, _, _, idx, _ = _level(rs)
+    v, _, _, idx, _ = _level(rs, d=d)
     base = np.arange(nh)[:, None, None] * hw
-    ref = jmd._flat_gather_rows(jmd._wide_map(jnp.asarray(v)[None], w)[0].reshape(nh * hw, -1),
+    jv = jnp.asarray(v).astype(jnp.dtype(dtype))
+    ref = jmd._flat_gather_rows(jmd._wide_map(jv[None], w)[0].reshape(nh * hw, -1),
                                 jnp.asarray(base + idx.numpy()).reshape(-1))
-    got = tkm.deform_gather_rows(torch.from_numpy(v), idx, w)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got = tkm.deform_gather_rows(torch.from_numpy(v).to(getattr(torch, dtype)), idx, w)
+    assert str(got.dtype).split(".")[-1] == dtype
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
-def test_scatter_matches_the_transpose_of_the_gather():
-    """d_value of the tap rows' cotangent: JAX's dv4 scatter and inverse-roll
-    fold are the VJP of gathering from the wide map."""
+def test_gather_rows_match_jax_wide_map_gather():
+    _gather_rows_match_jax()
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_match_jax_at_other_head_widths(dtype, d):
+    _gather_rows_match_jax(d, dtype)
+
+
+def _scatter_matches_the_transpose_of_the_gather(d=8):
     rs = np.random.RandomState(5)
     nh, hw, w = 4, 30, 5
-    v, _, _, idx, _ = _level(rs)
+    v, _, _, idx, _ = _level(rs, d=d)
     flat = jnp.asarray(np.arange(nh)[:, None, None] * hw + idx.numpy()).reshape(-1)
     contrib = rs.randn(flat.shape[0], 4 * v.shape[-1]).astype(np.float32)
 
@@ -133,6 +155,17 @@ def test_scatter_matches_the_transpose_of_the_gather():
     got = tkm.deform_scatter_dv(torch.from_numpy(contrib), idx, hw, w)
     assert got.dtype == torch.float32 and got.shape == v.shape
     _close(got, vjp(jnp.asarray(contrib))[0], "d_value")
+
+
+def test_scatter_matches_the_transpose_of_the_gather():
+    """d_value of the tap rows' cotangent: JAX's dv4 scatter and inverse-roll
+    fold are the VJP of gathering from the wide map."""
+    _scatter_matches_the_transpose_of_the_gather()
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_scatter_matches_the_transpose_of_the_gather_at_other_head_widths(d):
+    _scatter_matches_the_transpose_of_the_gather(d)
 
 
 def test_scatter_buckets_are_numpy_stable_argsort_order():
@@ -160,24 +193,56 @@ def test_scatter_plan_covers_the_keys():
         assert (buckets - 1) >> (bits * passes) == 0
 
 
-def test_bwd_glue_matches_jax_kernels():
-    """Both entry points against the Pallas kernels in interpret mode (nh *
-    Lq a multiple of 8, as JAX's chunking asks)."""
+def _bwd_glue_matches_jax_kernels(d=8, dtype="float32"):
     rs = np.random.RandomState(31)
-    q, p, d = 16, 4, 8
+    q, p = 16, 4
     g4 = rs.randn(q * p, 4 * d).astype(np.float32)
     gout = rs.randn(q, d).astype(np.float32)
     wa = rs.rand(q * p, 4).astype(np.float32)
+    jg4 = jnp.asarray(g4).astype(jnp.dtype(dtype))
     with interpret(jdg):
-        ref_q = jdg.deform_bwd_glue_q(jnp.asarray(g4), jnp.asarray(gout), jnp.asarray(wa), p)
-        ref = jdg.deform_bwd_glue(jnp.asarray(g4), jnp.asarray(gout), jnp.asarray(wa), p)
-    args = (torch.from_numpy(g4), torch.from_numpy(gout), torch.from_numpy(wa), p)
+        ref_q = jdg.deform_bwd_glue_q(jg4, jnp.asarray(gout), jnp.asarray(wa), p)
+        ref = jdg.deform_bwd_glue(jg4, jnp.asarray(gout), jnp.asarray(wa), p)
+    args = (torch.from_numpy(g4).to(getattr(torch, dtype)), torch.from_numpy(gout),
+            torch.from_numpy(wa), p)
     for fn, (contrib_ref, dots_ref) in ((tdg.deform_bwd_glue_q, ref_q),
                                         (tdg.deform_bwd_glue, ref)):
         contrib, dots = fn(*args)
-        _close(contrib, contrib_ref, f"{fn.__name__} contrib")
+        assert contrib.dtype == args[0].dtype and dots.dtype == torch.float32
+        _close(contrib, contrib_ref.astype(jnp.float32), f"{fn.__name__} contrib")
         _close(dots, dots_ref, f"{fn.__name__} dots")
         assert fn.launches == 0
+
+
+def test_bwd_glue_matches_jax_kernels():
+    """Both entry points against the Pallas kernels in interpret mode (nh *
+    Lq a multiple of 8, as JAX's chunking asks)."""
+    _bwd_glue_matches_jax_kernels()
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_glue_matches_jax_kernels_at_other_head_widths(dtype, d):
+    _bwd_glue_matches_jax_kernels(d, dtype)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 112, 128, 144])
+def test_head_width_check(d):
+    """The deformable kernels' wrappers take head widths that are multiples
+    of 16 from 16 to 128 and raise on others (8, 40, 144): B7's values (d
+    wide) and scatter rows (4d), B8's and B15's rows (4d)."""
+    ok = d % 16 == 0 and 16 <= d <= 128
+    assert (d in tkm.HEAD_WIDTHS) == ok
+    for width, slots in ((d, 1), (4 * d, 4)):
+        t = torch.empty((2, width), device="meta")
+        if ok:
+            tkm.check_head_width("kernel", d)
+            assert tkm._check_values("kernel", "t", t, slots) == d
+        else:
+            with pytest.raises(ValueError, match="head width"):
+                tkm.check_head_width("kernel", d)
+            with pytest.raises(ValueError, match="head width"):
+                tkm._check_values("kernel", "t", t, slots)
 
 
 def test_bwd_glue_rounds_contrib_to_the_value_dtype():

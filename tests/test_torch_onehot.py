@@ -10,7 +10,9 @@ rows whose points hit the same cell (the kernel merges their weights
 before it rounds). Tolerances: fp32 at the JAX suite's bar, atol = rtol =
 1e-4 (1e-5 where the arithmetic is the same); bf16 outputs within one bf16
 unit of the last place (2^-8 relative): the two sum the same exact
-products in fp32 in another order, then round once.
+products in fp32 in another order, then round once. The plain version and
+the hybrid level are also held at head widths 32 and 128 (SysLearner widths
+256 and 1024 over 8 heads), with the same tolerances.
 """
 
 import jax
@@ -73,10 +75,9 @@ def kernel_inputs(v, x, y, aw, h, w):
             np.array(wslot.transpose(0, 1, 2, 4, 3)).reshape(b * nh, lq, 4, p))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_matches_interpret_kernel(dtype, interpret):
+def _plain_matches_interpret_kernel(dtype, d):
     h, w = 6, 5
-    v4, idx, wslot = kernel_inputs(*level_inputs(), h, w)
+    v4, idx, wslot = kernel_inputs(*level_inputs(d=d), h, w)
     # The inputs hold what the test means them to: repeated cells in a row,
     # and points clipped to the edge.
     assert (idx[:, ::4, 1] == idx[:, ::4, 0]).all() and (idx[:, ::4, 2] == idx[:, ::4, 0]).all()
@@ -100,11 +101,22 @@ def test_plain_matches_interpret_kernel(dtype, interpret):
         per_point = np.zeros_like(got)
         for s in range(4):
             wb = torch.from_numpy(wslot[:, :, s]).bfloat16().float()  # (BH, Lq, P)
-            rows = tv4.float()[:, :, s * 64:(s + 1) * 64]
+            rows = tv4.float()[:, :, s * d:(s + 1) * d]
             g = torch.stack([rows[i][torch.from_numpy(idx[i]).long()] for i in range(len(idx))])
             per_point += (wb[..., None] * g).sum(2).numpy()
         per_point = torch.from_numpy(per_point).bfloat16().float().numpy()
         assert np.abs(per_point - ref)[:, ::4].max() > np.abs(got - ref)[:, ::4].max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_interpret_kernel(dtype, interpret):
+    _plain_matches_interpret_kernel(dtype, 64)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_interpret_kernel_at_other_head_widths(dtype, d, interpret):
+    _plain_matches_interpret_kernel(dtype, d)
 
 
 def test_plain_keeps_out_of_range_indices_out():
@@ -119,9 +131,9 @@ def test_plain_keeps_out_of_range_indices_out():
     torch.testing.assert_close(got[0], want, **TOL)
 
 
-def test_hybrid_level_and_vjp_match_jax(interpret):
+def _hybrid_level_and_vjp_match_jax(d):
     h, w = 6, 5
-    v, x, y, aw = level_inputs(seed=1)
+    v, x, y, aw = level_inputs(seed=1, d=d)
     rs = np.random.RandomState(2)
     g = rs.randn(*v.shape[:2], x.shape[2], v.shape[3]).astype(np.float32)
     jargs = [jnp.asarray(a) for a in (v, x, y, aw)]
@@ -134,6 +146,15 @@ def test_hybrid_level_and_vjp_match_jax(interpret):
     grads = torch.autograd.grad(out, targs, torch.from_numpy(g))
     for name, got, want in zip(("v", "x", "y", "aw"), grads, ref_grads):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=name, **TOL)
+
+
+def test_hybrid_level_and_vjp_match_jax(interpret):
+    _hybrid_level_and_vjp_match_jax(64)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_hybrid_level_and_vjp_match_jax_at_other_head_widths(d, interpret):
+    _hybrid_level_and_vjp_match_jax(d)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

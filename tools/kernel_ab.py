@@ -85,6 +85,26 @@ process, one mode a kernel (``--kernels``, any of them in one run):
   parent's zero-fill and atomics): the same readings (the parent's two
   launches differ), ``index_add_`` on the wide map's rows, the buckets'
   mean and longest row counts, and this tree's device time by launch.
+- ``deform_gather``: B7's tap-row gather (``iuvl_deform_gather``) of one
+  image at the same levels: rel L2 (0: a copy), two launches bit-equal,
+  the parent's bits, times in turns, the plain version, ``index_select``
+  on the prebuilt wide map, the bound (bytes).
+- ``deform_glue``: B8, both entries (``deform_bwd_glue.cu``), at the res3
+  level's rows of one image (688,128 rows of 4 x 64, a random fp32 output
+  cotangent): rel L2 of contrib and dots, two launches bit-equal, the
+  parent's bits, times in turns, the plain version, the bound (bytes).
+- ``onehot``: B15 (``onehot_gather.cu`` ``iuvl_onehot_level_fwd``) at the
+  ``hybrid`` eval's res5 level (BH 8, 32^2 cells, 21,504 queries x 4
+  points near their reference points, bf16), a 16^2 and a 50^2 table,
+  res5 in fp32 and with 3 points: rel L2 to the plain version
+  (chip_smoke.py's bound, 3e-5), two launches bit-equal, the parent's
+  bits, times in turns, the plain version, ``embedding_bag`` over the wide
+  map's (cell, slot) rows, the bound (bytes), each tree's device time.
+
+The deformable modes (``msdeform_fwd``, ``deform_scatter``,
+``deform_gather``, ``deform_glue``, ``onehot``) also run this tree alone at
+head widths 32 and 128, which the parent refuses.
+
 - ``tap_scatter``: B12 (``tap_scatter.cu``) at the criterion's shape (20
   matched 256^2 masks x 12,544 points, a table of 66,049 cells) and a
   skewed case (the same points drawn within about a pixel of the map's
@@ -159,10 +179,14 @@ PARENT_SIGS = {"iuvl_rowbias_fwd": [P] * 7 + [I] * 5 + [P],
                # the parent's B9 and B10 (a wmma GEMM, fp32 scratch).
                "iuvl_window_block_bwd": [P] * 21 + [I] * 4 + [P],
                "iuvl_block_tail_bwd": [P] * 21 + [I, I, I, F, P],
-               # the parent's B7 forward and its scatter (fp32 atomics into a
-               # map its wrapper zeroes).
+               # the parent's deformable core: head width 64 only (B7's
+               # forward, gather and scatter, B8, B15).
                "iuvl_msdeform_fwd": [P] * 5 + [I] * 7 + [P],
-               "iuvl_deform_scatter": [P] * 3 + [I] * 5 + [P]}
+               "iuvl_deform_gather": [P] * 3 + [I] * 5 + [P],
+               "iuvl_deform_scatter": [P] * 6 + [I] * 7 + [P],
+               "iuvl_deform_bwd_glue_q": [P] * 5 + [I] * 3 + [P],
+               "iuvl_deform_bwd_glue": [P] * 5 + [I] * 3 + [P],
+               "iuvl_onehot_level_fwd": [P] * 4 + [I] * 5 + [P]}
 SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_train.cu",
           "seg_scatter": "seg_scatter.cu", "i2t": "twoway_attention.cu",
           "tap_scatter": "tap_scatter.cu", "t2i": "twoway_attention.cu",
@@ -170,7 +194,8 @@ SOURCE = {"rowbias": "flash_attention_rowbias.cu", "flash": "flash_attention_tra
           "rowbias_proj": "flash_attention.cu", "block_tail": "mlp_block.cu",
           "decode_tail": "decode_chunk.cu", "window_block_bwd": "window_block_bwd.cu",
           "block_tail_bwd": "mlp_block_bwd.cu", "msdeform_fwd": "msdeform.cu",
-          "deform_scatter": "msdeform.cu"}
+          "deform_scatter": "msdeform.cu", "deform_gather": "msdeform.cu",
+          "deform_glue": "deform_bwd_glue.cu", "onehot": "onehot_gather.cu"}
 ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "flash": ("iuvl_flash_fwd", "iuvl_flash_bwd"), "seg_scatter": ("iuvl_seg_scatter",),
            "i2t": ("iuvl_i2t_block_step",), "tap_scatter": ("iuvl_tap_scatter",),
@@ -179,7 +204,9 @@ ENTRIES = {"rowbias": ("iuvl_rowbias_fwd", "iuvl_relpos_fwd"),
            "block_tail": ("iuvl_block_tail",), "decode_tail": ("iuvl_decode_tail",),
            "window_block_bwd": ("iuvl_window_block_bwd",),
            "block_tail_bwd": ("iuvl_block_tail_bwd",), "msdeform_fwd": ("iuvl_msdeform_fwd",),
-           "deform_scatter": ("iuvl_deform_scatter",)}
+           "deform_scatter": ("iuvl_deform_scatter",), "deform_gather": ("iuvl_deform_gather",),
+           "deform_glue": ("iuvl_deform_bwd_glue_q", "iuvl_deform_bwd_glue"),
+           "onehot": ("iuvl_onehot_level_fwd",)}
 # ptxas lines of these kernels (by name) are printed, and of B11 only the
 # instantiations on the path.
 KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "flash_",
@@ -187,7 +214,8 @@ KERNELS = ("rb_fwd", "rb_bwd", "rb_nz", "window_stream", "window_resident", "fla
            "window_block", "wb_", "rowbias_proj", "linear_", "block_tail", "tail_ln",
            "tok_", "row_pass", "upscale_kernel", "gemm_f32", "colsum", "sum_parts",
            "round_bias", "window_attn_bwd", "wbb_", "splitk", "tail_", "level_fwd",
-           "scatter_kernel", "dv_")
+           "scatter_kernel", "dv_", "sort_", "bucket_start", "gather_kernel", "glue_",
+           "onehot")
 FLASH_PATH = ("<192, 64>", "<224, 80>", "<192, 64,", "<224, 80,")
 # (tag, heads, N, h, w, d, dense expanders): ViT-B's windows and global
 # grid, ViT-H's global grid, a 32 x 32 grid (B2b's looked-up bias while
@@ -1054,29 +1082,36 @@ def decode_tail_ab(parent_tree: Path, work: Path, bad: list) -> None:
 
 def multi_report(label, names, new, parent, plain, bound, limits, bad, work) -> None:
     """``ab_report`` for a function of several outputs ``names``: rel L2 of
-    each to ``plain`` (this tree's and the parent's), two launches
-    bit-equal, times in turns, the plain version's time, the bound and each
-    tree's device time split by launch."""
+    each to ``plain`` (this tree's and the parent's, None where the parent
+    refuses the shape), two launches bit-equal, times in turns, the plain
+    version's time, the bound and each tree's device time split by launch."""
     got = refused(new, label, bad, "this tree")
     if got is None:
         return
     want, again = plain(), new()
     errs = {n: rel(x, y) for n, x, y in zip(names, got, want)}
     same = all(torch.equal(x, y) for x, y in zip(got, again))
-    par = parent()
-    e_par = ", ".join(f"{n} {rel(x, y):.3e}" for n, x, y in zip(names, par, want))
-    del par, again
+    e_par = "refused"
+    if parent:
+        par = parent()
+        e_par = ", ".join(f"{n} {rel(x, y):.3e}" for n, x, y in zip(names, par, want))
+        del par
+    del again
     over = {n: e for n, e in errs.items() if not e <= limits[n]}
     if over or not same:
         bad.append(f"{label} rel_l2 over the bounds {over}, bit-equal {same}")
-    t_par, t_new = in_turns(parent, new)
+    if parent:
+        t_par, t_new = in_turns(parent, new)
+        times = (f"ms this tree {t_new[0]:.4f} {t_new[1]:.4f}, parent {t_par[0]:.4f} "
+                 f"{t_par[1]:.4f}; mean this {sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}")
+    else:
+        times = f"ms this tree {ms(new):.4f} {ms(new):.4f}; parent refuses"
     print(f"{label}: rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (parent {e_par}); two launches bit-equal {same}; ms this tree {t_new[0]:.4f} "
-          f"{t_new[1]:.4f}, parent {t_par[0]:.4f} {t_par[1]:.4f}; mean this "
-          f"{sum(t_new) / 2:.4f} parent {sum(t_par) / 2:.4f}; plain {ms(plain, 3):.4f}; bound "
-          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+          + f" (parent {e_par}); two launches bit-equal {same}; {times}; plain "
+          f"{ms(plain, 3):.4f}; bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     print(f"{label} device split, this tree: {launch_split(new, work)}", flush=True)
-    print(f"{label} device split, parent: {launch_split(parent, work)}", flush=True)
+    if parent:
+        print(f"{label} device split, parent: {launch_split(parent, work)}", flush=True)
 
 
 def matmul_yardstick(label, products) -> None:
@@ -1184,19 +1219,21 @@ def block_tail_bwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
         torch.cuda.empty_cache()
 
 
-# B7's levels of the batch-2 train step: (tag, side, skewed). The skewed
-# case puts every point of a head within a 2 x 2 cell window of the 128^2
-# level: four buckets of ~21,500 rows a head.
-DEFORM_SHAPES = (("res3", 128, False), ("res4", 64, False), ("res5", 32, False),
-                 ("skewed", 128, True))
+# B7's levels of the batch-2 train step: (tag, side, skewed, head width).
+# The skewed case puts every point of a head within a 2 x 2 cell window of
+# the 128^2 level: four buckets of ~21,500 rows a head. Head widths 32 and
+# 128 (SysLearner widths 256 and 1024 over 8 heads) this tree only.
+DEFORM_SHAPES = (("res3", 128, False, 64), ("res4", 64, False, 64), ("res5", 32, False, 64),
+                 ("skewed", 128, True, 64), ("res3_d32", 128, False, 32),
+                 ("res3_d128", 128, False, 128))
 
 
-def deform_level(side: int, skewed: bool):
-    """B7's inputs at one level of the batch-2 train step: 8 heads of 64,
+def deform_level(side: int, skewed: bool, d: int = 64):
+    """B7's inputs at one level of the batch-2 train step: 8 heads of d,
     the 21,504 queries of the three levels x 4 points sampling within a few
     pixels of their reference points (chip_smoke.py's res3 case), or every
     point of a head within a 2 x 2 cell window. Returns v (2, 8, side^2,
-    64) bf16, x, y, aw (2, 8, Lq, 4) fp32."""
+    d) bf16, x, y, aw (2, 8, Lq, 4) fp32."""
     from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
 
     b, nh, pts, dev = 2, 8, 4, "cuda"
@@ -1209,23 +1246,23 @@ def deform_level(side: int, skewed: bool):
         xy = ref[None, None, :, None, :] * side - 0.5 + 2.5 * torch.randn(
             b, nh, lq, pts, 2, device=dev, generator=GEN)
     aw = torch.rand(b, nh, lq, pts, device=dev, generator=GEN) / 12
-    return (t(b, nh, side * side, 64), xy[..., 0].contiguous(), xy[..., 1].contiguous(), aw)
+    return (t(b, nh, side * side, d), xy[..., 0].contiguous(), xy[..., 1].contiguous(), aw)
 
 
 def msdeform_fwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
     """B7's forward (``msdeform.cu`` ``iuvl_msdeform_fwd``) at DEFORM_SHAPES,
     and at res3 with 3 points (the generic-P path): rel L2 to the plain
     version (chip_smoke.py's bound, 5e-7), two launches bit-equal, bit-equal
-    to the parent, times in turns, the plain version, the bound (bytes) and
-    each tree's device time by launch."""
+    to the parent (head width 64), times in turns, the plain version, the
+    bound (bytes) and each tree's device time by launch."""
     from iuvl_tpu_torch.ops.cuda import msdeform as md
 
     lib = compile_source(parent_tree, work, "msdeform_fwd")
-    for tag, side, skewed in DEFORM_SHAPES + (("res3_p3", 128, False),):
-        v, x, y, aw = deform_level(side, skewed)
+    for tag, side, skewed, d in DEFORM_SHAPES + (("res3_p3", 128, False, 64),):
+        v, x, y, aw = deform_level(side, skewed, d)
         if tag.endswith("_p3"):
             x, y, aw = (a[..., :3].contiguous() for a in (x, y, aw))
-        b, nh, hw, d = v.shape
+        b, nh, hw, _ = v.shape
         lq, p = x.shape[2:]
         out = torch.empty((b, nh, lq, d), dtype=torch.float32, device="cuda")
 
@@ -1235,60 +1272,237 @@ def msdeform_fwd_ab(parent_tree: Path, work: Path, bad: list) -> None:
                                          stream()) == 0
             return o
 
-        label = f"msdeform_fwd@{tag} (B {b}, heads {nh}, {side}^2, Lq {lq}, P {p})"
-        ab_report(label, lambda: md.ms_deform_level_fwd(v, x, y, aw, side, side), parent,
+        label = f"msdeform_fwd@{tag} (B {b}, heads {nh} of {d}, {side}^2, Lq {lq}, P {p})"
+        ab_report(label, lambda: md.ms_deform_level_fwd(v, x, y, aw, side, side),
+                  parent if d == 64 else None,
                   lambda: md.ms_deform_level_fwd_plain(v, x, y, aw, side, side),
                   bound_of((v, x, y, aw, out), 0), bad, 5e-7, work)
-        got, par = md.ms_deform_level_fwd(v, x, y, aw, side, side), parent()
-        if not torch.equal(got, par):
+        if d == 64 and not torch.equal(md.ms_deform_level_fwd(v, x, y, aw, side, side),
+                                       parent()):
             bad.append(f"{label}: not the parent's bits")
-        del v, x, y, aw, out, got, par
+        del v, x, y, aw, out
         torch.cuda.empty_cache()
 
 
 def deform_scatter_ab(parent_tree: Path, work: Path, bad: list) -> None:
     """B7's d_value scatter (``msdeform.cu`` ``iuvl_deform_scatter``) of
     image 0 at DEFORM_SHAPES (bf16 contrib rows, a random cotangent), the
-    whole wrapper of each tree (the parent's zero-fill included): rel L2 to
-    the plain version (chip_smoke.py's bound, 5e-8), two launches bit-equal
-    (the parent's atomics are not), times in turns, ``index_add_`` on the
-    wide map's rows, the bound (bytes), the bucket lengths, and each tree's
-    device time by launch."""
+    whole wrapper of each tree (the parent's entry with the workspaces its
+    wrapper hands it): rel L2 to the plain version (chip_smoke.py's bound,
+    5e-8; both read 0), two launches bit-equal, the parent's bits, times in
+    turns, ``index_add_`` on the wide map's rows, the bound (bytes), the
+    bucket lengths, and this tree's device time by launch."""
     from iuvl_tpu_torch.ops.cuda import msdeform as md
     from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
 
     lib = compile_source(parent_tree, work, "deform_scatter")
-    for tag, side, skewed in DEFORM_SHAPES:
-        _, x, y, _ = deform_level(side, skewed)
+    for tag, side, skewed, d in DEFORM_SHAPES:
+        _, x, y, _ = deform_level(side, skewed, 16)
         idx, _ = wide_idx_wslot(side, side, x[0], y[0])
         nh, lq, p = idx.shape
         hw, rows = side * side, idx.numel()
-        contrib = t(rows, 256)
+        contrib = t(rows, 4 * d)
 
         def parent():
-            dv = torch.zeros((nh, hw, 64), dtype=torch.float32, device="cuda")
-            assert lib.iuvl_deform_scatter(*ptr(contrib, idx, dv), nh, lq * p, hw, side, 1,
-                                           stream()) == 0
+            bits, passes = md.scatter_plan(nh * hw)
+            i32 = torch.int32
+            ws = torch.empty(4 * rows + (-(-rows // md.SCATTER_TILE) + 1) * (1 << bits),
+                             dtype=i32, device="cuda")
+            start = torch.empty(nh * hw + 1, dtype=i32, device="cuda")
+            part = torch.empty(-(-rows // md.SCATTER_CHUNK) * 2 * 256, device="cuda")
+            dv = torch.empty((nh, hw, 64), dtype=torch.float32, device="cuda")
+            assert lib.iuvl_deform_scatter(*ptr(contrib, idx, dv, ws, start, part), nh, lq * p,
+                                           hw, side, bits, passes, 1, stream()) == 0
             return dv
 
         keys = (torch.arange(nh, device="cuda")[:, None] * hw + idx.view(nh, -1)).view(-1)
         lens = torch.bincount(keys, minlength=nh * hw)
         flat = (torch.arange(nh, device="cuda").view(nh, 1, 1) * hw + idx.long()).view(-1)
         wide = contrib.float()
-        lib_call = lambda: torch.zeros((nh * hw, 256), device="cuda").index_add_(  # noqa: E731
+        lib_call = lambda: torch.zeros((nh * hw, 4 * d), device="cuda").index_add_(  # noqa: E731
             0, flat, wide)
-        label = (f"deform_scatter@{tag} ({rows} rows into heads {nh} x {side}^2; bucket rows "
-                 f"mean {rows / (nh * hw):.1f}, max {int(lens.max())}, "
+        label = (f"deform_scatter@{tag} ({rows} rows of 4 x {d} into heads {nh} x {side}^2; "
+                 f"bucket rows mean {rows / (nh * hw):.1f}, max {int(lens.max())}, "
                  f"{int((lens > 256).sum())} over 256)")
-        ab_report(label, lambda: md.deform_scatter_dv(contrib, idx, hw, side), parent,
+        new = lambda: md.deform_scatter_dv(contrib, idx, hw, side)  # noqa: E731
+        ab_report(label, new, parent if d == 64 else None,
                   lambda: md.deform_scatter_dv_plain(contrib, idx, hw, side),
-                  bound_of((contrib, idx, torch.empty((nh, hw, 64), device="cuda")), 0), bad,
+                  bound_of((contrib, idx, torch.empty((nh, hw, d), device="cuda")), 0), bad,
                   5e-8, work)
+        if d == 64 and not torch.equal(new(), parent()):
+            bad.append(f"{label}: not the parent's bits")
         print(f"{label}: index_add_ on the wide map's rows {ms(lib_call):.4f} ms", flush=True)
-        print(f"{label} launches, this tree: "
-              f"{launch_split(lambda: md.deform_scatter_dv(contrib, idx, hw, side), work)}",
-              flush=True)
+        print(f"{label} launches, this tree: {launch_split(new, work)}", flush=True)
         del x, y, idx, contrib, wide, keys, lens, flat
+        torch.cuda.empty_cache()
+
+
+def deform_gather_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B7's tap-row gather (``msdeform.cu`` ``iuvl_deform_gather``) of image
+    0 at DEFORM_SHAPES: rel L2 to the plain version (0: a copy), two
+    launches bit-equal, the parent's bits (head width 64), times in turns,
+    the plain version, ``index_select`` on the prebuilt wide map, the bound
+    (bytes)."""
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+
+    lib = compile_source(parent_tree, work, "deform_gather")
+    for tag, side, skewed, d in DEFORM_SHAPES:
+        v, x, y, _ = deform_level(side, skewed, d)
+        v = v[0].contiguous()
+        idx, _ = wide_idx_wslot(side, side, x[0], y[0])
+        nh, lq, p = idx.shape
+        hw, rows = side * side, idx.numel()
+
+        def parent():
+            g4 = torch.empty((rows, 4 * d), dtype=v.dtype, device="cuda")
+            assert lib.iuvl_deform_gather(*ptr(v, idx, g4), nh, lq * p, hw, side, 1,
+                                          stream()) == 0
+            return g4
+
+        new = lambda: md.deform_gather_rows(v, idx, side)  # noqa: E731
+        label = f"deform_gather@{tag} ({rows} rows of 4 x {d} from heads {nh} x {side}^2)"
+        ab_report(label, new, parent if d == 64 else None,
+                  lambda: md.deform_gather_rows_plain(v, idx, side),
+                  bound_of((v, idx, torch.empty((rows, 4 * d), dtype=v.dtype, device="cuda")),
+                           0), bad, 0.0, work)
+        if d == 64 and not torch.equal(new(), parent()):
+            bad.append(f"{label}: not the parent's bits")
+        flat = (torch.arange(nh, device="cuda").view(nh, 1, 1) * hw + idx.long()).view(-1)
+        wide = torch.cat([torch.roll(v, -off, dims=1) for off in md.tap_offsets(side)],
+                         dim=-1).reshape(nh * hw, -1)
+        print(f"{label}: index_select on the wide map {ms(lambda: wide.index_select(0, flat)):.4f}"
+              " ms", flush=True)
+        del v, x, y, idx, flat, wide
+        torch.cuda.empty_cache()
+
+
+GLUE_NAMES, GLUE_BOUNDS = ("contrib", "dots"), {"contrib": 0.0, "dots": 5e-7}
+
+
+def deform_glue_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B8 (``deform_bwd_glue.cu``), both entries, on the res3 level's tap
+    rows of image 0 (DEFORM_SHAPES' res3 cases, bf16) with a random fp32
+    output cotangent and the slot weights times the attention weights:
+    rel L2 of contrib and dots to the plain version (chip_smoke.py's
+    bounds), two launches bit-equal, the parent's bits (head width 64), the
+    two entries identical, times in turns, the plain version, the bound
+    (bytes)."""
+    from iuvl_tpu_torch.ops.cuda import deform_bwd_glue as dg
+    from iuvl_tpu_torch.ops.cuda import msdeform as md
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot
+
+    lib = compile_source(parent_tree, work, "deform_glue")
+    for tag, side, skewed, d in DEFORM_SHAPES:
+        if not tag.startswith("res3"):
+            continue
+        v, x, y, aw = deform_level(side, skewed, d)
+        idx, wslot = wide_idx_wslot(side, side, x[0], y[0])
+        nh, lq, p = idx.shape
+        g4 = md.deform_gather_rows_plain(v[0], idx, side)
+        gout = torch.randn(nh * lq, d, device="cuda", generator=GEN)
+        wa = (wslot * aw[0][..., None]).reshape(-1, 4).contiguous()
+        args = (g4, gout, wa, p)
+        outs = {}
+        for entry, fn in (("iuvl_deform_bwd_glue_q", dg.deform_bwd_glue_q),
+                          ("iuvl_deform_bwd_glue", dg.deform_bwd_glue)):
+            def parent(entry=entry):
+                contrib = torch.empty_like(g4)
+                dots = torch.empty((g4.shape[0], 4), dtype=torch.float32, device="cuda")
+                assert getattr(lib, entry)(*ptr(g4, gout, wa, contrib, dots), nh * lq, p, 1,
+                                           stream()) == 0
+                return contrib, dots
+
+            new = lambda fn=fn: fn(*args)  # noqa: E731
+            label = f"{entry[5:]}@{tag} ({g4.shape[0]} rows of 4 x {d}, P {p})"
+            multi_report(label, GLUE_NAMES, new, parent if d == 64 else None,
+                         lambda: dg.deform_bwd_glue_plain(*args),
+                         bound_of((g4, gout, wa, g4, wa), 0), GLUE_BOUNDS, bad, work)
+            outs[entry] = refused(new, label, [], "this tree")
+            if outs[entry] is None:
+                break
+            if d == 64 and not all(torch.equal(a, b) for a, b in zip(outs[entry], parent())):
+                bad.append(f"{label}: not the parent's bits")
+        if None in outs.values():
+            continue
+        same = all(torch.equal(a, b) for a, b in zip(*outs.values()))
+        print(f"deform_bwd_glue@{tag}: the two entries identical {same}", flush=True)
+        if not same:
+            bad.append(f"deform_bwd_glue@{tag}: the two entries differ")
+        del v, x, y, aw, idx, wslot, g4, gout, wa, args, outs
+        torch.cuda.empty_cache()
+
+
+# B15's shapes: (tag, side, dtype, points, head width). The hybrid eval's
+# res5 level, a 16^2 and a 50^2 table (2,500 cells: past the shared-memory
+# instance), res5 in fp32 and with 3 points (the any-P instance); then head
+# widths 32 and 128 (this tree only).
+ONEHOT_SHAPES = (("res5", 32, torch.bfloat16, 4, 64), ("16x16", 16, torch.bfloat16, 4, 64),
+                 ("50x50", 50, torch.bfloat16, 4, 64), ("res5_fp32", 32, torch.float32, 4, 64),
+                 ("res5_p3", 32, torch.bfloat16, 3, 64), ("res5_d32", 32, torch.bfloat16, 4, 32),
+                 ("res5_d128", 32, torch.bfloat16, 4, 128),
+                 ("res5_fp32_d32", 32, torch.float32, 4, 32))
+
+
+def onehot_level(side: int, dtype, p: int, d: int):
+    """B15's inputs as the hybrid level makes them for 8 heads of d (batch
+    1): the wide map (8, side^2, 4d), the clipped top-left cells (8, Lq, p)
+    and the slot weights times the attention weight (8, Lq, 4, p) of the
+    21,504 queries' points within a few pixels of their reference points."""
+    from iuvl_tpu_torch.models.xdecoder.pixel_decoder import encoder_reference_points
+    from iuvl_tpu_torch.ops.msdeform import wide_idx_wslot, wide_map
+
+    nh, dev = 8, "cuda"
+    ref = encoder_reference_points([(32, 32), (64, 64), (128, 128)], dev)[:, 0]
+    lq = ref.shape[0]
+    xy = ref[None, :, None, :] * side - 0.5 + 2.5 * torch.randn(nh, lq, p, 2, device=dev,
+                                                                 generator=GEN)
+    idx, wslot = wide_idx_wslot(side, side, xy[..., 0], xy[..., 1])
+    aw = torch.rand(nh, lq, p, device=dev, generator=GEN) / 12
+    v = t(1, nh, side * side, d).to(dtype)
+    return (wide_map(v, side).reshape(nh, side * side, 4 * d), idx.contiguous(),
+            (wslot * aw[..., None]).transpose(-1, -2).contiguous())
+
+
+def onehot_ab(parent_tree: Path, work: Path, bad: list) -> None:
+    """B15 (``onehot_gather.cu`` ``iuvl_onehot_level_fwd``) at ONEHOT_SHAPES:
+    rel L2 to the plain version (chip_smoke.py's bound, 3e-5), two launches
+    bit-equal, the parent's bits (head width 64), times in turns, the plain
+    version, ``embedding_bag`` over the wide map's (cell, slot) rows (the
+    weights rounded per point), the bound (bytes) and each tree's device
+    time."""
+    from iuvl_tpu_torch.ops.cuda import onehot_gather as og
+
+    lib = compile_source(parent_tree, work, "onehot")
+    for tag, side, dtype, p, d in ONEHOT_SHAPES:
+        v4, idx, wslot = onehot_level(side, dtype, p, d)
+        bh, cells, _ = v4.shape
+        lq = idx.shape[1]
+
+        def parent():
+            out = torch.empty((bh, lq, d), dtype=v4.dtype, device="cuda")
+            assert lib.iuvl_onehot_level_fwd(*ptr(v4, idx, wslot, out), bh, cells, lq, p,
+                                             int(v4.dtype == torch.bfloat16), stream()) == 0
+            return out
+
+        new = lambda: og.onehot_deform_level_forward(v4, idx, wslot, p)  # noqa: E731
+        label = (f"onehot@{tag} (BH {bh}, {cells} cells, Lq {lq}, P {p}, d {d}, "
+                 f"{str(dtype)[6:]})")
+        out = torch.empty((bh, lq, d), dtype=v4.dtype, device="cuda")
+        ab_report(label, new, parent if d == 64 else None,
+                  lambda: og.onehot_deform_level_forward_plain(v4, idx, wslot, p),
+                  bound_of((v4, idx, wslot, out), 0), bad, 3e-5, work)
+        if d == 64 and not torch.equal(new(), parent()):
+            bad.append(f"{label}: not the parent's bits")
+        table = v4.reshape(bh * cells * 4, d)
+        heads = torch.arange(bh, device="cuda").view(bh, 1, 1, 1)
+        slots = torch.arange(4, device="cuda").view(1, 1, 4, 1)
+        rows = ((heads * cells + idx.long()[:, :, None]) * 4 + slots).reshape(-1, 4 * p)
+        wts = wslot.reshape(-1, 4 * p).to(v4.dtype)
+        bag = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            rows, table, per_sample_weights=wts, mode="sum")
+        print(f"{label}: embedding_bag {ms(bag):.4f} ms", flush=True)
+        del v4, idx, wslot, out, table, rows, wts
         torch.cuda.empty_cache()
 
 
@@ -1297,7 +1511,8 @@ MODES = {"rowbias": rowbias_ab, "flash": flash_ab, "seg_scatter": seg_ab, "i2t":
          "window_block": window_block_ab, "rowbias_proj": rowbias_proj_ab,
          "block_tail": block_tail_ab, "decode_tail": decode_tail_ab,
          "window_block_bwd": window_block_bwd_ab, "block_tail_bwd": block_tail_bwd_ab,
-         "msdeform_fwd": msdeform_fwd_ab, "deform_scatter": deform_scatter_ab}
+         "msdeform_fwd": msdeform_fwd_ab, "deform_scatter": deform_scatter_ab,
+         "deform_gather": deform_gather_ab, "deform_glue": deform_glue_ab, "onehot": onehot_ab}
 
 
 def main() -> int:
