@@ -1,6 +1,6 @@
 """Drive the port's SAM serving paths, automatic mask generation, its seg
-train step, its seg eval and its interactive segmentation on one CUDA card,
-and check them.
+train step, its seg and vision-language evals and its interactive
+segmentation on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -140,6 +140,17 @@ Phases (any failure raises, so the exit code is non-zero):
    'hybrid' and plain fp32, the kernel path held to the same gate, and one
    batch-2 'auto' train step through the kernels (B7 and B8), each with
    the launches of head width 64 and finite outputs and gradients.
+   Then the vision-language evals (``vl_eval_phase``): the same SysLearner
+   with the retrieval ensemble on, through the same five paths, on one
+   seeded 1024^2 image: grounding of two phrases, retrieval (plain and
+   ensemble), zero-shot classification against the 133 COCO class
+   embeddings, and 20-step greedy captioning, KV-cached and by full
+   re-run. Each kernel path no further from fp32 than SLICE_FACTOR times
+   its impl's plain bf16 path's, where a discrete choice is taken along
+   fp32's (the grounding's matched queries, the captions' ids: each step's
+   logits teacher-forced); on plain fp32 the two captioning modes' ids
+   equal (or part at a near-tie). Launches checked a call; ms a phrase, an
+   image and a caption printed with the card.
 7. interactive: the full-width SysLearner (bf16, seeded weights), one
    seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
    clicks at their conv-dt argmax; ``encode_interactive`` once, then the
@@ -3003,6 +3014,213 @@ def eval_phase(dev) -> dict:
     return totals
 
 
+VL_STEPS = 20  # greedy captioning steps (the pipeline's CAPTIONING_STEPS)
+VL_PHRASES = 2  # grounding phrases of 8-20 words, padded to 77 tokens
+SOT, EOT = 49406, 49407
+
+
+def _recording(fn, into: list):
+    """``fn``, each of its results also appended to ``into``."""
+    def wrapped(*a, **kw):
+        into.append(fn(*a, **kw))
+        return into[-1]
+    return wrapped
+
+
+def _replaying(outs: list):
+    """A stand-in answering its calls with ``outs``, in order."""
+    it = iter(outs)
+    return lambda *a, **kw: next(it)
+
+
+def _vl_gate(label: str, got: dict, failed: list) -> str:
+    """``got[path]`` (one tensor, or a list pooled) of each kernel path
+    against its EVAL_GATES yardstick, as rel L2 to plain_fp32's: a log
+    line; a ratio over SLICE_FACTOR is appended to ``failed``."""
+    flat = {p: torch.cat([x.float().flatten() for x in v]) if isinstance(v, list)
+            else v.float().flatten() for p, v in got.items()}
+    parts = []
+    for path, y in EVAL_GATES.items():
+        e, ey = rel_l2(flat[path], flat["plain_fp32"]), rel_l2(flat[y], flat["plain_fp32"])
+        if not e <= SLICE_FACTOR * ey:
+            failed.append(f"{label} {path}: {e:.3e} > {SLICE_FACTOR} x {y}'s {ey:.3e}")
+        parts.append(f"{path} {e:.3e} / {y} {ey:.3e} ({e / ey:.3f})")
+    return f"vl {label}: rel L2 to plain_fp32 " + "; ".join(parts)
+
+
+def vl_eval_phase(dev, smi: str) -> dict:
+    """The vision-language evals at full width: EVAL_CONFIG with the
+    retrieval ensemble on seeded random weights, through every path of
+    EVAL_PATHS, on one seeded 1024^2 image: ``evaluate_grounding`` for
+    each of VL_PHRASES phrases (``encode_text_tokens``), then again along
+    plain_fp32's matched queries and mask attention; ``evaluate_retrieval`` and
+    ``evaluate_retrieval_ensemble``; zero-shot classification against the
+    133 COCO panoptic class embeddings; greedy captioning over VL_STEPS
+    steps, KV-cached and by full re-run, then both teacher-forced along
+    plain_fp32's ids. Launches checked a call (each encodes the image
+    once). Gated, each kernel path against its impl's plain bf16 path at
+    SLICE_FACTOR, where a discrete choice is taken along plain_fp32's: the
+    grounding masks along fp32's queries and mask attention (each decoder
+    layer's cross-attention bias thresholds the previous layer's logits:
+    fp32's are recorded and replayed; a sound bf16 path's greedy masks
+    read 2-19% from fp32's on one image, ratios 0.4-7.8), both retrieval
+    embeddings, the classification logits, and each captioning mode's
+    per-step logits along fp32's ids. On plain_fp32 the two captioning
+    modes' ids must be equal, or part at a near-tie (a top-2 margin under
+    the modes' logit difference). Printed: ms a phrase, an image and a
+    caption, and the kernel paths' agreement with fp32's queries and ids
+    (not gated). Returns the kernel paths' launch totals."""
+    from iuvl_tpu_torch.data.class_names import get_class_names
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.pipeline import class_text_embeddings
+
+    cfg = SysLearnerConfig(**EVAL_CONFIG, retrieval_ensemble=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    models, weights = {}, None
+    for path, (attn, msdeform, dtype) in EVAL_PATHS.items():
+        pcfg = dataclasses.replace(cfg, attn_impl=attn, msdeform_impl=msdeform, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev,
+                                        generator=gen if weights is None else None).eval()
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    log(f"vl: {len(models)} x SysLearner (retrieval_ensemble) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rs = np.random.RandomState(SEED + 61)
+    image = torch.from_numpy(rs.rand(1, cfg.img_size, cfg.img_size, 3).astype(np.float32)
+                             * 255).to(dev)
+    ids = np.zeros((VL_PHRASES, cfg.contxt_len), np.int64)
+    for i in range(VL_PHRASES):
+        k = rs.randint(8, 21)
+        ids[i, : k + 2] = [SOT, *rs.randint(1, SOT - 6, k), EOT]
+    ids = torch.from_numpy(ids).to(dev)
+    valid = ids > 0
+    names = get_class_names("coco_panoptic")
+    totals: dict = {}
+    texts: dict = {}
+    out = {path: {} for path in models}
+    ms = {path: {} for path in models}
+
+    def timed(path, label, fn):
+        """fn() with its launches checked and its host ms kept."""
+        reset_launches()
+        res, secs = synced(fn)
+        counts = launches()
+        impl = EVAL_PATHS[path][1]
+        check_launches(f"vl {label} {path}", counts,
+                       PER_IMAGE[impl] if path.startswith("kernels") else {})
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        ms[path].setdefault(label, []).append(secs * 1e3)
+        return res
+
+    with torch.no_grad():
+        for path, m in models.items():
+            o = out[path]
+            o["tok"], o["cls"] = tok, cls = m.encode_text_tokens(ids)
+            for i in range(VL_PHRASES):
+                biases = []  # each decoder layer's cross-attention bias
+                with _patched(m.predictor, "_attn_bias_from_mask", _recording(
+                        m.predictor._attn_bias_from_mask, biases)):
+                    masks, matched = timed(path, "grounding", lambda: m.evaluate_grounding(
+                        image, tok[i:i + 1], valid[i:i + 1], cls[None, i:i + 1],
+                        return_matched=True))
+                o.setdefault("matched", []).append(matched)
+                o.setdefault("greedy_masks", []).append(masks)
+                o.setdefault("biases", []).append(biases)
+            o["retrieval"] = timed(path, "retrieval", lambda: m.evaluate_retrieval(image))
+            o["ensemble"] = timed(path, "retrieval_ensemble",
+                                  lambda: m.evaluate_retrieval_ensemble(image))
+            dtype = EVAL_PATHS[path][2]
+            if dtype not in texts:
+                texts[dtype], text_s = synced(lambda: class_text_embeddings(m, names))
+                log(f"vl: class embeddings {tuple(texts[dtype].shape)} in {dtype} "
+                    f"{text_s * 1e3:.1f} ms")
+            o["class_logits"] = o["retrieval"] @ texts[dtype][:-1].t()
+            for mode, fn in (("cached", m.evaluate_captioning_cached),
+                             ("full", m.evaluate_captioning)):
+                o[f"ids_{mode}"], o[f"logits_{mode}"] = timed(
+                    path, f"captioning_{mode}",
+                    lambda: fn(image, steps=VL_STEPS, return_logits=True))
+    ref = out["plain_fp32"]
+    # plain_fp32's two captioning modes: the same ids, or parted at a near-tie.
+    ids_c, ids_f = ref["ids_cached"], ref["ids_full"]
+    lc, lf = ref["logits_cached"], ref["logits_full"]
+    top2 = lc.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[0]
+    diff = (lc - lf).abs().amax(dim=-1)[0]
+    part = (ids_c != ids_f).nonzero()
+    if len(part):
+        step = int(part[0, 1]) - 1
+        if not float(margin[step]) < float(diff[step]):
+            raise RuntimeError(f"vl captioning: plain_fp32's cached and full ids part at step "
+                               f"{step} with a top-2 margin {float(margin[step]):.3e} over the "
+                               f"modes' logit difference {float(diff[step]):.3e}")
+    log(f"vl captioning plain_fp32: cached and full ids "
+        f"{'equal' if not len(part) else f'part at step {int(part[0, 1]) - 1} (near-tie)'}; "
+        f"smallest top-2 margin {float(margin.min()):.3e}, largest cached / full logit "
+        f"difference {float(diff.max()):.3e}")
+    teacher = ids_c
+    with torch.no_grad():
+        for path, m in models.items():
+            if path == "plain_fp32":
+                continue
+            o = out[path]
+            tok, cls = o["tok"], o["cls"]
+            o["forced_masks"] = []
+            for i in range(VL_PHRASES):
+                with _patched(m.predictor, "_attn_bias_from_mask",
+                              _replaying(ref["biases"][i])):
+                    o["forced_masks"].append(timed(
+                        path, "grounding_forced", lambda: m.evaluate_grounding(
+                            image, tok[i:i + 1], valid[i:i + 1], cls[None, i:i + 1],
+                            matched=ref["matched"][i])))
+            for mode, fn in (("cached", m.evaluate_captioning_cached),
+                             ("full", m.evaluate_captioning)):
+                o[f"forced_{mode}"] = timed(path, f"captioning_{mode}_forced", lambda: fn(
+                    image, steps=VL_STEPS, forced_ids=teacher, return_logits=True))[1]
+    ref["forced_masks"] = ref["greedy_masks"]
+    ref["forced_cached"], ref["forced_full"] = lc, lf
+    failed: list = []
+    log(_vl_gate("grounding masks, greedy (not gated)", {
+        p: o["greedy_masks"] for p, o in out.items()}, []))
+    for label, key in (("grounding masks (fp32's queries and mask attention)", "forced_masks"),
+                       ("retrieval embedding", "retrieval"),
+                       ("ensemble backbone embedding", "ensemble"),
+                       ("classification logits (133 classes)", "class_logits"),
+                       ("captioning logits cached (fp32's ids)", "forced_cached"),
+                       ("captioning logits full (fp32's ids)", "forced_full")):
+        got = {p: (o[key][1] if key == "ensemble" else o[key]) for p, o in out.items()}
+        log(_vl_gate(label, got, failed))
+    steps = min(VL_STEPS, cfg.contxt_len - 1)
+    for path in EVAL_GATES:
+        o = out[path]
+        same_q = sum(bool(torch.equal(a, b)) for a, b in zip(o["matched"], ref["matched"]))
+        flips = [sum(int((a != b).sum()) for a, b in zip(mine, fp32)) / sum(
+            b.numel() for b in fp32) for mine, fp32 in zip(o["biases"], ref["biases"])]
+        agree = {mode: int((o[f"ids_{mode}"][0, 1: steps + 1]
+                            == teacher[0, 1: steps + 1]).sum()) for mode in ("cached", "full")}
+        top5 = set(o["class_logits"][0].topk(5).indices.tolist()) == set(
+            ref["class_logits"][0].topk(5).indices.tolist())
+        log(f"vl {path} vs plain_fp32 (not gated): grounding queries {same_q}/{VL_PHRASES} the "
+            f"same, mask-attention bits that differ {[f'{x:.2e}' for x in flips]} a phrase; "
+            f"caption ids the same at {agree['cached']}/{steps} steps cached, "
+            f"{agree['full']}/{steps} full; classification top-5 "
+            f"{'the same' if top5 else 'differs'}")
+    for path in models:
+        log(f"vl {path} on {smi}: " + ", ".join(
+            f"{label} ms {[round(t_, 1) for t_ in ts]}" for label, ts in ms[path].items()
+            if not label.endswith("forced")))
+    if failed:
+        raise RuntimeError("vl eval gate failed: " + "; ".join(failed))
+    del models, out
+    torch.cuda.empty_cache()
+    return totals
+
+
 # C9: the deformable core at head width 32 (SYSLEARNER_DIM 256 over 8 heads;
 # JAX's pipeline sets TEXT_WIDTH from it too).
 C9_CONFIG = dict(TRAIN_CONFIG, syslearner_dim=256, text_width=256)
@@ -3328,6 +3546,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(eval_phase(dev))
     log(f"eval phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(vl_eval_phase(dev, smi))
+    log(f"vl eval phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(c9_phase(dev))
     log(f"c9 phase (head width 32): {time.perf_counter() - t0:.1f} s")

@@ -106,6 +106,8 @@ def entries(cfg: SysLearnerConfig) -> list:
     e += pixel_decoder_entries(cfg.pixel_decoder_layers)
     e += predictor_entries()
     e += lang_encoder_entries(cfg.text_layers)
+    if cfg.retrieval_ensemble:
+        linear(e, "backbone_proj", ("backbone_proj",), bias=False)
     return e
 
 

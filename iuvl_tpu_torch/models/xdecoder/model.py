@@ -1,7 +1,10 @@
 """SysLearner — the unified top model, PyTorch port of
 ``iuvl_tpu/models/xdecoder/model.py``: the seg training forward, the seg
-eval forward, the class text embeddings and the interactive path (one
-encode, many prompt decodes through SAM's decoder into the unified one).
+eval forward, the class text embeddings, the interactive path (one
+encode, many prompt decodes through SAM's decoder into the unified one),
+and the vision-language evals: grounding, retrieval (with the backbone
+ensemble of ``retrieval_ensemble``) and greedy captioning, by full re-run
+or KV-cached.
 
 SAM backbone (image encoder with the SimpleFPN; prompt encoder and mask
 decoder, which the seg paths do not read) -> deformable pixel decoder
@@ -22,8 +25,9 @@ from ..sam.build import SAM_VARIANTS, SamConfig, init_random_, target_device
 from ..sam.image_encoder import ImageEncoderViT
 from ..sam.mask_decoder import MaskDecoder
 from ..sam.prompt_encoder import PromptEncoder
+from ...ops.common import linear
 from ...ops.resize import resize_axis
-from .lang_encoder import LanguageEncoder
+from .lang_encoder import LanguageEncoder, _unit
 from .pixel_decoder import DeformablePixelDecoder, MSDeformAttn, sampling_offset_grid
 from .unified_decoder import UnifiedDecoder
 
@@ -72,7 +76,7 @@ class SysLearnerConfig:
 
     def __post_init__(self):
         unported = {"remat": self.remat, "detection": self.detection,
-                    "llm_dim": self.llm_dim, "retrieval_ensemble": self.retrieval_ensemble,
+                    "llm_dim": self.llm_dim,
                     "pixel_decoder": self.pixel_decoder != "msdeform",
                     "msdeform_impl": self.msdeform_impl not in MSDEFORM_IMPLS}
         asked = [k for k, v in unported.items() if v]
@@ -124,6 +128,11 @@ class SysLearner(nn.Module):
         self.lang_encoder = LanguageEncoder(
             width=cfg.text_width, proj_dim=d, layers=cfg.text_layers, heads=cfg.text_heads,
             context_length=cfg.contxt_len, vocab_size=cfg.vocab_size, dtype=dtype)
+        if cfg.retrieval_ensemble:
+            # The backbone branch of the retrieval ensemble: res5, pooled over
+            # space, into the retrieval space (no bias).
+            res5 = self.image_encoder.neck.down_32[2].out_channels
+            self.backbone_proj = nn.Linear(res5, d, bias=False)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         """Raw RGB (B, H, W, 3) -> normalised fp32."""
@@ -136,10 +145,21 @@ class SysLearner(nn.Module):
         return self.image_encoder(self.normalize(images), return_fpn=True,
                                   return_embedding=return_embedding)
 
-    def encode_text_embeddings(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, T) token ids -> (B, syslearner_dim) fp32 pooled, projected,
-        unit-length text embeddings."""
-        return self.lang_encoder.forward_language(input_ids)
+    def encode_text_embeddings(self, input_ids: torch.Tensor, attention_mask=None,
+                               norm: bool = True) -> torch.Tensor:
+        """(B, T) token ids -> (B, syslearner_dim) fp32 pooled, projected
+        text embeddings, unit-length with ``norm``. The tower is causal:
+        ``attention_mask`` is not read."""
+        return self.lang_encoder.forward_language(input_ids, norm=norm)
+
+    def encode_text_tokens(self, input_ids: torch.Tensor, attention_mask=None,
+                           norm: bool = False):
+        """(B, T) token ids -> ((B, T, dim) token embeddings, (B, dim) class
+        embedding), fp32 (``LanguageEncoder.forward_language_token``)."""
+        return self.lang_encoder.forward_language_token(input_ids, norm=norm)
+
+    def logit_scale(self) -> torch.Tensor:
+        return self.lang_encoder.logit_scale
 
     def _head(self, fpn, text_embeddings, task: str, **kw):
         mask_features, multi_scale = self.pixel_decoder(fpn)
@@ -162,6 +182,112 @@ class SysLearner(nn.Module):
         h, w = images.shape[1], images.shape[2]
         mask_pred = resize_axis(resize_axis(out["pred_masks"], 2, h, "linear"), 3, w, "linear")
         return out["pred_logits"], mask_pred
+
+    # -- the vision-language evals --------------------------------------------
+    def evaluate_grounding(self, images: torch.Tensor, grounding_tokens: torch.Tensor,
+                           grounding_valid: torch.Tensor, class_emb: torch.Tensor,
+                           matched=None, return_matched: bool = False):
+        """Raw RGB (B, H, W, 3), a phrase's (B, G, C) token embeddings with
+        their (B, G) validity, and (B, T, C) pooled phrase embeddings ->
+        (B, T, H, W) fp32 mask logits: per phrase the mask of the
+        duplicated query whose caption embedding is most like the phrase's,
+        bicubically resized to the input size (``jax.image.resize``'s
+        kernel, not ``F.interpolate``'s). ``matched`` (B, T) gives the
+        queries instead; ``return_matched`` also returns the queries."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        out = self._head(fpn, None, "grounding_eval", grounding_tokens=grounding_tokens,
+                         grounding_valid=grounding_valid)
+        nq = self.cfg.num_queries
+        pred_gmasks = out["pred_masks"][:, nq: 2 * nq - 1]
+        if matched is None:
+            sim = torch.exp(self.lang_encoder.logit_scale) * torch.einsum(
+                "bqc,btc->btq", _unit(out["pred_captions"][:, nq: 2 * nq - 1]),
+                _unit(class_emb))
+            matched = sim.argmax(dim=-1)
+        masks = pred_gmasks[torch.arange(matched.shape[0], device=matched.device)[:, None],
+                            matched]
+        h, w = images.shape[1], images.shape[2]
+        masks = resize_axis(resize_axis(masks, 2, h, "cubic"), 3, w, "cubic")
+        return (masks, matched) if return_matched else masks
+
+    def _class_query_emb(self, fpn: dict) -> torch.Tensor:
+        return _unit(self._head(fpn, None, "seg")["pred_captions"][:, -1])
+
+    def evaluate_retrieval(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, dim) unit embeddings of the images: the class query's caption
+        embedding (retrieval and zero-shot classification)."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        return self._class_query_emb(fpn)
+
+    def backbone_retrieval_emb(self, fpn: dict) -> torch.Tensor:
+        """(B, dim) fp32: res5 averaged over space, through
+        ``backbone_proj`` in the working dtype (flax's bf16 Dense rounds the
+        fp32 mean to bf16 and multiplies there)."""
+        res5 = fpn["res5"]
+        v = res5.float().mean(dim=(1, 2)).to(res5.dtype).float()
+        return linear(v, self.backbone_proj.weight, None, getattr(torch, self.cfg.dtype)).float()
+
+    def evaluate_retrieval_ensemble(self, images: torch.Tensor):
+        """Both unit retrieval embeddings from one encode: (the class
+        query's, the backbone's); the evaluator averages their similarity
+        matrices."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        return self._class_query_emb(fpn), _unit(self.backbone_retrieval_emb(fpn))
+
+    def _caption_loop(self, images, steps: int, sot_id: int, step_row, forced_ids,
+                      return_logits: bool):
+        """The greedy decode both captioning paths share: ids start as
+        ``sot_id`` everywhere; step t's logits row (``step_row(t, ids,
+        id_t)``, (B, dim)) against the token table picks id t + 1, by argmax
+        or from ``forced_ids`` (teacher forcing). Ids stay on the device."""
+        b, ctx = images.shape[0], self.cfg.contxt_len
+        ids = torch.full((b, ctx), sot_id, dtype=torch.long, device=images.device)
+        table = self.lang_encoder.lang_encoder.token_table().float()
+        rows = []
+        for t in range(min(steps, ctx - 1)):
+            logits = step_row(t, ids, ids[:, t]).float() @ table.t()
+            if return_logits:
+                rows.append(logits)
+            ids[:, t + 1] = logits.argmax(dim=-1) if forced_ids is None else forced_ids[:, t + 1]
+        return (ids, torch.stack(rows, dim=1)) if return_logits else ids
+
+    def evaluate_captioning(self, images: torch.Tensor, steps: int = 50, sot_id: int = 49406,
+                            forced_ids=None, return_logits: bool = False):
+        """Greedy caption ids (B, contxt_len), re-running the text tower
+        and the 'vlp' decoder over all the caption slots for every token;
+        the image is encoded once. ``min(steps, contxt_len - 1)`` steps.
+        ``forced_ids`` (B, contxt_len) decodes along given ids, and
+        ``return_logits`` also returns each step's (B, steps, vocab) fp32
+        logits."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        mask_features, multi_scale = self.pixel_decoder(fpn)
+
+        def step_row(t, ids, _):
+            tok_emb, _ = self.lang_encoder.forward_language_token(ids)
+            out = self.predictor(multi_scale, mask_features, logit_scale=self.logit_scale(),
+                                 task="vlp", caption_tokens=tok_emb)
+            return out["pred_captionings"][:, t]
+
+        return self._caption_loop(images, steps, sot_id, step_row, forced_ids, return_logits)
+
+    def evaluate_captioning_cached(self, images: torch.Tensor, steps: int = 50,
+                                   sot_id: int = 49406, forced_ids=None,
+                                   return_logits: bool = False):
+        """:meth:`evaluate_captioning`'s ids with one row a token: the query
+        block runs once (``captioning_prefill``), each step takes one token
+        through the KV-cached text tower and one caption row through the
+        decoder's layers against the cached projections."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        mask_features, multi_scale = self.pixel_decoder(fpn)
+        prefill = self.predictor.captioning_prefill(multi_scale, mask_features)
+        caches = self.predictor.init_caption_cache(images.shape[0])
+        tcaches = self.lang_encoder.init_text_cache(images.shape[0])
+
+        def step_row(t, _, cur_id):
+            e_t, _ = self.lang_encoder.forward_token_step(cur_id, t, tcaches)
+            return self.predictor.caption_decode_step(prefill, caches, e_t, t)[0]
+
+        return self._caption_loop(images, steps, sot_id, step_row, forced_ids, return_logits)
 
     # -- the interactive path: one encode, many prompt decodes --------------
     def decode_prompts(self, sam_embedding, points=None, labels=None, boxes=None, masks=None,
@@ -229,12 +355,13 @@ def init_syslearner_(model: SysLearner, generator: torch.Generator) -> SysLearne
     flax initialises them (query and level tables normal(1), class and
     caption projections normal(0.02)), ``logit_scale`` at CLIP's log(1/0.07),
     and the sampling offsets' bias as the reference's compass grid. The
-    text tower is drawn last, so that the other weights do not depend on
-    its size: its linear layers as ``init_random_`` draws them, the token,
+    text tower is drawn after them, so that the other weights do not depend
+    on its size: its linear layers as ``init_random_`` draws them, the token,
     positional and ``lang_proj`` tables as flax does (truncated normal,
-    std 0.02)."""
+    std 0.02); ``backbone_proj`` (with ``retrieval_ensemble``) last, as flax
+    does (truncated normal, std 0.02)."""
     for name, child in model.named_children():
-        if name != "lang_encoder":
+        if name not in ("lang_encoder", "backbone_proj"):
             init_random_(child, generator)
     pred = model.predictor
     for t in (pred.query_feat, pred.query_embed, pred.level_embed, pred.pos_embed_caping,
@@ -252,6 +379,8 @@ def init_syslearner_(model: SysLearner, generator: torch.Generator) -> SysLearne
     for t in (lang.lang_encoder.token_embedding, lang.lang_encoder.positional_embedding,
               lang.lang_proj):
         _trunc_normal_(t, 0.02, generator)
+    if model.cfg.retrieval_ensemble:
+        _trunc_normal_(model.backbone_proj.weight, 0.02, generator)
     return model
 
 

@@ -1,16 +1,21 @@
-"""The seg and interactive evaluations, PyTorch port of three parts of
-``iuvl_tpu/pipeline.py``: ``class_text_embeddings`` (the class-name
-embeddings with the prompt ensemble), the seg-mode body of
-``_evaluate_dataset`` (``evaluate_seg``, then semantic inference into the
-mIoU evaluator, the panoptic merge into the PQ evaluator and instance
-inference into the AP evaluator) and ``_evaluate_interactive`` (the click
-loop, or the single-shot box / stroke prompts, into the NoC evaluator).
+"""The evaluations, PyTorch port of these parts of ``iuvl_tpu/pipeline.py``:
+``class_text_embeddings`` (the class-name embeddings with the prompt
+ensemble), the seg-mode body of ``_evaluate_dataset`` (``evaluate_seg``,
+then semantic inference into the mIoU evaluator, the panoptic merge into
+the PQ evaluator and instance inference into the AP evaluator),
+``_evaluate_interactive`` (the click loop, or the single-shot box / stroke
+prompts, into the NoC evaluator), and the vision-language modes:
+``_evaluate_grounding`` (each phrase's mask into the IoU evaluator),
+``_evaluate_captioning`` (greedy ids, decoded, into BLEU-4 / CIDEr-D),
+``_evaluate_retrieval`` (recall@k, with the backbone ensemble when the
+model has it) and ``_evaluate_classification`` (zero-shot top-k).
 
-It works over in-memory batches; the dataset layer (``build_dataset``, the
-loaders) and the other eval modes are not ported yet. The model's outputs
+It works over in-memory batches and items; the dataset layer
+(``build_dataset``, the loaders) is not ported yet. The model's outputs
 stay where the model runs: semantic argmax and instance top-k run there,
 and only the argmax map, the kept instance masks and the panoptic merge's
-inputs come to the host.
+inputs come to the host; a caption's ids come to the host once, after its
+last step.
 """
 
 from __future__ import annotations
@@ -25,13 +30,15 @@ from .data.class_names import COCO_THING_IDS
 from .data.prompts import clean_class_name, get_prompt_templates
 from .data.tokenizer import build_tokenizer
 from .data.visual_sampler import box_points
-from .evaluation import (InstanceAPEvaluator, InteractiveEvaluator, PanopticEvaluator,
-                         SemSegEvaluator)
+from .evaluation import (CaptioningEvaluator, ClassificationEvaluator, GroundingEvaluator,
+                         InstanceAPEvaluator, InteractiveEvaluator, PanopticEvaluator,
+                         RetrievalEvaluator, SemSegEvaluator)
 from .inference.interactive import make_interactive_loop, sample_fn_click, single_shot_eval
 from .inference.postprocess import instance_inference, panoptic_merge, semantic_inference
 
 IGNORE = 255  # the gt label of pixels no mask covers (detectron2's ignore label)
 OBJECT_MASK_THRESHOLD = 0.8  # the panoptic merge's class-score cut (step1.yaml TEST)
+CAPTIONING_STEPS = 20  # greedy steps a caption (the JAX pipeline's default)
 
 
 @torch.no_grad()
@@ -193,4 +200,122 @@ def evaluate_interactive_batches(model, items: Iterable[dict], name: str = "inte
                        torch.from_numpy(np.asarray(firsts, np.float32)).to(dev), gen)
         for traj in ious.cpu().numpy().T:
             evaluator.process(traj)
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}
+
+
+def resize_hwc_np(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """Bilinear resize of an (H, W, C) array to (nh, nw, C) on the host:
+    half-pixel sample positions clamped to the image, the two taps each way
+    clamped too (the JAX package's ``data/augment._resize``)."""
+    h, w = image.shape[:2]
+    ys = np.clip(((np.arange(nh) + 0.5) * h / nh - 0.5), 0, h - 1)
+    xs = np.clip(((np.arange(nw) + 0.5) * w / nw - 0.5), 0, w - 1)
+    y0, x0 = np.floor(ys).astype(int), np.floor(xs).astype(int)
+    y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+    fy = (ys - y0)[:, None, None]
+    fx = (xs - x0)[None, :, None]
+    f = image.astype(np.float32)
+    top = f[y0][:, x0] * (1 - fx) + f[y0][:, x1] * fx
+    bot = f[y1][:, x0] * (1 - fx) + f[y1][:, x1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def resize_chw_np(x: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(C, h', w') logits -> (C, h, w), :func:`resize_hwc_np` on the host."""
+    return resize_hwc_np(np.moveaxis(x, 0, -1), h, w).transpose(2, 0, 1)
+
+
+def _image(item: dict, dev) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(item["image"], np.float32)[None]).to(dev)
+
+
+@torch.no_grad()
+def evaluate_grounding_items(model, items: Iterable[dict], name: str = "grounding") -> dict:
+    """JAX's ``_evaluate_grounding`` over ``items``, dicts of numpy arrays:
+    ``image`` (H, W, 3) raw RGB, ``text_ids`` / ``text_mask`` (n, T) of the
+    phrases (``texts`` names them: phrases past ``len(texts)`` are padding,
+    at least one is read), ``gt_mask`` (h0, w0) bool. Each phrase's mask
+    logits (``evaluate_grounding``) at their input size; where the gt is
+    smaller (the image resized on its longest side and padded), cropped to
+    the resized extent and resized to the gt on the host; foreground where
+    positive. Returns the evaluator's metrics keyed ``<name>/<metric>``."""
+    dev = next(model.parameters()).device
+    evaluator = GroundingEvaluator()
+    for item in items:
+        ids = torch.from_numpy(np.asarray(item["text_ids"])).to(dev)
+        valid = torch.from_numpy(np.asarray(item["text_mask"]).astype(bool)).to(dev)
+        token_emb, class_emb = model.encode_text_tokens(ids)
+        image = _image(item, dev)
+        gt = np.asarray(item["gt_mask"])
+        for si in range(min(max(1, len(item.get("texts", ()))), token_emb.shape[0])):
+            masks = model.evaluate_grounding(image, token_emb[si][None], valid[si][None],
+                                             class_emb[None, si: si + 1])
+            logits = masks[0, 0].float().cpu().numpy()
+            if gt.shape != logits.shape:
+                h0, w0 = gt.shape
+                scale = logits.shape[0] / max(h0, w0)
+                rh, rw = round(h0 * scale), round(w0 * scale)
+                logits = resize_chw_np(logits[None, :rh, :rw], h0, w0)[0]
+            evaluator.process(logits > 0, gt)
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}
+
+
+@torch.no_grad()
+def evaluate_captioning_items(model, items: Iterable[dict], name: str = "captioning",
+                              steps: int = CAPTIONING_STEPS, cached: bool = True,
+                              tokenizer=None) -> dict:
+    """JAX's ``_evaluate_captioning`` over ``items``: ``image`` (H, W, 3)
+    raw RGB and the reference ``captions`` (or one ``caption``). Greedy
+    ids over ``steps`` steps, KV-cached (``evaluate_captioning_cached``) or,
+    with ``cached=False``, re-running the decoder a token
+    (``evaluate_captioning``), decoded without the special tokens. Returns
+    BLEU-4 and CIDEr-D keyed ``<name>/<metric>``."""
+    dev = next(model.parameters()).device
+    tokenizer = tokenizer or build_tokenizer()
+    decode = model.evaluate_captioning_cached if cached else model.evaluate_captioning
+    evaluator = CaptioningEvaluator()
+    for item in items:
+        ids = decode(_image(item, dev), steps=steps)[0].cpu().numpy()
+        text = tokenizer.batch_decode([ids], skip_special_tokens=True)[0]
+        evaluator.process(text, list(item.get("captions") or [item.get("caption", "")]))
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}
+
+
+@torch.no_grad()
+def evaluate_retrieval_items(model, items: Iterable[dict], name: str = "retrieval") -> dict:
+    """JAX's ``_evaluate_retrieval`` over ``items``: ``image`` (H, W, 3) raw
+    RGB and its caption's ``caption_ids`` (T,). Item i's image embedding
+    (with ``cfg.retrieval_ensemble`` also the backbone's) against every
+    caption's unit embedding; caption i belongs to image i. Returns ir@k,
+    tr@k (k 1, 5) and irtr keyed ``<name>/<metric>``."""
+    dev = next(model.parameters()).device
+    ensemble = model.cfg.retrieval_ensemble
+    evaluator = RetrievalEvaluator(ks=(1, 5), ensemble=ensemble)
+    for i, item in enumerate(items):
+        image, v2 = _image(item, dev), None
+        if ensemble:
+            v, v2 = (x[0].cpu().numpy() for x in model.evaluate_retrieval_ensemble(image))
+        else:
+            v = model.evaluate_retrieval(image)[0].cpu().numpy()
+        ids = torch.from_numpy(np.asarray(item["caption_ids"])[None]).to(dev)
+        evaluator.process(v, i, model.encode_text_embeddings(ids).cpu().numpy(), [i],
+                          image_emb2=v2)
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}
+
+
+@torch.no_grad()
+def evaluate_classification_items(model, text_emb: torch.Tensor, items: Iterable[dict],
+                                  name: str = "classification") -> dict:
+    """JAX's ``_evaluate_classification`` over ``items``: ``image`` (H, W, 3)
+    raw RGB and its class ``label``; ``text_emb`` (K + 1, dim) the class
+    embeddings (:func:`class_text_embeddings`), whose last (background) row
+    is dropped. The image embedding's logits against the K classes on the
+    host. Returns top-1 / top-5 keyed ``<name>/<metric>``."""
+    dev = next(model.parameters()).device
+    text = text_emb.float().cpu().numpy()
+    text = text[:-1] if text.shape[0] > 1 else text
+    evaluator = ClassificationEvaluator(ks=(1, 5))
+    for item in items:
+        v = model.evaluate_retrieval(_image(item, dev)).cpu().numpy()
+        evaluator.process(v @ text.T, np.asarray([item["label"]]))
     return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}

@@ -114,8 +114,8 @@ def test_the_chunk_branch_reads_the_per_op_parameter_tree():
 
 
 def test_decode_tail_plain_matches_decode_tail_xla(setup, plain_out):
-    ref = jdc.decode_tail_xla(*map(jnp.asarray, setup["tail"]), setup["jw"], n_heads=8,
-                              t_valid=T_VALID)
+    ref = jax.jit(lambda *a: jdc.decode_tail_xla(*a, n_heads=8, t_valid=T_VALID))(
+        *setup["tail"], setup["jw"])
     for name, got, want in zip(("tokens_out", "masks_flat", "keys2"), plain_out, ref):
         _close(got, want, name)
 
@@ -274,7 +274,7 @@ def test_gelu_rule_matches_jax():
 
 
 def test_mask_decoder_chunk_matches_jax_chunk_xla(setup):
-    ref = JMaskDecoder(twoway_impl="chunk_xla").apply(setup["params"], *setup["args"])
+    ref = jax.jit(JMaskDecoder(twoway_impl="chunk_xla").apply)(setup["params"], *setup["args"])
     with torch.no_grad():
         out = setup["port"](*map(_t, setup["np_args"]))
     assert set(out) == set(OUT_KEYS)
@@ -347,8 +347,8 @@ def test_decode_tail_at_a_10x10_grid_matches_jax(setup, setup10, ref, interpret)
     decode_tail_xla and the interpret-mode Pallas kernel, and the chunk
     branch against JAX's chunk_xla, at N 100."""
     if ref == "chunk_xla":
-        want = JMaskDecoder(twoway_impl="chunk_xla").apply(
-            setup["params"], *map(jnp.asarray, setup10["np_args"]))
+        want = jax.jit(JMaskDecoder(twoway_impl="chunk_xla").apply)(
+            setup["params"], *setup10["np_args"])
         with torch.no_grad():
             got = setup["port"](*map(_t, setup10["np_args"]))
         for k in OUT_KEYS:
@@ -357,8 +357,12 @@ def test_decode_tail_at_a_10x10_grid_matches_jax(setup, setup10, ref, interpret)
     with torch.no_grad():
         got = dc.decode_tail_plain(*map(_t, setup10["tail"]), setup["port"].tail_weights(), 8,
                                    T_VALID)
-    fn = jdc.decode_tail_xla if ref == "decode_tail_xla" else jdc.decode_tail
-    want = fn(*map(jnp.asarray, setup10["tail"]), setup["jw"], n_heads=8, t_valid=T_VALID)
+    if ref == "decode_tail_xla":
+        want = jax.jit(lambda *a: jdc.decode_tail_xla(*a, n_heads=8, t_valid=T_VALID))(
+            *setup10["tail"], setup["jw"])
+    else:
+        want = jdc.decode_tail(*map(jnp.asarray, setup10["tail"]), setup["jw"], n_heads=8,
+                               t_valid=T_VALID)
     assert got[1].shape == (B, 100, 64)
     for name, g, w in zip(("tokens_out", "masks_flat", "keys2"), got, want):
         _close(g, w, name)
@@ -388,11 +392,12 @@ def test_sam_decode_from_embedding_chunk_matches_jax():
     tm = Sam(SamConfig(**TINY, twoway_impl="chunk")).eval()
     tm.load_state_dict(flax_to_state_dict(params, depth=2), strict=True)
     emb = rs.randn(1, GRID, GRID, C).astype(np.float32) * 0.5
+    decode = jax.jit(lambda p, e, pts, labs: jm.apply(
+        p, e, points=pts, labels=labs, method=JSam.decode_from_embedding))
     for chunk in range(2):
         points = rs.rand(4, 1, 2).astype(np.float32) * 128
         labels = np.ones((4, 1), np.int32)
-        ref = jm.apply(params, jnp.asarray(emb), points=jnp.asarray(points),
-                       labels=jnp.asarray(labels), method=JSam.decode_from_embedding)
+        ref = decode(params, emb, points, labels)
         with torch.no_grad():
             out = tm.decode_from_embedding(_t(emb), _t(points), torch.from_numpy(labels))
         for k in OUT_KEYS:

@@ -31,8 +31,7 @@ from iuvl_tpu_torch.models.xdecoder.model import SysLearner, SysLearnerConfig
 from iuvl_tpu_torch.ops import rel_pos_attention as trpa
 from iuvl_tpu_torch.ops.cuda import flash_attention as tfa
 from tests.test_torch_train import _grad_close, step_matches_jax
-from tests.test_torch_xdecoder import (N_CLASSES, TINY, TINY_SAM, TINY_TEXT, inputs,
-                                       random_params)
+from tests.test_torch_xdecoder import TINY, TINY_SAM, TINY_TEXT, bridged_params, inputs
 
 # iuvl_tpu.ops re-exports a function under the submodule's name
 jrpa = importlib.import_module("iuvl_tpu.ops.rel_pos_attention")
@@ -200,11 +199,8 @@ def _tiny_models(impl):
     ``impl`` on both sides (the parameter tree does not depend on it)."""
     tsb.SAM_VARIANTS["tiny_test"] = TINY_SAM
     jm = JSysLearner(cfg=JConfig(**TINY, **TINY_TEXT, attn_impl=impl, msdeform_impl="auto"))
-    shapes = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
-                        jnp.zeros((N_CLASSES + 1, 32)), method=JSysLearner.warmup))
-    params = random_params(shapes)
     cfg = SysLearnerConfig(**TINY, **TINY_TEXT, attn_impl=impl)
+    params = bridged_params(cfg)
     tm = SysLearner(cfg)
     tm.load_state_dict(convert.flax_to_state_dict(params, cfg), strict=True)
     return jm, params, tm, cfg

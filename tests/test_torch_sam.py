@@ -82,7 +82,7 @@ def _image(seed=1):
 def test_image_encoder_parity(models):
     jm, params, tm = models
     x = jm.apply(params, jnp.asarray(_image()), method=JSam.normalize)
-    emb, fpn = jm.apply(params, x, method=JSam.encode_image)
+    emb, fpn = jax.jit(lambda p, x: jm.apply(p, x, method=JSam.encode_image))(params, x)
     with torch.no_grad():
         temb, tfpn = tm.image_encoder(_t(x))
     _close(temb, emb, "sam_embedding")
@@ -106,10 +106,9 @@ def test_prompt_encoder_parity(models, kind):
     kw = dict(points=points, labels=labels)
     if kind != "points":
         kw.update(boxes=boxes, masks=masks)
-    sparse, dense = jm.apply(
-        params, method=lambda m, **a: m.prompt_encoder(**a),
-        **{k: jnp.asarray(v) for k, v in kw.items()})
-    pe = jm.apply(params, method=lambda m: m.prompt_encoder.get_dense_pe())
+    sparse, dense, pe = jax.jit(lambda p, kw: jm.apply(
+        p, method=lambda m: (*m.prompt_encoder(**kw), m.prompt_encoder.get_dense_pe())))(
+        params, kw)
     with torch.no_grad():
         tsparse, tdense = tm.prompt_encoder(**{k: _t(v) for k, v in kw.items()})
         tpe = tm.prompt_encoder.get_dense_pe()
@@ -127,8 +126,8 @@ def test_mask_decoder_parity(models):
     pe = rs.randn(GRID, GRID, 256).astype(np.float32)
     sparse = rs.randn(3, 3, 256).astype(np.float32)
     dense = rs.randn(3, GRID, GRID, 256).astype(np.float32) * 0.1
-    ref = jm.apply(params, *map(jnp.asarray, (emb, pe, sparse, dense)),
-                   method=lambda m, *a: m.mask_decoder(*a))
+    ref = jax.jit(lambda p, *a: jm.apply(p, *a, method=lambda m, *a: m.mask_decoder(*a)))(
+        params, emb, pe, sparse, dense)
     with torch.no_grad():
         out = tm.mask_decoder(*map(_t, (emb, pe, sparse, dense)))
     assert set(out) == set(ref)
@@ -141,8 +140,10 @@ def test_slice_encode_once_decode_many(models):
     chunks of point prompts, as the serving path runs."""
     jm, params, tm = models
     image = _image(4)[:1]
-    emb = jm.apply(params, jm.apply(params, jnp.asarray(image), method=JSam.normalize),
-                   method=JSam.encode_image)[0]
+    emb = jax.jit(lambda p, x: jm.apply(p, jm.apply(p, x, method=JSam.normalize),
+                                        method=JSam.encode_image)[0])(params, image)
+    decode = jax.jit(lambda p, e, pts, labs: jm.apply(
+        p, e, points=pts, labels=labs, method=JSam.decode_from_embedding))
     with torch.no_grad():
         temb, fpn = tm.encode_image(tm.normalize(_t(image)), return_fpn=False)
     assert fpn is None
@@ -151,8 +152,7 @@ def test_slice_encode_once_decode_many(models):
     for chunk in range(2):
         points = rs.rand(4, 1, 2).astype(np.float32) * 128
         labels = np.ones((4, 1), np.int32)
-        ref = jm.apply(params, emb, points=jnp.asarray(points),
-                       labels=jnp.asarray(labels), method=JSam.decode_from_embedding)
+        ref = decode(params, emb, points, labels)
         with torch.no_grad():
             out = tm.decode_from_embedding(temb, _t(points), _t(labels))
         for k in ("masks", "iou_pred", "upscaled_embedding", "hyper_in"):

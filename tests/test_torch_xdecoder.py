@@ -58,6 +58,25 @@ def random_params(shapes, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def flax_shapes(jm):
+    """The flax parameter tree of the JAX ``SysLearner`` ``jm`` (shapes
+    only): ``init`` of ``warmup``, which traces every branch (6-10 s)."""
+    return jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                        jnp.zeros((N_CLASSES + 1, 32)), method=JSysLearner.warmup))
+
+
+def bridged_params(cfg: SysLearnerConfig, seed: int = 0):
+    """``random_params`` over the flax tree that the weight bridge gives for
+    ``cfg``'s port model: flax's own tree, leaf for leaf
+    (``test_bridge_round_trip_is_exact_and_covers_every_leaf`` holds them
+    equal), made without tracing the JAX model."""
+    with torch.device("meta"):
+        shapes = SysLearner(cfg).state_dict()
+    zeros = {k: torch.zeros(v.shape) for k, v in shapes.items()}
+    return random_params(convert.state_dict_to_flax(zeros, cfg), seed)
+
+
 def tiny_models(text: dict = TINY_TEXT):
     """(JAX model, its params (numpy), port model on the CPU with the same
     weights, port config), with the text tower ``text``."""
@@ -65,11 +84,8 @@ def tiny_models(text: dict = TINY_TEXT):
     tsb.SAM_VARIANTS["tiny_test"] = TINY_SAM
     jm = JSysLearner(cfg=JConfig(**TINY, **text, attn_impl="auto",
                                  msdeform_impl="auto"))
-    shapes = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
-                        jnp.zeros((N_CLASSES + 1, 32)), method=JSysLearner.warmup))
-    params = random_params(shapes)
     cfg = SysLearnerConfig(**TINY, **text)
+    params = bridged_params(cfg)
     tm = SysLearner(cfg)
     tm.load_state_dict(convert.flax_to_state_dict(params, cfg), strict=True)
     return jm, params, tm, cfg
@@ -108,14 +124,20 @@ def setup():
 
 
 def test_bridge_round_trip_is_exact_and_covers_every_leaf(setup):
-    _, params, tm, cfg, *_ = setup
-    sd = convert.flax_to_state_dict(params, cfg)
+    jm, params, tm, cfg, *_ = setup
+    flax_params = random_params(flax_shapes(jm))  # over flax's own tree
+    assert (jax.tree_util.tree_structure(flax_params)
+            == jax.tree_util.tree_structure(params))  # the fixture's tree is flax's
+    for path, ref in jax.tree_util.tree_flatten_with_path(flax_params)[0]:
+        np.testing.assert_array_equal(
+            np.asarray(ref), dict(jax.tree_util.tree_flatten_with_path(params)[0])[path])
+    sd = convert.flax_to_state_dict(flax_params, cfg)
     assert set(sd) == set(tm.state_dict())
     back = convert.state_dict_to_flax(sd, cfg)
     flat_back = {jax.tree_util.keystr(p): v
                  for p, v in jax.tree_util.tree_flatten_with_path(back)[0]}
     unbridged = []
-    for path, ref in jax.tree_util.tree_flatten_with_path(params)[0]:
+    for path, ref in jax.tree_util.tree_flatten_with_path(flax_params)[0]:
         key = jax.tree_util.keystr(path)
         if key not in flat_back:
             unbridged.append("/".join(str(k.key) for k in path))
@@ -166,4 +188,4 @@ def test_unported_tasks_and_options_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UnifiedDecoder(hidden_dim=32, dim_proj=32, num_queries=3, mask_dim=32)(
-            [], None, task="vlp")
+            [], None, task="llm")
