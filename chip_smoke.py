@@ -1,6 +1,6 @@
 """Drive the port's SAM serving paths, automatic mask generation, its seg
-train step, its seg and vision-language evals and its interactive
-segmentation on one CUDA card, and check them.
+and joint step-1 train steps, its seg and vision-language evals and its
+interactive segmentation on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -155,7 +155,7 @@ Phases (any failure raises, so the exit code is non-zero):
    seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
    clicks at their conv-dt argmax; ``encode_interactive`` once, then the
    20-round click loop (20 click slots padded with label -1: 26 tokens a
-   prompt) through ``decode_interactive`` under twoway_impl 'auto' (B4-B6)
+   prompt) through ``decode_interactive`` under twoway_impl 'auto' (B4, B5)
    and 'chunk' (B16 at 32 slots), launches checked each round. The kernel
    path's prompts are replayed through the plain bf16 and fp32 paths: its
    encode products, SAM's prompt decode at rounds 1, 10 and 20 and the
@@ -165,7 +165,20 @@ Phases (any failure raises, so the exit code is non-zero):
    logits, and a sound path reads up to 1.60x on one round). Encode ms, ms
    a round, NoC and mIoU@k, and the p50 prompt latency of bench.py's
    protocol are printed.
-8. prints the kernel table as one JSON line, the nvidia-smi line, and
+8. joint (after the train phases): B4-B6 as autograd functions first
+   (``c11_cases``, after the kernel phase: the forward under autograd the
+   kernel's bits, the backward the plain version's vjp, a dropped keys'
+   cotangent caught); then ``make_joint_train_step`` at full width with
+   every stream (live class text, phrases, grounding, 3 spatial prompts
+   through B4 / B5, 2 VLP images, ``retrieval_ensemble``) through the
+   kernels, plain bf16 and plain fp32 at one set of weights, gated over
+   GATE_BATCHES batches with fp32's matchings, draws and discrete choices
+   (``joint_gate``; the five terms with one value a batch over
+   JOINT_POOL_BATCHES more forward-only batches of their two streams), the
+   gradients checked to reach SAM's decoder, the
+   text tower and ``backbone_proj``; then JOINT_STEPS kernel steps,
+   launches checked, ms a step and peak memory printed.
+9. prints the kernel table as one JSON line, the nvidia-smi line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -2647,7 +2660,8 @@ def loss_gate(models: dict, crits: dict, text, batches: list, grad_batches: int 
         for path in paths:
             model, crit, draw = models[path], crits[path], given_draws(draws)
             with torch.enable_grad():
-                obj = split_seg_outputs(model.forward_seg(images, text), model.cfg.num_queries)
+                obj, _ = split_seg_outputs(model.forward_seg(images, text),
+                                           model.cfg.num_queries)
                 costs, kept = crit.collect_costs(obj, targets, draw, MATCH_POINTS)
                 if assignments is None:
                     assignments = batched_hungarian(costs)
@@ -3321,10 +3335,10 @@ INTERACTIVE_ROUNDS = 20
 INTERACTIVE_GATED = (1, 10, 20)  # rounds whose SAM decode is gated
 LATENCY_CALLS = 20
 # Launches a click round (a prompt batch of the 8 targets, 26 tokens): the
-# per-op decode (B4 three times, B5 twice, B6 once) or B16 once; the unified
-# decoder runs no kernel. The encode: B1-B3 (the pixel decoder's batch-1
+# per-op decode (B4 three times, B5 twice; B6 skipped: no caller reads SAM's
+# masks) or B16 once; the unified decoder runs no kernel. The encode: B1-B3 (the pixel decoder's batch-1
 # core is the plain 'wide' one).
-PER_ROUND = {"auto": {"t2i_stream": 3, "i2t_block_step": 2, "masks_upscale": 1},
+PER_ROUND = {"auto": {"t2i_stream": 3, "i2t_block_step": 2},
              "chunk": {"decode_tail": 1}}
 
 
@@ -3426,7 +3440,7 @@ def interactive_phase(dev) -> dict:
     1024^2 image and 8 synthetic gt masks, first clicks at their
     ``conv_dt_argmax``; ``encode_interactive`` once, then the 20-round
     click loop through ``decode_interactive`` with the kernels, under
-    twoway_impl 'auto' (B4-B6) and then 'chunk' (B16 at 32 slots).
+    twoway_impl 'auto' (B4, B5) and then 'chunk' (B16 at 32 slots).
     Launches checked per round. Gate (:func:`interactive_gate`): the kernel
     path's clicks replayed through the plain bf16 and fp32 paths ('plain' /
     'chunk_plain'). Printed: encode ms, ms a round, launches a round, NoC and
@@ -3516,6 +3530,491 @@ def interactive_phase(dev) -> dict:
     return totals
 
 
+# -- C11: B4-B6 under autograd ------------------------------------------------
+C11_BOUND = 1e-6  # the Functions' backward is the plain vjp itself: it should read 0
+
+
+def _keys_cotangent_dropped(index: int):
+    """A ``plain_vjp`` whose cotangent of the keys (input ``index``) is
+    zero: the planted fault of a backward that loses the keys' gradient."""
+    from iuvl_tpu_torch.ops.common import plain_vjp as sound
+
+    def fault(plain, saved, needs, g, *static):
+        grads = sound(plain, saved, needs, g, *static)
+        grads[index] = torch.zeros_like(grads[index])
+        return grads
+    return fault
+
+
+def c11_cases(dev) -> None:
+    """C11: B4, B5 and B6 as autograd Functions at the spatial stream's
+    shapes (3 one-click prompts, 7 tokens, block 0's batch-1 keys of the
+    64^2 grid for B4 / B5, per-prompt keys for B6; bf16). The forward under
+    autograd gives the kernel's bits (the call under ``no_grad``); the
+    backward of every input equals the plain version's vjp of the same
+    inputs within C11_BOUND; a planted fault (the keys' cotangent dropped)
+    must break the bound."""
+    from iuvl_tpu_torch.ops.cuda import mask_upscale as mu
+    from iuvl_tpu_torch.ops.cuda import twoway_attention as ta
+
+    rs = np.random.RandomState(SEED + 70)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * std).to(dev, dtype)
+
+    n, c, i, p, tok = 4096, ta.C, ta.I, 3, 7
+    cases = (
+        ("t2i_stream", ta, ta.t2i_stream, ta.t2i_stream_plain, 1,
+         (t(p, tok, i, std=0.25), t(1, n, c), t(n, i, std=BIAS_STD), t(i, c, std=c ** -0.5),
+          t(i, std=BIAS_STD), t(i, c, std=c ** -0.5), t(i, std=BIAS_STD)), (ta.HEADS,)),
+        ("i2t_block_step", ta, ta.i2t_block_step, ta.i2t_block_step_plain, 0,
+         (t(1, n, c), t(n, i, std=BIAS_STD), t(p, tok, i), t(p, tok, i), t(i, c, std=c ** -0.5),
+          t(i, std=BIAS_STD), t(c, i, std=i ** -0.5), t(c, std=BIAS_STD),
+          t(c, std=0.1, dtype=torch.float32) + 1, t(c, std=0.1, dtype=torch.float32)),
+         (ta.HEADS,)),
+        ("masks_upscale", mu, mu.masks_upscale, mu.masks_upscale_plain, 0,
+         (t(p, n, c), t(c, c, std=c ** -0.5), t(c // 4, std=BIAS_STD),
+          t(c // 4, std=0.1, dtype=torch.float32) + 1, t(c // 4, std=0.1, dtype=torch.float32),
+          t(c // 4, c // 2, std=(c // 4) ** -0.5), t(c // 8, std=BIAS_STD),
+          t(p, mu.M, c // 8, std=0.25)), ()),
+    )
+    for name, module, fn, plain, keys_at, args, static in cases:
+        with torch.no_grad():
+            bits = fn(*args, *static)
+        inputs = [a.detach().requires_grad_() for a in args]
+        with torch.enable_grad():
+            out = fn(*inputs, *static)
+            g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev).to(out.dtype)
+            got = torch.autograd.grad(out, inputs, g)
+            ref = torch.autograd.grad(plain(*inputs, *static), inputs, g)
+            with _patched(module, "plain_vjp", _keys_cotangent_dropped(keys_at)):
+                faulty = torch.autograd.grad(fn(*inputs, *static), inputs, g)
+        if not torch.equal(out, bits):
+            raise RuntimeError(f"C11 {name}: the forward under autograd is not the kernel's bits")
+        errs = [rel_l2(a, b) for a, b in zip(got, ref)]
+        equal = sum(torch.equal(a, b) for a, b in zip(got, ref))
+        fault_err = rel_l2(faulty[keys_at], ref[keys_at])
+        log(f"C11 {name}: forward under autograd = the kernel's bits; backward vs the plain "
+            f"version's vjp: max rel L2 {max(errs):.3e} over {len(errs)} inputs ({equal} "
+            f"bit-equal; bound {C11_BOUND:g}); keys' cotangent dropped: {fault_err:.3e}")
+        if max(errs) > C11_BOUND:
+            raise RuntimeError(f"C11 {name}: backward rel L2 {max(errs):.3e} > {C11_BOUND}")
+        if not fault_err > C11_BOUND:
+            raise RuntimeError(f"C11 {name}: the planted fault was not caught")
+
+
+# -- The joint step-1 train step ----------------------------------------------
+JOINT_CONFIG = dict(TRAIN_CONFIG, retrieval_ensemble=True)
+JOINT_PATHS = {"plain_fp32": ("plain", "plain", "float32"),  # attn_impl, twoway_impl, dtype
+               "plain_bf16": ("plain", "plain", "bfloat16"),
+               "kernels": ("auto", "auto", "bfloat16")}
+JOINT_STEPS = 3
+# Two VLP images: with one, the retrieval losses' softmax has no negative
+# and reads 0, and backbone_proj gets no gradient.
+JOINT_VLP_BATCH = 2
+JOINT_GRAD_BATCHES = 4  # the gradient groups pooled over the gate's first batches
+JOINT_TERMS = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice", "loss_caption",
+               "loss_grounding_bce", "loss_grounding_dice", "loss_grounding_ce",
+               "loss_spatial_bce", "loss_spatial_dice", "loss_captioning",
+               "loss_retrieval_decoder", "loss_retrieval_backbone")
+# Terms with one value a batch. Over GATE_BATCHES values a sound path's
+# ratio would pass 1.25 about one time in five if the two bf16 paths' errors
+# were independent (an F(16, 16) ratio), so they are pooled over
+# JOINT_POOL_BATCHES more batches: forward only, the two streams they read.
+PER_IMAGE_TERMS = ("loss_spatial_bce", "loss_spatial_dice", "loss_captioning",
+                   "loss_retrieval_decoder", "loss_retrieval_backbone")
+JOINT_POOL_BATCHES = 112
+JOINT_POOL_GROUP = 4  # batches a forward in the pool (4 seg images, 8 VLP images)
+JOINT_OUTPUTS = ("spatial logits", "pred_captionings", "class query", "caption embedding",
+                 "backbone embedding")
+JOINT_GROUPS = GROUPS + ("lang_encoder.", "prompt_encoder.", "mask_decoder.", "backbone_proj.")
+# Parameters that the spatial, caption, grounding and VLP streams reach
+# (JAX's step gives each a nonzero gradient): each prefix must have one
+# parameter with a nonzero, finite gradient on the card.
+JOINT_REACH = ("mask_decoder.transformer.layers.0.cross_attn_token_to_image.k_proj",
+               "mask_decoder.transformer.layers.1.cross_attn_image_to_token.q_proj",
+               "mask_decoder.transformer.final_attn_token_to_image.v_proj",
+               "mask_decoder.output_upscaling", "prompt_encoder.point_embeddings.1",
+               "predictor.sam_query_proj", "predictor.sam_feat_proj",
+               "predictor.pos_embed_caping", "predictor.caping_embed",
+               "lang_encoder.lang_encoder.blocks.0.", "lang_encoder.lang_encoder.token_embedding",
+               "lang_encoder.lang_proj", "lang_encoder.logit_scale", "backbone_proj",
+               "image_encoder.orig_neck")
+# Launches a joint step: the seg and the VLP encodes on the training route
+# (B1 + B9, B3 + B10, B11 forward and backward), the VLP pixel decoder at
+# batch 2 (B7 + B8), the criterion's point sample (B12), SAM's decode of the
+# spatial prompts (B4 three times, B5 twice; B6 skipped: no mask is read).
+JOINT_PER_STEP = {**{k: 2 * v for k, v in PER_STEP[1].items() if k != "tap_scatter"},
+                  "tap_scatter": 10, **DEFORM_STEP, "t2i_stream": 3, "i2t_block_step": 2}
+JOINT_CAPTIONS = ("a man riding a bicycle next to a red car on the street",
+                  "two dogs playing with a ball on the green grass",
+                  "a plate of food with a fork and a knife on a wooden table",
+                  "a group of people standing near a bus at the station")
+JOINT_PHRASES = ("the round object on the upper left", "the large disc in the lower right",
+                 "the small circle at the left edge", "the box in the top right corner",
+                 "the wide rectangle at the bottom left", "the thin bar across the middle",
+                 "the L shaped region at the bottom", "the small round spot in the corner")
+
+
+def joint_loss_keys(n_layers: int = 10) -> set:
+    """The loss keys of JAX's joint step for every stream, 10 kept layers."""
+    sfx = ["_0" if i == n_layers - 1 else f"_{i + 1}" for i in range(n_layers)]
+    per_layer = ("loss_mask_ce", "loss_mask_bce", "loss_mask_dice", "loss_caption",
+                 "loss_grounding_bce", "loss_grounding_dice", "loss_grounding_ce")
+    return {k + s for k in per_layer for s in sfx} | {
+        "loss_spatial_bce_0", "loss_spatial_dice_0", "loss_captioning_0",
+        "loss_retrieval_decoder_0", "loss_retrieval_backbone_0"}
+
+
+def cached_draws(gen: torch.Generator):
+    """A Draw from ``gen`` that gives every name the same tensor each time
+    it is asked: the paths of one batch share their draws."""
+    drawn = {}
+
+    def draw(name: str, shape: tuple) -> torch.Tensor:
+        if name not in drawn:
+            drawn[name] = torch.rand(shape, generator=gen, device=gen.device)
+        return drawn[name]
+    return draw
+
+
+class JointData:
+    """Seeded batches of the joint step at 1024^2: one seg image with the
+    8 ``gt_shapes`` masks at mask stride 4 (a random class and validity
+    each), its step-1 extras from the port's ``Step1ExtrasBuilder`` (6
+    phrases, up to 5 grounding sentences of 24 tokens, ``text`` mode) and
+    ``spatial_prompt_arrays`` (3 ShapeSampler prompts), one template a
+    class of the 134 COCO panoptic names (``ClassPromptBank``, live text),
+    and JOINT_VLP_BATCH VLP images with 77-token captions."""
+
+    def __init__(self, dev, seed: int):
+        from iuvl_tpu_torch.data.class_names import get_class_names
+        from iuvl_tpu_torch.data.step1 import ClassPromptBank, Step1ExtrasBuilder
+        from iuvl_tpu_torch.data.tokenizer import build_tokenizer
+        from iuvl_tpu_torch.data.visual_sampler import ShapeSampler
+
+        self.dev, self.rs = dev, np.random.RandomState(seed)
+        self.tok = build_tokenizer()
+        self.side = JOINT_CONFIG["img_size"]
+        self.masks = gt_shapes(self.side // 4).astype(np.float32)
+        self.builder = Step1ExtrasBuilder(self.tok, mask_hw=self.masks.shape[1:])
+        self.sampler = ShapeSampler(max_candidate=3, seed=seed)
+        self.bank = ClassPromptBank(get_class_names("coco_panoptic"), self.tok)
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def batch(self):
+        """(seg image, text ids, targets, vlp batch, extras) on the card and
+        a Draw."""
+        from iuvl_tpu_torch.data.step1 import spatial_prompt_arrays
+        from iuvl_tpu_torch.losses.criterion import SegTargets
+
+        rs, dev, n = self.rs, self.dev, len(self.masks)
+
+        def on(x, batch_dim=True):
+            x = torch.from_numpy(np.asarray(x))
+            return (x[None] if batch_dim else x).to(dev)
+
+        image = rs.rand(1, self.side, self.side, 3).astype(np.float32) * 255
+        targets = SegTargets(labels=on(rs.randint(0, N_CLASSES, n)), masks=on(self.masks),
+                             valid=on(rs.rand(n) > 0.2))
+        extras = self.builder(JOINT_CAPTIONS[rs.randint(len(JOINT_CAPTIONS))],
+                              list(JOINT_PHRASES), self.masks, mode="text", rs=rs)
+        extras.update(spatial_prompt_arrays(self.sampler, self.masks, 4, rs))
+        extras["grounding_target_valid"] = extras.pop("grounding_valid")
+        extras = {k: on(v) for k, v in extras.items()}
+        text = {k: on(v, False) for k, v in self.bank.sample(rs).items()}
+        caps = self.tok([JOINT_CAPTIONS[j] for j in rs.permutation(len(JOINT_CAPTIONS))[
+            :JOINT_VLP_BATCH]])  # the context length, 77 tokens
+        vlp = {"images": on(rs.rand(JOINT_VLP_BATCH, self.side, self.side, 3).astype(
+                   np.float32) * 255, False),
+               "caption_ids": on(caps["input_ids"], False),
+               "caption_mask": on(caps["attention_mask"], False)}
+        return (on(image, False), text, targets, vlp, extras), cached_draws(self.gen)
+
+
+def _discrete_choices(model, record: bool, taken: dict):
+    """Record (``record``) or replay the step's discrete choices into or
+    from ``taken``: each unified-decoder layer's mask-attention bias (a
+    threshold of the previous layer's mask logits) and each importance
+    sample of uncertain points (a top-k of the detached logits), in call
+    order."""
+    from iuvl_tpu_torch.losses import criterion, grounding
+
+    stack = contextlib.ExitStack()
+    for key, owner, name in (("mask attention", model.predictor, "_attn_bias_from_mask"),
+                             ("criterion points", criterion, "uncertain_point_coords"),
+                             ("grounding points", grounding, "uncertain_point_coords")):
+        calls = taken.setdefault(key, [])
+        stack.enter_context(_patched(owner, name, _recording(getattr(owner, name), calls)
+                                     if record else _replaying(calls)))
+    return stack
+
+
+def _stream_outputs(model, into: dict):
+    """Keep, in ``into``, the spatial stream's mask logits and the VLP
+    outputs that the per-image losses read, as fp32 on the host."""
+    def spatial(*a, **kw):
+        out = spatial_decode(*a, **kw)
+        into["spatial logits"] = out.detach().float().cpu()
+        return out
+
+    def vlp(*a, **kw):
+        out = forward_vlp_train(*a, **kw)
+        for key, name in (("pred_captionings", "pred_captionings"),
+                          ("caption_class_emb", "caption embedding"),
+                          ("backbone_emb", "backbone embedding")):
+            into[name] = out[key].detach().float().cpu()
+        into["class query"] = out["pred_captions"][:, -1].detach().float().cpu()
+        return out
+
+    spatial_decode, forward_vlp_train = model.spatial_decode, model.forward_vlp_train
+    stack = contextlib.ExitStack()
+    stack.enter_context(_patched(model, "spatial_decode", spatial))
+    stack.enter_context(_patched(model, "forward_vlp_train", vlp))
+    return stack
+
+
+def joint_gate(models: dict, losses_of: dict, data: JointData, smi: str) -> None:
+    """Gate each joint loss term (its values over the kept layers) pooled
+    over GATE_BATCHES batches, every path at the same weights with the fp32
+    path's matchings, the same draws, and, where a discrete choice is
+    taken, fp32's (:func:`_discrete_choices`: each decoder layer's mask
+    attention and each importance sample of points, recorded on plain fp32
+    and replayed on the bf16 paths; without the replay one batch's ratio of
+    a sound path reads 0.02-585, as the VL phase's greedy grounding did): the
+    kernel path's rel L2 from fp32 at most SLICE_FACTOR times plain bf16's
+    (loss_gate's rule). The PER_IMAGE_TERMS pool JOINT_POOL_BATCHES more
+    batches (:func:`per_image_pool`); the stream outputs they read
+    (JOINT_OUTPUTS: the spatial prompts' mask logits, the VLP captioning
+    embeddings, class-query and caption embeddings, the backbone embedding)
+    are gated too, pooled over the GATE_BATCHES batches. On the
+    first JOINT_GRAD_BATCHES batches the backward runs too: each parameter
+    group's gradient, pooled over them, is gated the same way, and on the
+    first the kernel path's gradient must be finite and reach every
+    JOINT_REACH prefix. Every path returns JAX's loss keys, finite; the
+    plain paths launch no kernel."""
+    paths = tuple(JOINT_PATHS)
+    want_keys = joint_loss_keys()
+    values = {path: {term: [] for term in JOINT_TERMS} for path in paths}
+    streams = {path: {name: [] for name in JOINT_OUTPUTS} for path in paths}
+    sq = {path: {g: [0.0, 0.0] for g in JOINT_GROUPS} for path in paths[1:]}
+    peak = {path: 0 for path in paths}
+    one = {term: [] for term in JOINT_TERMS}
+    for b in range(GATE_BATCHES):
+        args, draw = data.batch()
+        assignments, ref, per, taken = None, None, {}, {}
+        for path in paths:
+            model = models[path]
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            kept = {}
+            with torch.enable_grad(), _discrete_choices(model, path == paths[0], taken), \
+                    _stream_outputs(model, kept):
+                out = losses_of[path](*args, draw, assignments=assignments)
+                assignments = assignments or out["assignments"]
+                if b < JOINT_GRAD_BATCHES:
+                    model.zero_grad(set_to_none=True)
+                    out["loss_total"].backward()
+                    if b == 0 and path == "kernels":
+                        if not all(bool(torch.isfinite(p.grad).all())
+                                   for p in model.parameters() if p.grad is not None):
+                            raise RuntimeError("joint gate: a non-finite kernel-path gradient")
+                        grads = dict(model.named_parameters())
+                        lost = [pre for pre in JOINT_REACH if not any(
+                            p.grad is not None and bool(p.grad.abs().max() > 0)
+                            for n, p in grads.items() if n.startswith(pre))]
+                        if lost:
+                            raise RuntimeError(f"joint gate: no gradient reaches {lost}")
+                    grad = {g: torch.cat([p.grad.float().flatten()
+                                          for n, p in model.named_parameters()
+                                          if n.startswith(g) and p.grad is not None])
+                            for g in JOINT_GROUPS}
+                    model.zero_grad(set_to_none=True)
+                    if ref is None:
+                        ref = grad
+                    else:
+                        for g in JOINT_GROUPS:
+                            sq[path][g][0] += float(torch.linalg.vector_norm(grad[g] - ref[g]) ** 2)
+                            sq[path][g][1] += float(torch.linalg.vector_norm(ref[g]) ** 2)
+                    del grad
+            peak[path] = max(peak[path], torch.cuda.max_memory_allocated())
+            counts = launches()
+            if path != "kernels" and any(counts.values()):
+                raise RuntimeError(f"joint gate {path}: kernels launched {counts}")
+            keys = {k for k in out if k.startswith("loss_") and k != "loss_total"}
+            if keys != want_keys or not all(bool(torch.isfinite(out[k])) for k in keys):
+                raise RuntimeError(f"joint gate {path}: loss keys {sorted(keys ^ want_keys)} "
+                                   "missing or extra, or a loss not finite")
+            for term in JOINT_TERMS:
+                vals = [float(out[k].detach()) for k in sorted(keys) if k.startswith(term + "_")]
+                values[path][term] += vals
+                per[path, term] = vals
+            for name in JOINT_OUTPUTS:
+                streams[path][name].append(kept[name].flatten())
+            del out, kept
+        del ref, args, draw, taken
+        for term in JOINT_TERMS:
+            ref_t = torch.tensor(per["plain_fp32", term])
+            e = [rel_l2(torch.tensor(per[path, term]), ref_t) if bool(ref_t.abs().sum()) else 0.0
+                 for path in paths[1:]]
+            one[term].append(round(e[1] / e[0], 2) if e[0] else None)
+    t0 = time.perf_counter()
+    per_image_pool(models, data, values)
+    log(f"joint gate: {JOINT_POOL_BATCHES} more batches of the per-image terms in "
+        f"{time.perf_counter() - t0:.1f} s")
+    failed = []
+    for term in JOINT_TERMS:
+        vec = {path: torch.tensor(values[path][term], dtype=torch.float64) for path in paths}
+        e = {path: rel_l2(vec[path], vec["plain_fp32"]) for path in paths[1:]}
+        n = GATE_BATCHES + (JOINT_POOL_BATCHES if term in PER_IMAGE_TERMS else 0)
+        firsts = [f"{k} values {_ratio(vec, k):.3f}" for k in (16, 64, 128)
+                  if term in PER_IMAGE_TERMS and k < len(vec["kernels"])]
+        prefixes = "; ratio over the first " + ", ".join(firsts) if firsts else ""
+        log(f"joint {term} over {n} batches ({len(vec['kernels'])} values): rel L2 to "
+            f"fp32 kernels {e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}; ratio "
+            f"{e['kernels'] / e['plain_bf16']:.3f}{prefixes} (one batch at a time, not gated: "
+            f"{one[term]})")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"{term}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    for name in JOINT_OUTPUTS:
+        vec = {path: torch.cat(streams[path][name]) for path in paths}
+        e = {path: rel_l2(vec[path], vec["plain_fp32"]) for path in paths[1:]}
+        log(f"joint {name} over {GATE_BATCHES} batches ({vec['kernels'].numel()} values): rel L2 "
+            f"to fp32 kernels {e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}; ratio "
+            f"{e['kernels'] / e['plain_bf16']:.3f}")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"{name}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    for g in JOINT_GROUPS:
+        e = {path: (sq[path][g][0] / sq[path][g][1]) ** 0.5 for path in paths[1:]}
+        log(f"joint grad {g[:-1]} over {JOINT_GRAD_BATCHES} batches: rel L2 to fp32 kernels "
+            f"{e['kernels']:.3e} plain bf16 {e['plain_bf16']:.3e}; ratio "
+            f"{e['kernels'] / e['plain_bf16']:.3f}")
+        if not e["kernels"] <= SLICE_FACTOR * e["plain_bf16"]:
+            failed.append(f"grad {g}: {e['kernels']:.3e} > {SLICE_FACTOR} x {e['plain_bf16']:.3e}")
+    log("joint gate: peak memory allocated (GiB) " + ", ".join(
+        f"{path} {v / 2**30:.2f}" for path, v in peak.items()) + f" ({smi})")
+    if failed:
+        raise RuntimeError("joint gate failed: " + "; ".join(failed))
+
+
+def _ratio(vec: dict, k: int) -> float:
+    """The kernel path's rel L2 from fp32 over the first ``k`` values, over
+    plain bf16's."""
+    f = vec["plain_fp32"][:k]
+    return rel_l2(vec["kernels"][:k], f) / rel_l2(vec["plain_bf16"][:k], f)
+
+
+def per_image_pool(models: dict, data: "JointData", values: dict) -> None:
+    """JOINT_POOL_BATCHES more values of each PER_IMAGE_TERMS term on every
+    path, appended to ``values``: forward only, the two streams that these
+    terms read, JOINT_POOL_GROUP batches a forward (their seg images' encode
+    and spatial prompts at once, their VLP images at once), each batch's
+    terms from its own rows through the step's own loss functions
+    (``spatial_stream_losses``, ``vlp_stream_losses``), with the same draws
+    and plain fp32's discrete choices on every path."""
+    from iuvl_tpu_torch.train.train_step import spatial_stream_losses, vlp_stream_losses
+
+    n = JOINT_VLP_BATCH
+    for _ in range(JOINT_POOL_BATCHES // JOINT_POOL_GROUP):
+        group = [data.batch() for _ in range(JOINT_POOL_GROUP)]
+        image = torch.cat([args[0] for args, _ in group])
+        points, labels = (torch.cat([args[4][k] for args, _ in group])
+                          for k in ("spatial_points", "spatial_labels"))
+        vlp = {k: torch.cat([args[3][k] for args, _ in group]) for k in group[0][0][3]}
+        taken = {}
+        for path in JOINT_PATHS:
+            model = models[path]
+            with torch.no_grad(), _discrete_choices(model, path == "plain_fp32", taken):
+                logits = model.spatial_decode(*model.encode_interactive(image), points, labels)
+                out = model.forward_vlp_train(vlp["images"], vlp["caption_ids"],
+                                              vlp["caption_mask"])
+                for j, ((_, _, _, vlp_j, extras), draw) in enumerate(group):
+                    rows = {k: out[k][n * j: n * (j + 1)] for k in (
+                        "pred_captionings", "pred_captions", "caption_class_emb",
+                        "backbone_emb")}
+                    terms = spatial_stream_losses(logits[j: j + 1], extras, draw, MATCH_POINTS)
+                    terms.update(vlp_stream_losses({**out, **rows}, vlp_j))
+                    for term in PER_IMAGE_TERMS:
+                        values[path][term].append(float(terms[term + "_0"]))
+            del logits, out
+
+
+def joint_phase(dev, smi: str) -> dict:
+    """The step-1 joint train step at full width (ViT-B 1024^2, dim 512, 100
+    proposals, the 12-layer text tower, bf16, ``retrieval_ensemble``):
+    ``make_joint_train_step`` with every stream (live class text, caption
+    phrases, grounding, spatial prompts, VLP). The kernel path, plain bf16
+    and plain fp32 on one set of seeded weights are gated by
+    :func:`joint_gate`; then JOINT_STEPS steps through the kernels, launches
+    checked a step (JOINT_PER_STEP), ms a step and peak memory printed.
+    Returns the kernel path's launch totals."""
+    from iuvl_tpu_torch.losses.criterion import CriterionConfig, SegCriterion
+    from iuvl_tpu_torch.models.xdecoder import convert
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.train.optimizer import Optimizer
+    from iuvl_tpu_torch.train.train_step import TrainState, make_joint_train_step
+
+    cfg = SysLearnerConfig(**JOINT_CONFIG)
+    t0 = time.perf_counter()
+    models, weights = {}, None
+    for path, (attn, twoway, dtype) in reversed(JOINT_PATHS.items()):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn, twoway_impl=twoway, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev, generator=None if weights else
+                                        torch.Generator().manual_seed(SEED + 80))
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    n_params = sum(p.numel() for p in models["kernels"].parameters())
+    log(f"joint: {len(models)} x SysLearner ({n_params / 1e6:.1f} M parameters each) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    crits = {path: SegCriterion(CriterionConfig(num_classes=N_CLASSES),
+                                impl=m.cfg.kernels_impl) for path, m in models.items()}
+    losses_of = {path: make_joint_train_step(m, crits[path], match_points=MATCH_POINTS,
+                                             loss_only=True) for path, m in models.items()}
+    t0 = time.perf_counter()
+    joint_gate(models, losses_of, JointData(dev, SEED + 81), smi)
+    log(f"joint gate: {time.perf_counter() - t0:.1f} s")
+    model = models.pop("kernels")
+    del models, losses_of
+    torch.cuda.empty_cache()
+    state = TrainState(Optimizer(model.named_parameters(), paths=convert.flax_paths(cfg),
+                                 base_lr=1e-4, total_steps=1000))
+    step = make_joint_train_step(model, crits["kernels"], match_points=MATCH_POINTS)
+    data = JointData(dev, SEED + 82)
+    totals = {k: 0 for k in JOINT_PER_STEP}
+    times, peak = [], 0
+    for i in range(JOINT_STEPS):
+        args, draw = data.batch()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (_, metrics), secs = synced(lambda: step(state, *args, draw))
+        times.append(secs)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        counts = launches()
+        check_launches(f"joint step {i}", counts, JOINT_PER_STEP)
+        for k in totals:
+            totals[k] += counts[k]
+        keys = joint_loss_keys()
+        if not keys <= set(metrics) or not all(bool(torch.isfinite(metrics[k])) for k in keys):
+            raise RuntimeError(f"joint step {i}: a loss missing or not finite")
+        log(f"joint step {i}: loss_total {float(metrics['loss_total']):.4f}, grad_norm "
+            f"{float(metrics['grad_norm']):.4f}, {secs * 1e3:.1f} ms; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        del args, draw, metrics
+    mean = float(np.mean(times[1:]))
+    log(f"joint step (ViT-B 1024^2, bf16, kernels): steps 1..{JOINT_STEPS - 1} "
+        f"{[round(s * 1e3, 1) for s in times[1:]]} ms, mean {mean * 1e3:.1f} ms "
+        f"({1 / mean:.3f} seg img/s + {JOINT_VLP_BATCH / mean:.3f} VLP img/s); peak memory "
+        f"allocated {peak / 2**30:.2f} GiB; B4 {JOINT_PER_STEP['t2i_stream']} / B5 "
+        f"{JOINT_PER_STEP['i2t_block_step']} launches a step ({smi})")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = device_phase()
@@ -3527,6 +4026,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.BUILD_DIR})")
     with torch.no_grad():
         rows = kernel_phase(dev)
+    c11_cases(dev)
     grad_switch_phase(dev)
     t0 = time.perf_counter()
     serving = serving_phase(dev)
@@ -3543,6 +4043,9 @@ def main() -> int:
         t0 = time.perf_counter()
         paths.append(train_phase(dev, batch, STEPS, control, impl))
         log(f"train phase, batch {batch}, {impl}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(joint_phase(dev, smi))
+    log(f"joint phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(eval_phase(dev))
     log(f"eval phase: {time.perf_counter() - t0:.1f} s")

@@ -10,6 +10,9 @@ projections (``proj(x + pe) == proj(x) + pe @ W``). A batch-1 image
 embedding stays batch-1 until block 0's image -> token step writes the
 per-prompt keys, which is algebraically the reference's per-prompt tiling.
 The mask output goes through the fused upscale + hypernetwork kernel (B6).
+The three kernels are differentiable (their backward the plain version's
+vjp); under training (``needs_grad``) the weight layouts they take are
+made inside the graph, otherwise once per weight state (``prepared``).
 
 ``twoway_impl='auto'`` runs the kernels on CUDA tensors (their plain
 versions on CPU tensors); ``'plain'`` runs the plain versions everywhere.
@@ -28,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.common import conv_transpose_nhwc, gelu, layer_norm_f32, linear, prepared
+from ...ops.common import (conv_transpose_nhwc, gelu, layer_norm_f32, linear, needs_grad,
+                          prepared)
 from ...ops.cuda.decode_chunk import decode_tail, decode_tail_plain, unflatten_masks_ge
 from ...ops.cuda.mask_upscale import (flat_deconv, masks_upscale, masks_upscale_plain,
                                       unflatten_masks)
@@ -84,7 +88,8 @@ class Attention(nn.Module):
         return linear(out, self.out_proj.weight, self.out_proj.bias, dt)
 
     def weights(self) -> dict[str, torch.Tensor]:
-        """The projections in the working dtype, ``nn.Linear`` layout."""
+        """The projections in the working dtype, ``nn.Linear`` layout:
+        inside the graph when they train, else made once per weight state."""
         names = ("q_proj", "k_proj", "v_proj", "out_proj")
         def make():
             w = {}
@@ -92,6 +97,8 @@ class Attention(nn.Module):
                 lin = getattr(self, name)
                 w[name[0] + "w"], w[name[0] + "b"] = lin.weight.to(self.dtype), lin.bias.to(self.dtype)
             return w
+        if needs_grad(*self.parameters()):
+            return make()
         return prepared(self, "weights", make, *self.parameters())
 
     def token_to_image(self, queries, query_pe, keys, key_pe, impl: str):
@@ -266,12 +273,16 @@ class MaskDecoder(nn.Module):
 
     def upscale_weights(self):
         """The upscale stack in the layout ``masks_upscale`` takes: flat
-        deconv weights and biases in the working dtype, LN2d params fp32."""
+        deconv weights and biases in the working dtype, LN2d params fp32;
+        inside the graph when they train, else made once per weight state."""
         up, dt = self.output_upscaling, self.dtype
-        return prepared(self, "upscale", lambda: (
-            flat_deconv(up[0].weight).to(dt), up[0].bias.to(dt), up[1].weight.float(),
-            up[1].bias.float(), flat_deconv(up[3].weight).to(dt), up[3].bias.to(dt)),
-            *up.parameters())
+
+        def make():
+            return (flat_deconv(up[0].weight).to(dt), up[0].bias.to(dt), up[1].weight.float(),
+                    up[1].bias.float(), flat_deconv(up[3].weight).to(dt), up[3].bias.to(dt))
+        if needs_grad(*up.parameters()):
+            return make()
+        return prepared(self, "upscale", make, *up.parameters())
 
     def upscaled_embedding(self, keys: torch.Tensor, hgrid: int, wgrid: int):
         """(B, 4H, 4W, C/8) from flat keys (B, HW, C): the upscale stack."""
@@ -281,12 +292,15 @@ class MaskDecoder(nn.Module):
         return gelu(conv_transpose_nhwc(y, up[3], dt))
 
     def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
-                dense_prompt_embeddings, return_upscaled: bool = True):
+                dense_prompt_embeddings, return_upscaled: bool = True,
+                return_masks: bool = True):
         """image_embeddings (1 or B, H, W, C) — batch-1 is the
         one-encode/many-decode path; image_pe (H, W, C) or (1|B, H, W, C);
         sparse (B, T, C); dense (1 or B, H, W, C). ``return_upscaled=False``
         skips the (B, 4H, 4W, C/8) upscaled embedding, which the JAX
-        serving program never materialises when only masks are read."""
+        serving program never materialises when only masks are read;
+        ``return_masks=False`` skips the masks (B6), which the spatial
+        train stream never reads (per-op routes only)."""
         dt = self.dtype
         b = sparse_prompt_embeddings.shape[0]
         output_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight])
@@ -303,13 +317,12 @@ class MaskDecoder(nn.Module):
         hyper_in = torch.stack(
             [mlp(hs[:, 1 + i]) for i, mlp in enumerate(self.output_hypernetworks_mlps)],
             dim=1)
-        fn = masks_upscale if self.twoway_impl == "auto" else masks_upscale_plain
-        flat = fn(keys, *self.upscale_weights(), hyper_in.to(dt))
-        out = {
-            "masks": unflatten_masks(flat, hgrid, wgrid, m),
-            "iou_pred": self.iou_prediction_head(hs[:, 0]),
-            "hyper_in": hyper_in,
-        }
+        out = {}
+        if return_masks:
+            fn = masks_upscale if self.twoway_impl == "auto" else masks_upscale_plain
+            flat = fn(keys, *self.upscale_weights(), hyper_in.to(dt))
+            out["masks"] = unflatten_masks(flat, hgrid, wgrid, m)
+        out.update(iou_pred=self.iou_prediction_head(hs[:, 0]), hyper_in=hyper_in)
         if return_upscaled:
             out["upscaled_embedding"] = self.upscaled_embedding(keys, hgrid, wgrid)
         return out

@@ -1,10 +1,11 @@
 """SysLearner — the unified top model, PyTorch port of
-``iuvl_tpu/models/xdecoder/model.py``: the seg training forward, the seg
-eval forward, the class text embeddings, the interactive path (one
-encode, many prompt decodes through SAM's decoder into the unified one),
-and the vision-language evals: grounding, retrieval (with the backbone
-ensemble of ``retrieval_ensemble``) and greedy captioning, by full re-run
-or KV-cached.
+``iuvl_tpu/models/xdecoder/model.py``: the training forwards of the
+step-1 streams (seg with grounding tokens, VLP captioning and retrieval,
+spatial prompts), the seg eval forward, the class text embeddings, the
+interactive path (one encode, many prompt decodes through SAM's decoder
+into the unified one), and the vision-language evals: grounding,
+retrieval (with the backbone ensemble of ``retrieval_ensemble``) and
+greedy captioning, by full re-run or KV-cached.
 
 SAM backbone (image encoder with the SimpleFPN; prompt encoder and mask
 decoder, which the seg paths do not read) -> deformable pixel decoder
@@ -166,11 +167,70 @@ class SysLearner(nn.Module):
         return self.predictor(multi_scale, mask_features, text_embeddings=text_embeddings,
                               logit_scale=self.lang_encoder.logit_scale, task=task, **kw)
 
-    def forward_seg(self, images: torch.Tensor, text_embeddings: torch.Tensor) -> dict:
+    def forward_seg(self, images: torch.Tensor, text_embeddings: torch.Tensor,
+                    grounding_tokens=None, grounding_valid=None) -> dict:
         """Training forward of the seg stream: raw head outputs (the SAM
-        embedding, which it does not read, is not computed)."""
+        embedding, which it does not read, is not computed); with
+        ``grounding_tokens`` (B, G, C) and their (B, G) validity the
+        ``'seg_grounding'`` task."""
         _, fpn = self.encode_image(images, return_embedding=False)
-        return self._head(fpn, text_embeddings, "seg")
+        return self.seg_head(*self.pixel_decoder(fpn), text_embeddings, grounding_tokens,
+                             grounding_valid)
+
+    def seg_head(self, mask_features, multi_scale, text_embeddings, grounding_tokens=None,
+                 grounding_valid=None) -> dict:
+        """:meth:`forward_seg` from the pixel decoder's products: the
+        unified decoder's ``'seg'`` task, or ``'seg_grounding'`` with
+        grounding tokens."""
+        task = "seg" if grounding_tokens is None else "seg_grounding"
+        kw = {} if grounding_tokens is None else dict(grounding_tokens=grounding_tokens,
+                                                      grounding_valid=grounding_valid)
+        return self.predictor(multi_scale, mask_features, text_embeddings=text_embeddings,
+                              logit_scale=self.lang_encoder.logit_scale, task=task, **kw)
+
+    def forward_vlp_train(self, images: torch.Tensor, caption_ids: torch.Tensor,
+                          caption_mask: torch.Tensor) -> dict:
+        """Training forward of the VLP stream: the caption's tokens through
+        the text tower, the ``'vlp'`` task on them (teacher forcing through
+        the causal caption block), and what the captioning and retrieval
+        losses read besides: the pooled caption embedding
+        (``caption_class_emb``), the backbone embedding with
+        ``retrieval_ensemble`` (``backbone_emb``), the token table
+        (projected by ``lang_proj`` when its width is not the decoder's)
+        and ``logit_scale``."""
+        token_emb, class_emb = self.lang_encoder.forward_language_token(caption_ids,
+                                                                        caption_mask)
+        _, fpn = self.encode_image(images, return_embedding=False)
+        out = self._head(fpn, None, "vlp", caption_tokens=token_emb)
+        out["caption_class_emb"] = class_emb
+        if self.cfg.retrieval_ensemble:
+            out["backbone_emb"] = self.backbone_retrieval_emb(fpn)
+        table = self.lang_encoder.lang_encoder.token_table()
+        if table.shape[-1] != self.cfg.syslearner_dim:
+            table = table @ self.lang_encoder.lang_proj
+        out["token_table"] = table
+        out["logit_scale"] = self.lang_encoder.logit_scale
+        return out
+
+    def forward_spatial_train(self, images: torch.Tensor, points: torch.Tensor,
+                              labels: torch.Tensor) -> torch.Tensor:
+        """Training forward of the spatial-prompt stream: raw RGB (B, H, W,
+        3), one click a prompt ((B, P, 2) input-space xy, (B, P) labels, 1
+        positive, -1 pad) -> (B, P, H/4, W/4) mask logits, each prompt
+        decoded by SAM on its own and injected into the unified decoder."""
+        return self.spatial_decode(*self.encode_interactive(images), points, labels)
+
+    def spatial_decode(self, sam_embedding, mask_features, multi_scale, points,
+                       labels) -> torch.Tensor:
+        """:meth:`forward_spatial_train` from the encode products: a batch-1
+        embedding stays batch 1 (broadcast lazily in the decoders), a larger
+        one is repeated a prompt (JAX's ``jnp.repeat``)."""
+        b, p = points.shape[:2]
+        emb = sam_embedding if b == 1 else sam_embedding.repeat_interleave(p, dim=0)
+        logits = self.decode_interactive(emb, mask_features, multi_scale,
+                                         points=points.reshape(b * p, 1, 2),
+                                         labels=labels.reshape(b * p, 1))
+        return logits.reshape(b, p, *logits.shape[1:])
 
     def evaluate_seg(self, images: torch.Tensor, text_embeddings: torch.Tensor):
         """Eval forward: raw RGB (B, H, W, 3) and (K, dim) class embeddings
@@ -291,14 +351,16 @@ class SysLearner(nn.Module):
 
     # -- the interactive path: one encode, many prompt decodes --------------
     def decode_prompts(self, sam_embedding, points=None, labels=None, boxes=None, masks=None,
-                       return_upscaled: bool = True) -> dict:
+                       return_upscaled: bool = True, return_masks: bool = True) -> dict:
         """SAM's prompt decode from a cached (1 or B, H, W, 256) embedding:
         the MaskDecoder dict (``return_upscaled=False`` skips the upscaled
-        embedding, as a JAX program that does not read it never makes it)."""
+        embedding and ``return_masks=False`` the masks, as a JAX program
+        that does not read them never makes them)."""
         sparse, dense = self.prompt_encoder(points=points, labels=labels, boxes=boxes,
                                             masks=masks, batch=sam_embedding.shape[0])
         return self.mask_decoder(sam_embedding, self.prompt_encoder.get_dense_pe(), sparse,
-                                 dense, return_upscaled=return_upscaled)
+                                 dense, return_upscaled=return_upscaled,
+                                 return_masks=return_masks)
 
     def encode_interactive(self, images: torch.Tensor):
         """Raw RGB (B, H, W, 3) -> (sam_embedding, mask_features,
@@ -315,9 +377,10 @@ class SysLearner(nn.Module):
         token's hypernetwork vector as the prompt query and the upscaled
         embedding as the mask-feature modulation; batch-1 caches are
         broadcast to the prompt batch. Returns (N, H/4, W/4) mask logits,
-        one a prompt set."""
+        one a prompt set. SAM's own masks are not made (B6 is skipped): this
+        path does not read them."""
         dec = self.decode_prompts(sam_embedding, points=points, labels=labels, boxes=boxes,
-                                  masks=masks)
+                                  masks=masks, return_masks=False)
         n = dec["hyper_in"].shape[0]
 
         def tile(x):

@@ -25,7 +25,8 @@ Tasks:
   ``pred_interactive_masks``.
 - ``'seg_grounding'`` / ``'grounding_eval'``: the 100 object queries are
   duplicated after the class query, and ``grounding_tokens`` (B, G, C)
-  join the self-attention of every layer (split off again after its FFN);
+  join the self-attention of every layer (split off again after its FFN),
+  their content cut from the gradient, their positions not (as in JAX);
   padded tokens (``grounding_valid`` False) are masked as keys. The heads
   read [obj; cls; dup]; row ``num_queries`` (the first duplicate) attends
   to the whole memory (the reference's quirk).
@@ -328,7 +329,9 @@ class UnifiedDecoder(nn.Module):
                     ~pad, NEG_INF)[:, None, None]
             output = torch.cat([output, output[:, : nq - 1]], dim=1)
             query_pos = torch.cat([query_pos, query_pos[:, : nq - 1]], dim=1)
-            grounding = grounding_pos = grounding_tokens.detach().to(dt)
+            # The content is cut from the gradient, the positions are not.
+            grounding = grounding_tokens.detach().to(dt)
+            grounding_pos = grounding_tokens.to(dt)
         elif task == "vlp":
             self_bias = self._bias(base, output.device)
             output = torch.cat([output, caption_tokens.detach().to(dt)], dim=1)

@@ -37,6 +37,22 @@ def prepared(owner: torch.nn.Module, name: str, make, *params: torch.Tensor):
     return hit[1]
 
 
+def plain_vjp(plain, saved, needs, g, *static):
+    """The cotangents of ``plain(*saved, *static)`` for cotangent ``g``,
+    recomputed under autograd: one per saved input, None where ``needs``
+    is False: the backward of the kernels that have no backward kernel of
+    their own (B4-B6), as JAX's custom VJPs take ``jax.vjp`` of the XLA
+    oracle there."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    if not wanted:
+        return [None] * len(saved)
+    with torch.enable_grad():
+        out = plain(*inputs, *static)
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+    return [next(grads) if n else None for n in needs]
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf GELU in fp32, tanh approximation in bf16
     (``iuvl_tpu/models/sam/image_encoder.py`` ``gelu``)."""

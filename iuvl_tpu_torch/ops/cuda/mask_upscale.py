@@ -11,13 +11,17 @@ A 2x2 / stride-2 transposed conv is a per-site matmul: with the PyTorch
 flat (B, H*W, C) keys and yields logits with columns ordered
 ``(t, di, ei, dj, ej)``; :func:`unflatten_masks` turns them into
 (B, M, 4H, 4W).
+
+:func:`masks_upscale` is differentiable: its backward is the plain
+version's vjp, recomputed under autograd (JAX's ``_bwd`` rule takes
+``jax.vjp`` of ``masks_upscale_xla``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..common import gelu
+from ..common import gelu, plain_vjp
 from .build import launch, require
 
 C, M = 256, 4
@@ -51,10 +55,9 @@ def masks_upscale_plain(keys, w1, b1, lnw, lnb, w2, b2, hyper):
     return out.reshape(b, n, hyper.shape[1] * 16).to(keys.dtype)
 
 
-def masks_upscale(keys, w1, b1, lnw, lnb, w2, b2, hyper):
-    """Fused upscale + hypernetwork mask logits: the CUDA kernel for CUDA
-    tensors (bf16, C 256, 4 mask tokens, any HW >= 1), the plain version
-    for CPU tensors. Arguments as :func:`masks_upscale_plain`."""
+def _upscale_forward(keys, w1, b1, lnw, lnb, w2, b2, hyper):
+    """B6's forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if keys.device.type == "cpu":
         return masks_upscale_plain(keys, w1, b1, lnw, lnb, w2, b2, hyper)
     b, n, c = keys.shape
@@ -74,6 +77,25 @@ def masks_upscale(keys, w1, b1, lnw, lnb, w2, b2, hyper):
            out.data_ptr(), b, n)
     masks_upscale.launches += 1
     return out
+
+
+class _MasksUpscale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _upscale_forward(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(plain_vjp(masks_upscale_plain, ctx.saved_tensors, ctx.needs_input_grad, g))
+
+
+def masks_upscale(keys, w1, b1, lnw, lnb, w2, b2, hyper):
+    """Fused upscale + hypernetwork mask logits: the CUDA kernel for CUDA
+    tensors (bf16, C 256, 4 mask tokens, any HW >= 1), the plain version
+    for CPU tensors; differentiable, its backward the plain version's
+    vjp. Arguments as :func:`masks_upscale_plain`."""
+    return _MasksUpscale.apply(keys, w1, b1, lnw, lnb, w2, b2, hyper)
 
 
 masks_upscale.launches = 0

@@ -12,6 +12,12 @@ Both take the prompt-side tensors unpacked, (B, T, I) with the heads as
 16-wide column slices, and the image keys (Bk, N, C) with Bk 1 (one image
 embedding shared by every prompt) or B. Weights are in ``nn.Linear``
 layout, (out, in).
+
+Both are differentiable: each is a ``torch.autograd.Function`` whose
+forward is the kernel (its plain version on CPU tensors) and whose
+backward is the plain version's vjp on the saved inputs, recomputed under
+autograd, as JAX's custom VJPs take ``jax.vjp`` of the XLA oracle
+(``_t2i_bwd_rule``, ``_i2t_bwd_rule``). No backward kernel exists.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import functools
 
 import torch
 
+from ..common import plain_vjp
 from .build import launch, require
+
 
 C, I, HEADS = 256, 128, 8
 LN_EPS = 1e-5
@@ -71,10 +79,9 @@ def t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
     return _merge(torch.matmul(p, _heads(vp, heads)))
 
 
-def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
-    """Token -> image attention streamed over the keys: the CUDA kernel for
-    CUDA tensors (bf16, C 256, I 128, 8 heads, any T >= 1 and N >= 1), the
-    plain version for CPU tensors."""
+def _t2i_forward(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
+    """B4's forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if keys.device.type == "cpu":
         return t2i_stream_plain(q, keys, pe_wk, wk, bk, wv, bv, heads)
     b, t, i = q.shape
@@ -107,6 +114,27 @@ def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
     return out
 
 
+class _T2IStream(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, keys, pe_wk, wk, bk, wv, bv, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(q, keys, pe_wk, wk, bk, wv, bv)
+        return _t2i_forward(q, keys, pe_wk, wk, bk, wv, bv, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(t2i_stream_plain, ctx.saved_tensors, ctx.needs_input_grad[:7], g,
+                           ctx.heads), None)
+
+
+def t2i_stream(q, keys, pe_wk, wk, bk, wv, bv, heads: int):
+    """Token -> image attention streamed over the keys: the CUDA kernel for
+    CUDA tensors (bf16, C 256, I 128, 8 heads, any T >= 1 and N >= 1), the
+    plain version for CPU tensors; differentiable, its backward the plain
+    version's vjp."""
+    return _T2IStream.apply(q, keys, pe_wk, wk, bk, wv, bv, heads)
+
+
 t2i_stream.launches = 0
 
 
@@ -127,12 +155,9 @@ def i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads:
     return ((y - mu) * torch.rsqrt(var + LN_EPS) * ln_w.float() + ln_b.float()).to(dt)
 
 
-def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
-    """Image -> token block step (attention, out-projection, residual,
-    LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
-    (bf16, C 256, I 128, 8 heads, any T >= 1 (past 64 the kernel takes the
-    tokens in 64-row tiles) and N >= 1; LN params fp32), the plain version
-    for CPU tensors."""
+def _i2t_forward(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
+    """B5's forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if keys.device.type == "cpu":
         return i2t_block_step_plain(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
     b, t, i = kp.shape
@@ -155,6 +180,29 @@ def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
            out.data_ptr(), b, bk_keys, n, t, (I // HEADS) ** -0.5, LN_EPS)
     i2t_block_step.launches += 1
     return out
+
+
+class _I2TBlockStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b)
+        return _i2t_forward(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(i2t_block_step_plain, ctx.saved_tensors, ctx.needs_input_grad[:10],
+                           g, ctx.heads), None)
+
+
+def i2t_block_step(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads: int):
+    """Image -> token block step (attention, out-projection, residual,
+    LayerNorm) in one pass over the keys: the CUDA kernel for CUDA tensors
+    (bf16, C 256, I 128, 8 heads, any T >= 1 (past 64 the kernel takes the
+    tokens in 64-row tiles) and N >= 1; LN params fp32), the plain version
+    for CPU tensors; differentiable, its backward the plain version's
+    vjp."""
+    return _I2TBlockStep.apply(keys, pe_wq, kp, vp, wq, bq, wo, bo, ln_w, ln_b, heads)
 
 
 i2t_block_step.launches = 0

@@ -197,18 +197,23 @@ def test_chunk_decode_configs_are_accepted(twoway_impl):
 
 def test_prepared_layouts_follow_weight_changes():
     """The kernels' weight layouts are made once per weight state: reused
-    while the weights stay, made anew after load_state_dict."""
+    while the weights stay, made anew after load_state_dict. Where autograd
+    records a call on trainable weights they are made inside the graph at
+    every call instead, so that the weights get their gradients."""
     from iuvl_tpu_torch.models.sam.mask_decoder import MaskDecoder
 
     dec = MaskDecoder(transformer_dim=32, transformer_num_heads=2, transformer_mlp_dim=16)
     attn = dec.transformer.layers[0].cross_attn_image_to_token
-    first = attn.weights()
-    assert attn.weights() is first
-    assert dec.upscale_weights() is dec.upscale_weights()
-    state = {k: v + 1 for k, v in dec.state_dict().items()}
     with torch.no_grad():
+        first = attn.weights()
+        assert attn.weights() is first
+        assert dec.upscale_weights() is dec.upscale_weights()
+        state = {k: v + 1 for k, v in dec.state_dict().items()}
         dec.load_state_dict(state)
-    again = attn.weights()
-    assert again is not first
-    torch.testing.assert_close(again["qw"], attn.q_proj.weight)
-    torch.testing.assert_close(dec.upscale_weights()[1], dec.output_upscaling[0].bias)
+        again = attn.weights()
+        assert again is not first
+        torch.testing.assert_close(again["qw"], attn.q_proj.weight)
+        torch.testing.assert_close(dec.upscale_weights()[1], dec.output_upscaling[0].bias)
+    trained = attn.weights()
+    assert trained is not attn.weights() and trained["qw"].requires_grad
+    assert dec.upscale_weights()[0].requires_grad

@@ -246,7 +246,7 @@ def test_criterion_draws_from_a_generator(models):
                          valid=torch.from_numpy(valid))
     crit = SegCriterion(CriterionConfig(num_classes=N_CLASSES, num_points=POINTS))
     with torch.no_grad():
-        obj = split_seg_outputs(tm.forward_seg(_t(images), _t(text)), tm.cfg.num_queries)
+        obj, _ = split_seg_outputs(tm.forward_seg(_t(images), _t(text)), tm.cfg.num_queries)
         totals = [float(sum(crit(obj, targets, generator_draws(torch.Generator().manual_seed(s)),
                                  match_points=POINTS).values()))
                   for s in (3, 3, 4)]

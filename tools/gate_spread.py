@@ -92,7 +92,7 @@ def main() -> None:
             m.pixel_decoder.register_forward_hook(lambda mod, i, o: acts.__setitem__(
                 "pixdec", torch.cat([o[0].float().flatten()]
                                     + [t.float().flatten() for t in o[1]]).detach()))
-            obj = split_seg_outputs(m.forward_seg(image, text), c.num_queries)
+            obj, _ = split_seg_outputs(m.forward_seg(image, text), c.num_queries)
             acts["pred_masks"] = obj["pred_masks"].float().detach().flatten()
             draw = given_draws(draws)
             costs, kept = crits[c.attn_impl].collect_costs(obj, targets, draw, cs.MATCH_POINTS)

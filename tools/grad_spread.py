@@ -320,7 +320,7 @@ def main() -> None:
             with contextlib.ExitStack() as stack:
                 for wrapper, stand_in in patches.get(name, {}).items():
                     stack.enter_context(cs._patched(fa, wrapper, stand_in))
-                obj = split_seg_outputs(m.forward_seg(image, text), m.cfg.num_queries)
+                obj, _ = split_seg_outputs(m.forward_seg(image, text), m.cfg.num_queries)
                 costs, kept = crit.collect_costs(obj, targets, draw, cs.MATCH_POINTS)
                 if assignments is None:  # the first fp32 path's
                     assignments = batched_hungarian(costs)
