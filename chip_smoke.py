@@ -151,6 +151,22 @@ Phases (any failure raises, so the exit code is non-zero):
    logits teacher-forced); on plain fp32 the two captioning modes' ids
    equal (or part at a near-tie). Launches checked a call; ms a phrase, an
    image and a caption printed with the card.
+   Then the LLM stage (``llm_phase``, its memory freed before the next
+   phase): the same SysLearner with ``llm_dim`` 4096 through the kernels
+   ('auto' and 'hybrid'), plain bf16 and plain fp32, and a LLaMA-2-7B-wide
+   LLM (vocab 49408: the offline tokenizer's ids) drawn once in fp32 on the
+   card, its bf16 copy the fp32 weights rounded. One seeded 1024^2 image
+   and one question: ``answer_questions`` greedy over 32 tokens,
+   ``evaluate_vqa_items`` with 5 beams over 8 tokens, and greedy through
+   'hybrid' (B15), launches checked a request (B1 8, B2 4, B3 12, B15 6
+   with 'hybrid'). Gated: the projected image features along plain fp32's
+   mask attention and every step's logits along plain fp32's greedy ids
+   (replayed through each path's cache), the kernels at most SLICE_FACTOR
+   times as far from fp32 as plain bf16; plain fp32's cached logits within CACHE_BOUND of one
+   full-sequence forward; all finite. Then int8 (the fp32 weights
+   quantised): one request, finite logits, projection bytes at most
+   INT8_BYTES of bf16's. Vision, splice, prefill and per-token ms, tok/s,
+   peak memory and one token's device time under torch.profiler printed.
 7. interactive: the full-width SysLearner (bf16, seeded weights), one
    seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
    clicks at their conv-dt argmax; ``encode_interactive`` once, then the
@@ -3235,6 +3251,300 @@ def vl_eval_phase(dev, smi: str) -> dict:
     return totals
 
 
+# The LLM stage (LLaVA-style VQA): LLaMA-2-7B widths over the 49408 ids that
+# the offline tokenizer gives (Vicuna's 32000-row table would embed most prompt
+# words as NaN, as jnp.take does), its 1024-slot cache, seeded random weights.
+LLM_CONFIG = dict(vocab_size=49408, dim=4096, layers=32, heads=32, kv_heads=32, ffn_dim=11008,
+                  max_seq_len=1024)
+LLM_VISION = dict(EVAL_CONFIG, llm_dim=4096)
+# path -> (attn_impl, msdeform_impl, dtype of the vision model and of the LLM)
+LLM_PATHS = {"plain_fp32": ("plain", "auto", "float32"),
+             "plain_bf16": ("plain", "auto", "bfloat16"),
+             "kernels": ("auto", "auto", "bfloat16"),
+             "kernels_hybrid": ("auto", "hybrid", "bfloat16")}
+LLM_GREEDY_TOKENS = 32
+LLM_BEAM_TOKENS, LLM_BEAMS = 8, 5  # evaluate_vqa_items' defaults
+LLM_INT8_TOKENS = 8
+LLM_SPLICE_LEN = 256  # answer_questions' default row (the pipeline's 64 cannot hold 100 features)
+LLM_QUESTION = "what color is the large object in the middle of the picture?"
+CACHE_BOUND = 1e-3  # plain fp32: the cached logits against one full forward, rel L2
+INT8_BYTES = 0.55  # int8 projection bytes over bf16's, at most
+
+
+def _rel_ratio(label: str, got: dict, failed: list) -> str:
+    """``got[path]`` of the kernel path and plain bf16 as rel L2 from
+    plain_fp32's; the kernels' over SLICE_FACTOR times plain bf16's goes to
+    ``failed``."""
+    f = got["plain_fp32"]
+    e, ey = rel_l2(got["kernels"], f), rel_l2(got["plain_bf16"], f)
+    if not e <= SLICE_FACTOR * ey:
+        failed.append(f"{label}: {e:.3e} > {SLICE_FACTOR} x plain_bf16's {ey:.3e}")
+    return f"llm {label}: rel L2 to plain_fp32 kernels {e:.3e} / plain_bf16 {ey:.3e} ({e / ey:.3f})"
+
+
+def _projection_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for k, t in model.state_dict().items()
+               if "_proj." in k)
+
+
+def llm_phase(dev, smi: str) -> dict:
+    """The LLM stage at full width: LLM_VISION (ViT-B 1024^2 with the
+    ``img_to_lang`` projector to 4096) through every path of LLM_PATHS on one
+    set of seeded weights, and a LLaMA-2-7B-wide LLM (LLM_CONFIG) drawn once
+    in fp32 on the card, its bf16 copy the fp32 weights rounded (the kernel
+    paths and plain bf16 share it). One seeded 1024^2 image and LLM_QUESTION:
+    ``answer_questions`` greedy over LLM_GREEDY_TOKENS tokens on the kernels,
+    ``evaluate_vqa_items`` (beam LLM_BEAMS over LLM_BEAM_TOKENS) on the
+    kernels, ``answer_questions`` greedy on the 'hybrid' kernels (B15);
+    launches checked a request. Gated, with plain fp32's discrete choices
+    replayed: the projected image features along fp32's mask attention
+    (each decoder layer's cross-attention bias thresholds the previous
+    layer's mask logits), and each step's logits along fp32's greedy ids,
+    through each path's cache; the kernels at most SLICE_FACTOR times as far
+    from fp32 as plain bf16; on plain fp32 the cached logits against one full-sequence forward
+    over the prompt and its tokens (CACHE_BOUND); every logit finite. Then
+    int8: the fp32 weights quantised, one request through it, its logits
+    finite, its projection bytes at most INT8_BYTES of bf16's. Printed beside
+    the card: vision, splice, prefill and per-token ms, tok/s, peak memory and
+    one greedy token's device time under torch.profiler. Returns the kernel
+    paths' launch totals from their requests."""
+    from iuvl_tpu_torch.data.tokenizer import build_tokenizer
+    from iuvl_tpu_torch.models.llm.llama import LlamaConfig, build_llama
+    from iuvl_tpu_torch.models.llm.multimodal import (beam_generate, greedy_generate,
+                                                      prompt_pad_mask, splice_image_features,
+                                                      tokenizer_image_token)
+    from iuvl_tpu_torch.models.llm.quant import quantize_llama_state_dict
+    from iuvl_tpu_torch.models.llm.vqa_pipeline import (answer_questions, build_vqa_prompt,
+                                                        vqa_inputs)
+    from iuvl_tpu_torch.models.xdecoder.model import SysLearnerConfig, build_syslearner
+    from iuvl_tpu_torch.pipeline import evaluate_vqa_items
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = SysLearnerConfig(**LLM_VISION)
+    models, weights = {}, None
+    for path, (attn, msdeform, dtype) in LLM_PATHS.items():
+        pcfg = dataclasses.replace(cfg, attn_impl=attn, msdeform_impl=msdeform, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev, generator=None if weights else
+                                        torch.Generator().manual_seed(SEED + 90)).eval()
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    t_vision = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lcfg = LlamaConfig(**LLM_CONFIG, dtype="float32", param_dtype="float32")
+    llms = {"float32": build_llama(lcfg, dev, torch.Generator(device=dev).manual_seed(SEED + 91))}
+    llms["bfloat16"] = build_llama(dataclasses.replace(lcfg, dtype="bfloat16",
+                                                       param_dtype="bfloat16"), dev)
+    llms["bfloat16"].load_state_dict(llms["float32"].state_dict())
+    head32, head16 = llms["float32"].lm_head.weight, llms["bfloat16"].lm_head.weight
+    if not torch.equal(head16, head32.to(torch.bfloat16)):
+        raise RuntimeError("llm: the bf16 copy is not the fp32 weights rounded")
+    torch.cuda.synchronize()
+    n_llm = sum(p.numel() for p in llms["float32"].parameters())
+    log(f"llm: {len(models)} x SysLearner (llm_dim {cfg.llm_dim}) built in {t_vision:.1f} s; LLaMA "
+        f"{n_llm / 1e9:.3f} B parameters drawn on the card in fp32 and copied to bf16 in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    rs = np.random.RandomState(SEED + 92)
+    image = torch.from_numpy(rs.rand(1, cfg.img_size, cfg.img_size, 3).astype(np.float32)
+                             * 255).to(dev)
+    tok = build_tokenizer()
+    totals: dict = {}
+    peaks = [torch.cuda.max_memory_allocated()]
+
+    def llm_of(path):
+        return llms[LLM_PATHS[path][2]]
+
+    def request(label, path, fn):
+        """fn() with its launches checked, its host ms and the peak memory
+        above what was allocated before it."""
+        impl = LLM_PATHS[path][1]
+        base = torch.cuda.memory_allocated()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, secs = synced(fn)
+        counts = launches()
+        check_launches(f"llm {label} {path}", counts,
+                       PER_IMAGE[impl] if path.startswith("kernels") else {})
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"llm {label} {path}: {secs * 1e3:.1f} ms; launches "
+            f"{({k: v for k, v in counts.items() if v})}; peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above "
+            f"{base / 2**30:.2f} GiB resident ({smi})")
+        return out
+
+    with torch.no_grad():
+        # The requests through the entry points a user calls.
+        for _ in range(2):  # the first warms the allocator and cuBLAS
+            texts, ids_k = request("greedy request", "kernels", lambda: answer_questions(
+                models["kernels"], llm_of("kernels"), tok, image, [LLM_QUESTION],
+                max_new_tokens=LLM_GREEDY_TOKENS, max_len=LLM_SPLICE_LEN, return_ids=True))
+        item = {"image": image[0].cpu().numpy(), "question": LLM_QUESTION,
+                "answers": [texts[0], "red", "blue"]}
+        metrics = request("beam request (evaluate_vqa_items)", "kernels",
+                          lambda: evaluate_vqa_items(
+                              models["kernels"], llm_of("kernels"), [item], "vqa",
+                              max_new_tokens=LLM_BEAM_TOKENS, num_beams=LLM_BEAMS,
+                              max_len=LLM_SPLICE_LEN))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"llm beam request: non-finite metrics {metrics}")
+        texts_h, ids_h = request("greedy request", "kernels_hybrid", lambda: answer_questions(
+            models["kernels_hybrid"], llm_of("kernels_hybrid"), tok, image, [LLM_QUESTION],
+            max_new_tokens=LLM_GREEDY_TOKENS, max_len=LLM_SPLICE_LEN, return_ids=True))
+        log(f"llm answers: kernels greedy {texts[0]!r} (ids {ids_k[0, :8].tolist()}...), "
+            f"hybrid greedy ids the same at {int((ids_h == ids_k).sum())}/{LLM_GREEDY_TOKENS} "
+            f"steps; beam {LLM_BEAMS} accuracy {metrics}")
+
+        # The stages of the kernel path, each timed alone.
+        llm = llm_of("kernels")
+        m = models["kernels"]
+        toks = tok([LLM_QUESTION], max_length=cfg.contxt_len)
+        ids_q = torch.from_numpy(toks["input_ids"]).to(dev)
+        (ctx, _), t_text = synced(lambda: m.encode_text_tokens(ids_q))
+        feats, t_vis = synced(lambda: m.forward_llm_features(image, ctx))
+        prompt_ids = np.asarray([tokenizer_image_token(build_vqa_prompt(LLM_QUESTION), tok)])
+        _, t_splice = synced(lambda: splice_image_features(prompt_ids, llm.embed, feats,
+                                                           max_len=LLM_SPLICE_LEN))
+        embeds, attn, _ = vqa_inputs(m, llm, tok, image, [LLM_QUESTION], LLM_SPLICE_LEN)
+        prompt_len = embeds.shape[1]
+        n_img = feats.shape[1]
+        prefill_ms = cuda_ms(lambda: llm.prefill(embeds, attn), 5)
+        caches = llm.prefill(embeds, attn)[1]
+        pad = prompt_pad_mask(attn, llm.cfg.max_seq_len)
+        emb1 = llm.embed(ids_k[:, :1])
+        step_ms = cuda_ms(lambda: llm.decode_step(emb1, caches, prompt_len, pad), 10)
+        beam_caches = [(kc.repeat_interleave(LLM_BEAMS, 0), vc.repeat_interleave(LLM_BEAMS, 0))
+                       for kc, vc in caches]
+        emb5 = emb1.repeat_interleave(LLM_BEAMS, 0)
+        pad5 = pad.repeat_interleave(LLM_BEAMS, 0)
+        beam_step_ms = cuda_ms(lambda: llm.decode_step(emb5, beam_caches, prompt_len, pad5), 10)
+        del beam_caches
+        _, t_greedy = synced(lambda: greedy_generate(llm, embeds, attn, LLM_GREEDY_TOKENS))
+        _, t_beam = synced(lambda: beam_generate(llm, embeds, attn, LLM_BEAM_TOKENS, LLM_BEAMS))
+        per_tok = (t_greedy * 1e3 - prefill_ms) / (LLM_GREEDY_TOKENS - 1)
+        per_beam = (t_beam * 1e3 - prefill_ms) / (LLM_BEAM_TOKENS - 1)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, t_prof = synced(lambda: llm.decode_step(emb1, caches, prompt_len, pad))
+        kernels_ = [a for a in prof.key_averages()
+                    if a.device_type == torch.autograd.DeviceType.CUDA
+                    and a.self_device_time_total > 0]
+        dev_ms = sum(a.self_device_time_total for a in kernels_) / 1e3
+        top = sorted(kernels_, key=lambda a: a.self_device_time_total, reverse=True)[:5]
+        del caches
+        log(f"llm kernels (bf16, batch 1, {prompt_len} prompt tokens = {n_img} image features "
+            f"+ {prompt_len - n_img} text) on {smi}: question tokens {t_text * 1e3:.1f} ms, "
+            f"vision (encode + pixel decoder + 'llm' task + projector) {t_vis * 1e3:.1f} ms, "
+            f"splice (host ids, embed, placement) {t_splice * 1e3:.2f} ms; prefill "
+            f"{prefill_ms:.2f} ms (CUDA events); greedy {LLM_GREEDY_TOKENS} tokens "
+            f"{t_greedy * 1e3:.1f} ms: {per_tok:.2f} ms a new token, {1e3 / per_tok:.2f} tok/s "
+            f"(one decode_step {step_ms:.2f} ms by events); beam {LLM_BEAMS} x "
+            f"{LLM_BEAM_TOKENS} tokens {t_beam * 1e3:.1f} ms: {per_beam:.2f} ms a step, "
+            f"{1e3 / per_beam:.2f} answer tok/s (one {LLM_BEAMS}-row decode_step "
+            f"{beam_step_ms:.2f} ms by events)")
+        log(f"llm kernels: one greedy token under torch.profiler: {dev_ms:.3f} ms of device "
+            f"time in a {t_prof * 1e3:.2f} ms host span ({len(kernels_)} kernel names); "
+            + "; ".join(f"{a.self_device_time_total / 1e3:.3f} ms {a.count}x "
+                        f"{a.key[:60]}" for a in top))
+
+        # The gate: every path's features along plain fp32's mask attention
+        # (each decoder layer's cross-attention bias thresholds the previous
+        # layer's mask logits: fp32's are recorded and replayed), and its
+        # logits along fp32's ids; the greedy features are printed too.
+        out, biases = {}, []
+        for path in ("plain_fp32", "plain_bf16", "kernels"):
+            m = models[path]
+            greedy = vqa_inputs(m, llm_of(path), tok, image, [LLM_QUESTION],
+                                LLM_SPLICE_LEN)[2] if path != "plain_fp32" else None
+            along = (_recording(m.predictor._attn_bias_from_mask, biases)
+                     if path == "plain_fp32" else _replaying(biases))
+            with _patched(m.predictor, "_attn_bias_from_mask", along):
+                e, a, f = vqa_inputs(m, llm_of(path), tok, image, [LLM_QUESTION],
+                                     LLM_SPLICE_LEN)
+            out[path] = {"feats": f, "greedy_feats": f if greedy is None else greedy,
+                         "embeds": e, "attn": a}
+        ref = out["plain_fp32"]
+        ref["ids"], ref["logits"] = greedy_generate(llms["float32"], ref["embeds"], ref["attn"],
+                                                    LLM_GREEDY_TOKENS, return_logits=True)
+        for path in ("plain_bf16", "kernels"):
+            o = out[path]
+            o["ids"] = greedy_generate(llm_of(path), o["embeds"], o["attn"], LLM_GREEDY_TOKENS)
+            _, o["logits"] = greedy_generate(llm_of(path), o["embeds"], o["attn"],
+                                             LLM_GREEDY_TOKENS, forced_ids=ref["ids"],
+                                             return_logits=True)
+        full_in = torch.cat([ref["embeds"], llms["float32"].embed(ref["ids"][:, :-1])], dim=1)
+        full = llms["float32"](full_in, torch.ones(full_in.shape[:2], dtype=torch.int32,
+                                                   device=dev))
+        full = full[:, prompt_len - 1:]
+        cache_err = rel_l2(ref["logits"], full)
+    failed: list = []
+    log(_rel_ratio(f"projected image features {tuple(ref['feats'].shape)}, greedy mask "
+                   "attention (not gated)", {p: o["greedy_feats"] for p, o in out.items()}, []))
+    log(_rel_ratio(f"projected image features {tuple(ref['feats'].shape)}, fp32's mask "
+                   "attention", {p: o["feats"] for p, o in out.items()}, failed))
+    log(_rel_ratio(f"logits along plain_fp32's ids ({LLM_GREEDY_TOKENS} steps x "
+                   f"{LLM_CONFIG['vocab_size']})", {p: o["logits"] for p, o in out.items()},
+                   failed))
+    for path in ("plain_bf16", "kernels"):
+        same = int((out[path]["ids"] == ref["ids"]).sum())
+        log(f"llm {path} vs plain_fp32 (not gated): greedy ids the same at {same}/"
+            f"{LLM_GREEDY_TOKENS} steps")
+    log(f"llm plain_fp32: cached logits against one full forward over prompt + tokens, rel L2 "
+        f"{cache_err:.3e} (bound {CACHE_BOUND}); greedy ids cached == argmax of the full "
+        f"forward at {int((full.argmax(-1) == ref['ids']).sum())}/{LLM_GREEDY_TOKENS} steps")
+    if not cache_err <= CACHE_BOUND:
+        failed.append(f"cached vs full forward rel L2 {cache_err:.3e} > {CACHE_BOUND}")
+    for path, o in out.items():
+        if not bool(torch.isfinite(o["logits"]).all()):
+            failed.append(f"{path}: non-finite logits")
+    if failed:
+        raise RuntimeError("llm gate failed: " + "; ".join(failed))
+
+    # int8: the fp32 weights quantised, one request through the kernels.
+    with torch.no_grad():
+        qsd = quantize_llama_state_dict(llms["float32"].state_dict())
+        del out, full, full_in
+        llms.pop("float32")
+        torch.cuda.empty_cache()
+        llm8 = build_llama(LlamaConfig(**LLM_CONFIG, dtype="bfloat16", param_dtype="bfloat16",
+                                       quant="int8"), dev)
+        llm8.load_state_dict(qsd, strict=True)
+        del qsd
+        q_bytes, b_bytes = _projection_bytes(llm8), _projection_bytes(llms["bfloat16"])
+        texts8, ids8 = request("int8 greedy request", "kernels", lambda: answer_questions(
+            models["kernels"], llm8, tok, image, [LLM_QUESTION],
+            max_new_tokens=LLM_INT8_TOKENS, max_len=LLM_SPLICE_LEN, return_ids=True))
+        prefill8_ms = cuda_ms(lambda: llm8.prefill(embeds, attn), 2)
+        _, t8 = synced(lambda: greedy_generate(llm8, embeds, attn, LLM_INT8_TOKENS))
+        _, logits8 = greedy_generate(llm8, embeds, attn, LLM_INT8_TOKENS,
+                                     forced_ids=ref["ids"][:, :LLM_INT8_TOKENS],
+                                     return_logits=True)
+    e8 = rel_l2(logits8, ref["logits"][:, :LLM_INT8_TOKENS])
+    per8 = (t8 * 1e3 - prefill8_ms) / (LLM_INT8_TOKENS - 1)
+    log(f"llm int8 on {smi}: projection bytes {q_bytes / 2**30:.3f} GiB vs bf16's "
+        f"{b_bytes / 2**30:.3f} GiB ({q_bytes / b_bytes:.4f}, bound {INT8_BYTES}); prefill "
+        f"{prefill8_ms:.2f} ms, greedy {LLM_INT8_TOKENS} tokens {t8 * 1e3:.1f} ms: {per8:.2f} "
+        f"ms a new token, {1e3 / per8:.2f} tok/s (plain PyTorch dequant a call); logits "
+        f"along fp32's ids rel L2 {e8:.3e} from plain fp32 (not gated); ids the same as the "
+        f"bf16 kernels' at {int((ids8 == ids_k[:, :LLM_INT8_TOKENS]).sum())}/"
+        f"{LLM_INT8_TOKENS} steps; answer {texts8[0]!r}")
+    if not bool(torch.isfinite(logits8).all()):
+        raise RuntimeError("llm int8: non-finite logits")
+    if not q_bytes <= INT8_BYTES * b_bytes:
+        raise RuntimeError(f"llm int8: projection bytes {q_bytes} > {INT8_BYTES} x bf16's "
+                           f"{b_bytes}")
+    log(f"llm phase: peak memory allocated "
+        f"{max(peaks + [torch.cuda.max_memory_allocated()]) / 2**30:.2f} GiB ({smi})")
+    del models, llms, llm8, llm, m
+    torch.cuda.empty_cache()
+    return totals
+
 # C9: the deformable core at head width 32 (SYSLEARNER_DIM 256 over 8 heads;
 # JAX's pipeline sets TEXT_WIDTH from it too).
 C9_CONFIG = dict(TRAIN_CONFIG, syslearner_dim=256, text_width=256)
@@ -4052,6 +4362,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(vl_eval_phase(dev, smi))
     log(f"vl eval phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(llm_phase(dev, smi))
+    log(f"llm phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(c9_phase(dev))
     log(f"c9 phase (head width 32): {time.perf_counter() - t0:.1f} s")

@@ -108,6 +108,8 @@ def entries(cfg: SysLearnerConfig) -> list:
     e += lang_encoder_entries(cfg.text_layers)
     if cfg.retrieval_ensemble:
         linear(e, "backbone_proj", ("backbone_proj",), bias=False)
+    if cfg.llm_dim:
+        linear(e, "img_to_lang", ("img_to_lang",))
     return e
 
 

@@ -3,9 +3,11 @@
 step-1 streams (seg with grounding tokens, VLP captioning and retrieval,
 spatial prompts), the seg eval forward, the class text embeddings, the
 interactive path (one encode, many prompt decodes through SAM's decoder
-into the unified one), and the vision-language evals: grounding,
+into the unified one), the vision-language evals: grounding,
 retrieval (with the backbone ensemble of ``retrieval_ensemble``) and
-greedy captioning, by full re-run or KV-cached.
+greedy captioning, by full re-run or KV-cached, and the vision side of the
+LLM stage (``forward_llm_features``: the ``'llm'`` task's object-query
+features through the ``img_to_lang`` projector of ``llm_dim``).
 
 SAM backbone (image encoder with the SimpleFPN; prompt encoder and mask
 decoder, which the seg paths do not read) -> deformable pixel decoder
@@ -77,7 +79,6 @@ class SysLearnerConfig:
 
     def __post_init__(self):
         unported = {"remat": self.remat, "detection": self.detection,
-                    "llm_dim": self.llm_dim,
                     "pixel_decoder": self.pixel_decoder != "msdeform",
                     "msdeform_impl": self.msdeform_impl not in MSDEFORM_IMPLS}
         asked = [k for k, v in unported.items() if v]
@@ -134,6 +135,9 @@ class SysLearner(nn.Module):
             # space, into the retrieval space (no bias).
             res5 = self.image_encoder.neck.down_32[2].out_channels
             self.backbone_proj = nn.Linear(res5, d, bias=False)
+        if cfg.llm_dim:
+            # The LLM projector: the object queries' features into the LLM's width.
+            self.img_to_lang = nn.Linear(d, cfg.llm_dim)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         """Raw RGB (B, H, W, 3) -> normalised fp32."""
@@ -349,6 +353,23 @@ class SysLearner(nn.Module):
 
         return self._caption_loop(images, steps, sot_id, step_row, forced_ids, return_logits)
 
+    # -- the vision side of the LLM stage --------------------------------------
+    def project_image_features(self, image_feature: torch.Tensor) -> torch.Tensor:
+        """(B, N, dim) features -> (B, N, llm_dim) in the working dtype
+        (``img_to_lang``, flax's Dense: rounded before its bias)."""
+        return linear(image_feature, self.img_to_lang.weight, self.img_to_lang.bias,
+                      getattr(torch, self.cfg.dtype))
+
+    def forward_llm_features(self, images: torch.Tensor,
+                             context_tokens: torch.Tensor) -> torch.Tensor:
+        """Raw RGB (B, H, W, 3) and the question's (B, contxt_len, dim)
+        token embeddings -> (B, num_queries - 1, llm_dim): the unified
+        decoder's ``'llm'`` task, its object queries' features cut from the
+        gradient, through the projector."""
+        _, fpn = self.encode_image(images, return_embedding=False)
+        out = self._head(fpn, None, "llm", caption_tokens=context_tokens)
+        return self.project_image_features(out["image_feature"].detach())
+
     # -- the interactive path: one encode, many prompt decodes --------------
     def decode_prompts(self, sam_embedding, points=None, labels=None, boxes=None, masks=None,
                        return_upscaled: bool = True, return_masks: bool = True) -> dict:
@@ -421,10 +442,11 @@ def init_syslearner_(model: SysLearner, generator: torch.Generator) -> SysLearne
     text tower is drawn after them, so that the other weights do not depend
     on its size: its linear layers as ``init_random_`` draws them, the token,
     positional and ``lang_proj`` tables as flax does (truncated normal,
-    std 0.02); ``backbone_proj`` (with ``retrieval_ensemble``) last, as flax
-    does (truncated normal, std 0.02)."""
+    std 0.02); ``backbone_proj`` (with ``retrieval_ensemble``) as flax
+    does (truncated normal, std 0.02); ``img_to_lang`` (with ``llm_dim``)
+    last, as ``init_random_`` draws a linear layer."""
     for name, child in model.named_children():
-        if name not in ("lang_encoder", "backbone_proj"):
+        if name not in ("lang_encoder", "backbone_proj", "img_to_lang"):
             init_random_(child, generator)
     pred = model.predictor
     for t in (pred.query_feat, pred.query_embed, pred.level_embed, pred.pos_embed_caping,
@@ -444,6 +466,8 @@ def init_syslearner_(model: SysLearner, generator: torch.Generator) -> SysLearne
         _trunc_normal_(t, 0.02, generator)
     if model.cfg.retrieval_ensemble:
         _trunc_normal_(model.backbone_proj.weight, 0.02, generator)
+    if model.cfg.llm_dim:
+        init_random_(model.img_to_lang, generator)
     return model
 
 

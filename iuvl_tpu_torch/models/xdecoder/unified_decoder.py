@@ -34,6 +34,13 @@ Tasks:
   block that the queries cannot see, their positions plus
   ``pos_embed_caping``; ``pred_captionings`` is their rows through the
   decoder norm and ``caping_embed``.
+- ``'llm'`` / ``'vqa'``: ``caption_tokens`` (B, contxt_len, C), the
+  question's token embeddings, are appended as a block whose rows attend
+  to each other freely (the queries keep the base mask and cannot see
+  them; they cannot see the queries), their content cut from the
+  gradient, their positions the tokens themselves; ``image_feature`` is
+  the object queries' rows through the decoder norm, the LLM projector's
+  input.
 
 The cached captioning decode (``captioning_prefill``,
 ``init_caption_cache``, ``caption_decode_step``) uses that the query rows
@@ -41,8 +48,6 @@ never read the caption rows: they run once, each layer's projected
 self-attention keys and values (and the projected memory of its
 cross-attention) are kept, and each caption token is one row through the
 9 layers against them.
-
-The LLM tasks (``'llm'``, ``'vqa'``) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ from ...ops.resize import resize_axis
 
 NEG_INF = -1e9
 GROUNDING_TASKS = ("seg_grounding", "grounding_eval")
-TASKS = ("seg", "interactive", "vlp") + GROUNDING_TASKS
+LLM_TASKS = ("llm", "vqa")
+TASKS = ("seg", "interactive", "vlp") + GROUNDING_TASKS + LLM_TASKS
 
 
 def build_base_self_mask(num_queries: int, contxt_len: int) -> np.ndarray:
@@ -338,6 +344,16 @@ class UnifiedDecoder(nn.Module):
             ctx_pos = caption_tokens.to(dt) + self.pos_embed_caping[None]
             query_pos = torch.cat([query_pos.to(ctx_pos.dtype), ctx_pos], dim=1)
             extra_rows = self.contxt_len
+        elif task in LLM_TASKS:
+            total = nq + self.contxt_len
+            m = np.ones((total, total), dtype=bool)
+            m[:nq, :nq] = base[:nq, :nq]
+            m[nq:, nq:] = False  # the context rows attend each other freely
+            self_bias = self._bias(m, output.device)
+            # The content is cut from the gradient, the positions are not.
+            output = torch.cat([output, caption_tokens.detach().to(dt)], dim=1)
+            query_pos = torch.cat([query_pos, caption_tokens.to(dt)], dim=1)
+            extra_rows = self.contxt_len
         else:
             self_bias = self._bias(base[:nq, :nq], output.device)
         results = self._prediction_heads(output, mask_features, text_embeddings, logit_scale,
@@ -370,6 +386,8 @@ class UnifiedDecoder(nn.Module):
             out["aux_captionings"] = [p["outputs_captioning"] for p in predictions[:-1]]
         if task == "interactive":  # the prompt slots' masks
             out["pred_interactive_masks"] = predictions[-1]["outputs_mask"][:, nq:]
+        if task in LLM_TASKS:  # the object queries' features for the LLM projector
+            out["image_feature"] = _ln(output, self.decoder_norm)[:, : nq - 1]
         return out
 
     # -- the cached captioning decode ----------------------------------------

@@ -8,7 +8,9 @@ prompts, into the NoC evaluator), and the vision-language modes:
 ``_evaluate_grounding`` (each phrase's mask into the IoU evaluator),
 ``_evaluate_captioning`` (greedy ids, decoded, into BLEU-4 / CIDEr-D),
 ``_evaluate_retrieval`` (recall@k, with the backbone ensemble when the
-model has it) and ``_evaluate_classification`` (zero-shot top-k).
+model has it) and ``_evaluate_classification`` (zero-shot top-k); and the
+LLM stage: ``_evaluate_vqa`` (the LLM built from the config's keys,
+``build_llm``; each question answered through it into the VQA evaluator).
 
 It works over in-memory batches and items; the dataset layer
 (``build_dataset``, the loaders) is not ported yet. The model's outputs
@@ -32,13 +34,16 @@ from .data.tokenizer import build_tokenizer
 from .data.visual_sampler import box_points
 from .evaluation import (CaptioningEvaluator, ClassificationEvaluator, GroundingEvaluator,
                          InstanceAPEvaluator, InteractiveEvaluator, PanopticEvaluator,
-                         RetrievalEvaluator, SemSegEvaluator)
+                         RetrievalEvaluator, SemSegEvaluator, VQAEvaluator)
 from .inference.interactive import make_interactive_loop, sample_fn_click, single_shot_eval
 from .inference.postprocess import instance_inference, panoptic_merge, semantic_inference
 
 IGNORE = 255  # the gt label of pixels no mask covers (detectron2's ignore label)
 OBJECT_MASK_THRESHOLD = 0.8  # the panoptic merge's class-score cut (step1.yaml TEST)
 CAPTIONING_STEPS = 20  # greedy steps a caption (the JAX pipeline's default)
+# The JAX pipeline's VQA defaults: new tokens, beams (the reference's), and
+# the splice's row length (its LLM_MAX_LEN default there; the cache's is 1024).
+VQA_MAX_NEW_TOKENS, VQA_NUM_BEAMS, VQA_MAX_LEN = 8, 5, 64
 
 
 @torch.no_grad()
@@ -318,4 +323,59 @@ def evaluate_classification_items(model, text_emb: torch.Tensor, items: Iterable
     for item in items:
         v = model.evaluate_retrieval(_image(item, dev)).cpu().numpy()
         evaluator.process(v @ text.T, np.asarray([item["label"]]))
+    return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}
+
+
+def build_llm(cfg: dict, device="cuda", generator: torch.Generator | None = None):
+    """The LLM of JAX's ``_evaluate_vqa`` from the config's keys, with its
+    defaults: ``LLM`` {``VOCAB_SIZE`` 32000, ``DIM`` 4096, ``LAYERS`` 32,
+    ``HEADS`` 32, ``KV_HEADS`` 32, ``FFN_DIM`` 11008}, ``LLM_MAX_LEN`` 1024
+    (the cache), ``DTYPE`` bfloat16, ``LLM_QUANT`` none (or int8). Its
+    weights: the HF checkpoint at ``LLM_WEIGHTS`` (quantised after loading
+    with int8), else drawn from ``generator`` (a generator of ``device``;
+    by default one seeded 1). On the card unless ``device='cpu'``."""
+    from .models.llm.convert import load_hf_llama_params
+    from .models.llm.llama import LlamaConfig, build_llama
+    from .models.llm.quant import quantize_llama_state_dict
+
+    llm = cfg.get("LLM", {})
+    lcfg = LlamaConfig(vocab_size=llm.get("VOCAB_SIZE", 32000), dim=llm.get("DIM", 4096),
+                       layers=llm.get("LAYERS", 32), heads=llm.get("HEADS", 32),
+                       kv_heads=llm.get("KV_HEADS", 32), ffn_dim=llm.get("FFN_DIM", 11008),
+                       max_seq_len=cfg.get("LLM_MAX_LEN", 1024),
+                       dtype=cfg.get("DTYPE", "bfloat16"), quant=cfg.get("LLM_QUANT", "none"))
+    if not cfg.get("LLM_WEIGHTS"):
+        if generator is None:
+            generator = torch.Generator(device=torch.device(device)).manual_seed(1)
+        return build_llama(lcfg, device, generator)
+    sd = load_hf_llama_params(cfg["LLM_WEIGHTS"], lcfg)
+    if lcfg.quant == "int8":
+        sd = quantize_llama_state_dict(sd)
+    model = build_llama(lcfg, device)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+@torch.no_grad()
+def evaluate_vqa_items(model, llm, items: Iterable[dict], name: str = "vqa",
+                       max_new_tokens: int = VQA_MAX_NEW_TOKENS,
+                       num_beams: int = VQA_NUM_BEAMS, max_len: int = VQA_MAX_LEN,
+                       tokenizer=None) -> dict:
+    """JAX's ``_evaluate_vqa`` over ``items``: ``image`` (H, W, 3) raw RGB,
+    its ``question`` and the human ``answers``. One item at a time through
+    ``answer_questions`` (the splice at ``max_len``; beam search with
+    ``num_beams > 1``) into the VQA evaluator. Returns the accuracy keyed
+    ``<name>/<metric>``. As in JAX, the default ``max_len`` holds no more
+    than 64 slots: a model with 100 image features needs a longer row, up
+    to the LLM's ``max_seq_len``."""
+    from .models.llm.vqa_pipeline import answer_questions
+
+    dev = next(model.parameters()).device
+    tokenizer = tokenizer or build_tokenizer()
+    evaluator = VQAEvaluator()
+    for item in items:
+        answers = answer_questions(model, llm, tokenizer, _image(item, dev), [item["question"]],
+                                   max_new_tokens=max_new_tokens, max_len=max_len,
+                                   num_beams=num_beams)
+        evaluator.process(answers[0], list(item["answers"]))
     return {f"{name}/{k}": v for k, v in evaluator.evaluate().items()}

@@ -36,12 +36,23 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.data.transforms, iuvl_tpu_torch.data.visual_sampler\n"
         "import iuvl_tpu_torch.ops.cuda.window_attention, iuvl_tpu_torch.ops.cuda.seg_scatter\n"
         "import iuvl_tpu_torch.inference.interactive, iuvl_tpu_torch.evaluation.interactive\n"
+        "import iuvl_tpu_torch.models.llm.llama, iuvl_tpu_torch.models.llm.multimodal\n"
+        "import iuvl_tpu_torch.models.llm.vqa_pipeline, iuvl_tpu_torch.models.llm.convert\n"
+        "import iuvl_tpu_torch.models.llm.quant, iuvl_tpu_torch.evaluation.vqa\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
         "mask_proposals=4, pixel_decoder_layers=1, nheads=4, dim_feedforward=32), "
         "device='cpu')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'iuvl_tpu', 'flax'))\n"
+        "import torch\n"
+        "from iuvl_tpu_torch.models.llm import LlamaConfig, build_llama, greedy_generate\n"
+        "llm = build_llama(LlamaConfig(vocab_size=64, dim=32, layers=1, heads=4, kv_heads=2, "
+        "ffn_dim=64, max_seq_len=16, dtype='float32'), device='cpu', "
+        "generator=torch.Generator().manual_seed(0))\n"
+        "greedy_generate(llm, llm.embed(torch.ones(1, 3, dtype=torch.long)), "
+        "torch.ones(1, 3), max_new_tokens=2)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'iuvl_tpu', 'flax',\n"
+        "                                                         'transformers', 'safetensors'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -51,7 +62,8 @@ def test_port_imports_without_jax():
 
 def test_port_sources_import_no_jax():
     """Not one source file of the port, nor chip_smoke.py, names jax,
-    flax or the JAX package in an import."""
+    flax or the JAX package in an import, nor ``transformers`` or
+    ``safetensors`` (the card's machine has neither)."""
     import ast
     import pathlib
 
@@ -63,7 +75,8 @@ def test_port_sources_import_no_jax():
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "flax", "optax", "iuvl_tpu")]
+                    if n.split(".")[0] in ("jax", "flax", "optax", "iuvl_tpu", "transformers",
+                                           "safetensors")]
     assert len(files) > 20 and not bad, bad
 
 
@@ -135,10 +148,11 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
         assert fn.launches == 0, fn.__name__
 
 
-@pytest.mark.parametrize("builder", ["build_sam", "build_syslearner"])
+@pytest.mark.parametrize("builder", ["build_sam", "build_syslearner", "build_llama"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     """An entry point builds on the card unless asked for the CPU, and
     without a card it raises instead of quietly building on the CPU."""
+    from iuvl_tpu_torch.models.llm import LlamaConfig, build_llama
     from iuvl_tpu_torch.models.sam import build_sam
     from iuvl_tpu_torch.models.xdecoder import SysLearnerConfig, build_syslearner
 
@@ -148,7 +162,10 @@ def test_builders_default_to_the_card(builder, monkeypatch):
                  "vit_b", embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
                  img_size=64, **kw),
              "build_syslearner": lambda **kw: build_syslearner(
-                 SysLearnerConfig(**small), **kw)}[builder]
+                 SysLearnerConfig(**small), **kw),
+             "build_llama": lambda **kw: build_llama(
+                 LlamaConfig(vocab_size=64, dim=32, layers=1, heads=4, kv_heads=4, ffn_dim=64),
+                 **kw)}[builder]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         build()

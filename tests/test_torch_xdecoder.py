@@ -188,4 +188,4 @@ def test_unported_tasks_and_options_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UnifiedDecoder(hidden_dim=32, dim_proj=32, num_queries=3, mask_dim=32)(
-            [], None, task="llm")
+            [], None, task="captioning_infer")
