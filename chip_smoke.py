@@ -167,6 +167,27 @@ Phases (any failure raises, so the exit code is non-zero):
    quantised): one request, finite logits, projection bytes at most
    INT8_BYTES of bf16's. Vision, splice, prefill and per-token ms, tok/s,
    peak memory and one token's device time under torch.profiler printed.
+   Then stage 2 (``stage2_phase``, after the LLM stage has freed its
+   models): configs/step2_instruction.yaml's SysLearner (ViT-B 1024^2,
+   ``llm_dim`` 4096) and the LLaMA-2-7B-wide LLM at vocab 49408, drawn
+   once (the LLM in fp32 on the card, its bf16 copy the weights rounded).
+   (a) One ``make_llm_train_step`` on one ``instruction_train`` item padded
+   to the YAML's 1024 positions through the kernels, plain bf16 and plain
+   fp32 (plain fp32's mask attention replayed): loss_llm (its supervised
+   tokens' losses, whose mean it is), the projector's gradient and the
+   updated projector gated (the kernels at most
+   SLICE_FACTOR times as far from fp32 as plain bf16), launches (B1 8, B2
+   4, B3 12), the LLM and a FIX_PARAM parameter bit-identical after the
+   step, every value finite, each path's peak printed. (b) ``Trainer(cfg,
+   'cuda').train()`` on the YAML with STAGE2_OVERRIDES (batch 2 x 1024, 3
+   steps): ms a step (the step function's, and the loop's from one step's
+   start to the next), the set-up, launches a step (B1, B2, B3 above 0),
+   peak memory,
+   one more step's device time and idle share under torch.profiler; the
+   loss finite, the projector moved, the frozen parameters and the LLM
+   not, the final checkpoint restored into a fresh model with equal
+   tensors. (c) The same with ``LLM_QUANT: int8`` at batch 1: ms a step
+   and peak memory.
 7. interactive: the full-width SysLearner (bf16, seeded weights), one
    seeded 1024^2 image and 8 synthetic gt masks (discs, boxes, an L), first
    clicks at their conv-dt argmax; ``encode_interactive`` once, then the
@@ -3545,6 +3566,282 @@ def llm_phase(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     return totals
 
+STAGE2_YAML = "configs/step2_instruction.yaml"
+# Batch 2 at the YAML's padded length: its BATCH_SIZE 8 keeps ~106 GB of LLM
+# activations for the backward and does not fit one card (PERF.md section 7).
+# The vocabulary of the offline tokenizer's ids (HashWord ids reach 49404).
+STAGE2_OVERRIDES = ["BATCH_SIZE", "2", "STEPS_PER_EPOCH", "3", "LLM.VOCAB_SIZE", "49408"]
+STAGE2_INT8 = ["BATCH_SIZE", "1", "STEPS_PER_EPOCH", "2", "LLM.VOCAB_SIZE", "49408",
+               "LLM_QUANT", "int8"]
+# path -> (attn_impl, dtype of the vision model and of the LLM), in the order they run
+STAGE2_PATHS = {"plain_fp32": ("plain", "float32"), "plain_bf16": ("plain", "bfloat16"),
+                "kernels": ("auto", "bfloat16")}
+STAGE2_CORE = ("window_attention_block", "flash_attention_rowbias_proj", "block_tail")
+
+
+def _bits(tensors) -> int:
+    """A fingerprint of the tensors' bits: the sum of their words as
+    integers (any changed bit moves it)."""
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return sum(int(t.detach().reshape(-1).view(words[t.element_size()]).sum(dtype=torch.int64))
+               for t in tensors)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The supervised tokens' negative log-likelihoods, whose mean is
+    ``causal_lm_loss``."""
+    from iuvl_tpu_torch.models.llm.multimodal import IGNORE_INDEX
+
+    tgt = labels[:, 1:]
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    return -logp.gather(-1, tgt.clamp(min=0)[..., None])[..., 0][tgt != IGNORE_INDEX]
+
+
+def _timed_trainer(cfg: dict, dev, label: str, smi: str) -> dict:
+    """``Trainer(cfg, 'cuda').train()`` with each step synchronised and
+    timed and its launches read (the trainer's ``make_llm_train_step``
+    wrapped); the step's model, LLM, optimizer and last inputs kept, with
+    fingerprints taken before the first step. Prints the step function's
+    ms a step, the loop's (one step's start to the next's), launches a
+    step and the peak memory."""
+    from iuvl_tpu_torch.train import llm_step
+    from iuvl_tpu_torch.train import trainer as trainer_mod
+
+    held: dict = {"times": [], "counts": [], "starts": []}
+
+    def timed_make(model, llm, optimizer, **kw):
+        fn = llm_step.make_llm_train_step(model, llm, optimizer, **kw)
+        frozen = [p for n, p in model.named_parameters() if n.startswith("image_encoder.")]
+        held.update(model=model, llm=llm, fn=fn, proj=model.img_to_lang.weight.detach().clone(),
+                    frozen=_bits(frozen), llm_bits=_bits(llm.parameters()))
+
+        def step(*args):
+            held["starts"].append(time.perf_counter())
+            held["args"] = args
+            reset_launches()
+            out, secs = synced(lambda: fn(*args))
+            held["times"].append(secs)
+            held["counts"].append(launches())
+            return out
+
+        return step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched(trainer_mod, "make_llm_train_step", timed_make):
+        trainer = trainer_mod.Trainer(cfg, dev)
+        result = trainer.train()
+    held.update(trainer=trainer, result=result, seconds=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated())
+    ms = [f"{t * 1e3:.1f}" for t in held["times"]]
+    # The loop's own time a step: one step's start to the next's, so with the
+    # next batch's items, embed, copies to the card and text encode.
+    loop = [f"{(b - a) * 1e3:.1f}" for a, b in zip(held["starts"], held["starts"][1:])]
+    setup = held["starts"][0] - t0
+    after_setup = (held["seconds"] - setup) / len(held["starts"])
+    log(f"stage2 {label}: Trainer.train {held['seconds']:.1f} s in all, {setup:.1f} s of it "
+        f"before the first step; {result}; the step function's ms a step {ms} (host clock, "
+        f"synchronised); the loop's ms from one step's start to the next {loop}; (all - "
+        f"set-up) / steps {after_setup * 1e3:.1f} ms (checkpoints included); launches a step "
+        f"{[{k: v for k, v in c.items() if v} for c in held['counts']]}; peak "
+        f"{held['peak'] / 2**30:.2f} GiB allocated ({smi})")
+    if not np.isfinite(result["loss_llm"]):
+        raise RuntimeError(f"stage2 {label}: loss {result}")
+    return held
+
+
+def stage2_phase(dev, smi: str) -> dict:
+    """Stage-2 instruction tuning at full width (module docstring, 6):
+    (a) the gate of one step through STAGE2_PATHS, (b) the trainer on the
+    YAML with STAGE2_OVERRIDES, timed, (c) the int8 LLM. Returns the
+    trainers' launch totals."""
+    import os
+    import shutil
+    import tempfile
+
+    from iuvl_tpu_torch.config import load_config
+    from iuvl_tpu_torch.data.datasets import build_dataset
+    from iuvl_tpu_torch.models.llm.llama import LlamaConfig, build_llama
+    from iuvl_tpu_torch.models.xdecoder.model import build_syslearner
+    from iuvl_tpu_torch.pipeline import model_config
+    from iuvl_tpu_torch.runtime.checkpoint import CheckpointManager
+    from iuvl_tpu_torch.train.llm_step import (make_llm_train_step, place_features,
+                                               prepare_llm_batch)
+    from iuvl_tpu_torch.train.trainer import llm_optimizer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="iuvl_stage2_")
+    cfg = load_config([STAGE2_YAML], STAGE2_OVERRIDES + ["SAVE_DIR", tmp])
+    vcfg = model_config(cfg)
+    max_len, n_img = cfg["LLM_MAX_LEN"], vcfg.num_queries - 1
+    t0 = time.perf_counter()
+    models, weights = {}, None
+    for path, (attn, dtype) in STAGE2_PATHS.items():
+        pcfg = dataclasses.replace(vcfg, attn_impl=attn, dtype=dtype)
+        models[path] = build_syslearner(pcfg, device=dev, generator=None if weights else
+                                        torch.Generator().manual_seed(SEED + 100))
+        if weights is None:
+            weights = models[path].state_dict()
+        else:
+            models[path].load_state_dict(weights)
+    del weights
+    lcfg = LlamaConfig(**dict(LLM_CONFIG, max_seq_len=max_len), dtype="float32",
+                       param_dtype="float32")
+    llms = {"float32": build_llama(lcfg, dev, torch.Generator(device=dev).manual_seed(SEED + 101))}
+    llms["bfloat16"] = build_llama(dataclasses.replace(lcfg, dtype="bfloat16",
+                                                       param_dtype="bfloat16"), dev)
+    llms["bfloat16"].load_state_dict(llms["float32"].state_dict())
+    torch.cuda.synchronize()
+    log(f"stage2: {len(models)} x SysLearner ({vcfg.sam_size}, {vcfg.img_size}^2, llm_dim "
+        f"{vcfg.llm_dim}) and the {sum(p.numel() for p in llms['float32'].parameters()) / 1e9:.3f}"
+        f" B-parameter LLM (fp32, its bf16 copy) built in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    item = build_dataset(cfg["DATASETS"]["TRAIN"][0], cfg.get("INSTRUCTION_TRAIN", {}),
+                         "train")[0]
+    image = torch.from_numpy(item["image"][None]).to(dev)
+    clip_ids = torch.from_numpy(item["clip_ids"][None]).to(dev)
+    got: dict = {}
+    biases: list = []
+    failed: list = []
+    for path, (_, dtype) in STAGE2_PATHS.items():
+        m, llm = models[path], llms[dtype]
+        opt = llm_optimizer(m, cfg)
+        grads: dict = {}
+
+        def capture(m=m, grads=grads, opt=opt):
+            grads.update({n: p.grad.detach().clone() for n, p in m.named_parameters()
+                          if n.startswith("img_to_lang.")})
+            del opt.step  # the class's own again: no cycle keeps the model alive
+            return opt.step()
+
+        opt.step = capture
+        step = make_llm_train_step(m, llm, opt)
+        batch = prepare_llm_batch(llm, [item["input_ids"]], [item["labels"]],
+                                  num_image_tokens=n_img, max_len=max_len)
+        with torch.no_grad():
+            ctx, _ = m.encode_text_tokens(clip_ids)
+        along = (_recording(m.predictor._attn_bias_from_mask, biases)
+                 if path == "plain_fp32" else _replaying(biases))
+        # The supervised tokens' losses at the step's weights, forward only.
+        with torch.no_grad(), _patched(m.predictor, "_attn_bias_from_mask", along):
+            feats = m.project_image_features(m.llm_image_features(image, ctx))
+            nll = _token_nll(llm(place_features(batch[0], feats, batch[1]), batch[2]), batch[3])
+        del feats
+        fixed = m.image_encoder.patch_embed.proj.weight.detach().clone()
+        llm_bits = _bits(llm.parameters())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _patched(m.predictor, "_attn_bias_from_mask", along):
+            metrics, secs = synced(lambda: step(image, ctx, *batch))
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_launches(f"stage2 gate {path}", counts,
+                       PER_IMAGE["auto"] if path == "kernels" else {})
+        proj = m.img_to_lang
+        loss = metrics["loss_llm"].float()
+        if not abs(float(nll.mean()) - float(loss)) <= 1e-5 * abs(float(loss)):
+            failed.append(f"{path}: the step's loss {float(loss)} is not its tokens' mean "
+                          f"{float(nll.mean())}")
+        got[path] = {"loss": loss.reshape(1), "token_nll": nll,
+                     "grad": torch.cat([grads["img_to_lang.weight"].float().flatten(),
+                                        grads["img_to_lang.bias"].float().flatten()]),
+                     "proj": torch.cat([proj.weight.detach().float().flatten(),
+                                        proj.bias.detach().float().flatten()])}
+        if not torch.equal(m.image_encoder.patch_embed.proj.weight, fixed):
+            failed.append(f"{path}: a FIX_PARAM parameter moved")
+        if _bits(llm.parameters()) != llm_bits:
+            failed.append(f"{path}: the LLM's weights changed")
+        if any(p.grad is not None for p in llm.parameters()):
+            failed.append(f"{path}: an LLM weight has a gradient")
+        for k, v in got[path].items():
+            if not bool(torch.isfinite(v).all()):
+                failed.append(f"{path}: non-finite {k}")
+        log(f"stage2 gate {path}: loss_llm {float(metrics['loss_llm']):.6f}, projector grad "
+            f"norm {float(torch.linalg.vector_norm(got[path]['grad'])):.4e}; {secs * 1e3:.1f} ms "
+            f"(first step of the path); peak {peak / 2**30:.2f} GiB above {base / 2**30:.2f} GiB "
+            f"resident ({smi})")
+        for p in m.parameters():
+            p.grad = None
+        del step, opt, batch, metrics
+        torch.cuda.empty_cache()
+    if not torch.equal(llms["bfloat16"].lm_head.weight,
+                       llms["float32"].lm_head.weight.to(torch.bfloat16)):
+        failed.append("the bf16 LLM is no longer the fp32 weights rounded")
+    # One loss scalar reads a rounding draw (PERF.md, the train gates): the gate
+    # takes the supervised tokens' losses whose mean it is; the scalar is shown.
+    log(_rel_ratio("stage2 loss_llm (not gated)", {p: v["loss"] for p, v in got.items()}, []))
+    for key, label in (("token_nll", f"loss_llm's {got['kernels']['token_nll'].numel()} "
+                                     "token losses"),
+                       ("grad", "projector gradient"), ("proj", "updated projector")):
+        log(_rel_ratio(f"stage2 {label}", {p: v[key] for p, v in got.items()}, failed))
+    if failed:
+        raise RuntimeError("stage2 gate failed: " + "; ".join(failed))
+    # Nothing of the gate stays resident through the trainers' peaks.
+    del models, llms, got, biases, along, m, llm, nll, loss
+    torch.cuda.empty_cache()
+    log(f"stage2 gate done: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+
+    # (b) The trainer on the YAML, timed.
+    held = _timed_trainer(cfg, dev, "trainer (batch 2 x 1024)", smi)
+    model, result = held["model"], held["result"]
+    if result["final_step"] != cfg["STEPS_PER_EPOCH"]:
+        raise RuntimeError(f"stage2 trainer: final step {result['final_step']}")
+    if torch.equal(model.img_to_lang.weight, held["proj"]):
+        raise RuntimeError("stage2 trainer: the projector did not move")
+    if _bits(p for n, p in model.named_parameters() if n.startswith("image_encoder.")) \
+            != held["frozen"]:
+        raise RuntimeError("stage2 trainer: a FIX_PARAM parameter moved")
+    if _bits(held["llm"].parameters()) != held["llm_bits"]:
+        raise RuntimeError("stage2 trainer: the LLM's weights changed")
+    totals: dict = {}
+    for i, counts in enumerate(held["counts"]):
+        if any(counts.get(k, 0) <= 0 for k in STAGE2_CORE) or counts != held["counts"][0]:
+            raise RuntimeError(f"stage2 trainer: step {i + 1} launches {counts}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    ckpt = CheckpointManager(os.path.join(held["trainer"].run_dir, "ckpt"))
+    restored = ckpt.restore()
+    fresh = build_syslearner(model_config(cfg), device=dev)
+    fresh.load_state_dict(restored["params"], strict=True)
+    trained = model.state_dict()
+    bad = [k for k, v in fresh.state_dict().items() if not torch.equal(v, trained[k])]
+    if restored["step"] != result["final_step"] or bad:
+        raise RuntimeError(f"stage2 checkpoint: step {restored['step']}, unequal {bad[:5]}")
+    log(f"stage2 checkpoint: steps {ckpt.all_steps()} under {ckpt.directory}; step "
+        f"{restored['step']} restored into a fresh model, {len(trained)} tensors equal")
+    del fresh, restored, trained
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, t_prof = synced(lambda: held["fn"](*held["args"]))
+    kernels_ = [a for a in prof.key_averages()
+                if a.device_type == torch.autograd.DeviceType.CUDA
+                and a.self_device_time_total > 0]
+    dev_ms = sum(a.self_device_time_total for a in kernels_) / 1e3
+    top = sorted(kernels_, key=lambda a: a.self_device_time_total, reverse=True)[:6]
+    log(f"stage2 trainer: one more step under torch.profiler: {dev_ms:.2f} ms of device time "
+        f"in a {t_prof * 1e3:.1f} ms host span, idle {100 * (1 - dev_ms / (t_prof * 1e3)):.1f}% "
+        f"({len(kernels_)} kernel names; {smi}); "
+        + "; ".join(f"{a.self_device_time_total / 1e3:.2f} ms {a.count}x {a.key[:60]}"
+                    for a in top))
+    del held, model, prof
+    torch.cuda.empty_cache()
+
+    # (c) int8: the frozen LLM quantised, batch 1.
+    cfg8 = load_config([STAGE2_YAML], STAGE2_INT8 + ["SAVE_DIR", tmp])
+    held = _timed_trainer(cfg8, dev, "int8 trainer (batch 1 x 1024)", smi)
+    for counts in held["counts"]:
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    del held
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return totals
+
+
 # C9: the deformable core at head width 32 (SYSLEARNER_DIM 256 over 8 heads;
 # JAX's pipeline sets TEXT_WIDTH from it too).
 C9_CONFIG = dict(TRAIN_CONFIG, syslearner_dim=256, text_width=256)
@@ -4365,6 +4662,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(llm_phase(dev, smi))
     log(f"llm phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(stage2_phase(dev, smi))
+    log(f"stage2 phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(c9_phase(dev))
     log(f"c9 phase (head width 32): {time.perf_counter() - t0:.1f} s")

@@ -33,13 +33,12 @@ Default config: Vicuna-7B v1.5 (LLaMA-2 7B shapes). ``llama_param_shardings``
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.common import linear, prepared
+from ...ops.common import linear, prepared, take_rows
 from ..sam.build import target_device
 
 NEG_INF = -1e9
@@ -236,14 +235,7 @@ class LlamaForCausalLM(nn.Module):
         """(B, T) ids -> (B, T, dim) in ``dtype``, ``jnp.take``'s semantics:
         a negative id counts from the end of the table, and an id outside
         it gives a row of NaN (no device assert)."""
-        table = self.model.embed_tokens.weight
-        v = table.shape[0]
-        ids = torch.where(input_ids < 0, input_ids + v, input_ids)
-        inside = (ids >= 0) & (ids < v)
-        rows = table[ids.clamp(0, v - 1)]
-        rows = torch.where(inside[..., None], rows, torch.full((), math.nan, dtype=rows.dtype,
-                                                                device=rows.device))
-        return rows.to(self.dtype)
+        return take_rows(self.model.embed_tokens.weight, input_ids).to(self.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm's output (..., dim) -> fp32 logits: the head on

@@ -1,8 +1,8 @@
 """LLaVA-style input preparation and generation, PyTorch port of
 ``iuvl_tpu/models/llm/multimodal.py``: the image-token prompt, the splice
 of the projected image features into the prompt's embeddings, and greedy
-and beam decoding through the KV cache. (``causal_lm_loss`` comes with the
-stage-2 training step.)
+and beam decoding through the KV cache, and ``causal_lm_loss``, the
+stage-2 training step's objective.
 
 Every sequence reserves ``n_img`` slots at its image token, right-padded
 to ``max_len``. The features are placed as ``dynamic_update_slice`` places
@@ -164,3 +164,23 @@ def beam_generate(model, inputs_embeds: torch.Tensor, attention_mask: torch.Tens
     norm = beam_scores / lengths.float() ** length_penalty
     best = norm.reshape(b, k).argmax(dim=1) + base[:, 0]
     return tokens[best]
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted cross-entropy: (B, T, V) logits, (B, T) labels -> the mean
+    negative log-likelihood of each next token in fp32, IGNORE_INDEX
+    targets left out, over ``max(valid, 1)`` (an all-ignored batch gives 0
+    and a zero gradient). ``jnp.take_along_axis``'s semantics: a negative
+    target counts from the end of the vocabulary, and one outside it gives
+    NaN (no device assert)."""
+    logits = logits[:, :-1]
+    targets = labels[:, 1:].long()
+    valid = targets != IGNORE_INDEX
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    v = logp.shape[-1]
+    tgt = torch.where(valid, targets, 0)
+    tgt = torch.where(tgt < 0, tgt + v, tgt)
+    inside = (tgt >= 0) & (tgt < v)
+    nll = -logp.gather(-1, tgt.clamp(0, v - 1)[..., None])[..., 0]
+    nll = torch.where(inside, nll, torch.full((), float("nan"), device=nll.device))
+    return (nll * valid).sum() / valid.sum().clamp(min=1)

@@ -28,7 +28,7 @@ import math
 import torch
 from torch import nn
 
-from ...ops.common import linear
+from ...ops.common import linear, take_rows
 
 
 class TFLayerNorm(nn.Module):
@@ -117,9 +117,10 @@ class TextTransformer(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, T) ids -> (B, T, width) in the working dtype. The tower is
         causal (the reference's autoregressive text encoder), so no padding
-        mask is read."""
+        mask is read. An id outside the vocabulary gives a row of NaN, as
+        ``jnp.take`` does."""
         n = input_ids.shape[1]
-        x = (self.token_embedding[input_ids.long()] + self.positional_embedding[None, :n])
+        x = take_rows(self.token_embedding, input_ids) + self.positional_embedding[None, :n]
         x = x.to(self.dtype)
         causal = torch.full((n, n), float("-inf"), device=x.device).triu(1)
         for blk in self.blocks:
@@ -138,7 +139,7 @@ class TextTransformer(nn.Module):
         """(B,) ids at position ``pos`` -> ((B, 1, width) row ``pos`` of
         :meth:`forward`, caches), the positions before ``pos`` read from
         the caches, which are updated in place."""
-        x = self.token_embedding[token_ids.long()][:, None] + self.positional_embedding[pos]
+        x = take_rows(self.token_embedding, token_ids)[:, None] + self.positional_embedding[pos]
         x = x.to(self.dtype)
         for blk, (k_c, v_c) in zip(self.blocks, caches):
             x = blk.step(x, k_c, v_c, pos)

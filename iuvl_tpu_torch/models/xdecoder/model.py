@@ -360,15 +360,21 @@ class SysLearner(nn.Module):
         return linear(image_feature, self.img_to_lang.weight, self.img_to_lang.bias,
                       getattr(torch, self.cfg.dtype))
 
-    def forward_llm_features(self, images: torch.Tensor,
-                             context_tokens: torch.Tensor) -> torch.Tensor:
+    def llm_image_features(self, images: torch.Tensor,
+                           context_tokens: torch.Tensor) -> torch.Tensor:
         """Raw RGB (B, H, W, 3) and the question's (B, contxt_len, dim)
-        token embeddings -> (B, num_queries - 1, llm_dim): the unified
-        decoder's ``'llm'`` task, its object queries' features cut from the
-        gradient, through the projector."""
+        token embeddings -> the unified decoder's ``'llm'`` task's (B,
+        num_queries - 1, dim) object-query features, cut from the gradient
+        (JAX's ``stop_gradient``)."""
         _, fpn = self.encode_image(images, return_embedding=False)
         out = self._head(fpn, None, "llm", caption_tokens=context_tokens)
-        return self.project_image_features(out["image_feature"].detach())
+        return out["image_feature"].detach()
+
+    def forward_llm_features(self, images: torch.Tensor,
+                             context_tokens: torch.Tensor) -> torch.Tensor:
+        """:meth:`llm_image_features` through the projector: (B,
+        num_queries - 1, llm_dim)."""
+        return self.project_image_features(self.llm_image_features(images, context_tokens))
 
     # -- the interactive path: one encode, many prompt decodes --------------
     def decode_prompts(self, sam_embedding, points=None, labels=None, boxes=None, masks=None,

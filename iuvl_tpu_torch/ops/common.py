@@ -53,6 +53,19 @@ def plain_vjp(plain, saved, needs, g, *static):
     return [next(grads) if n else None for n in needs]
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with ``jnp.take``'s semantics: a negative id counts
+    from the end of the table, and an id outside it gives a row of NaN
+    (no device assert). The rows carry ``table``'s gradient."""
+    v = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    inside = (ids >= 0) & (ids < v)
+    rows = table[ids.clamp(0, v - 1)]
+    return torch.where(inside[..., None], rows,
+                       torch.full((), float("nan"), dtype=rows.dtype, device=rows.device))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf GELU in fp32, tanh approximation in bf16
     (``iuvl_tpu/models/sam/image_encoder.py`` ``gelu``)."""

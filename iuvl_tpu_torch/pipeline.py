@@ -12,8 +12,11 @@ model has it) and ``_evaluate_classification`` (zero-shot top-k); and the
 LLM stage: ``_evaluate_vqa`` (the LLM built from the config's keys,
 ``build_llm``; each question answered through it into the VQA evaluator).
 
-It works over in-memory batches and items; the dataset layer
-(``build_dataset``, the loaders) is not ported yet. The model's outputs
+It works over in-memory batches and items; of the dataset layer only
+the stage-2 instruction stream is ported (``data/datasets.py``). The
+model's config from the config dict is ``model_config`` (JAX's
+``XDecoderPipeline.model_config``) and ``initialize_model`` builds it with
+seeded weights; the trainer reads both. The model's outputs
 stay where the model runs: semantic argmax and instance top-k run there,
 and only the argmax map, the kept instance masks and the panoptic merge's
 inputs come to the host; a caption's ids come to the host once, after its
@@ -44,6 +47,47 @@ CAPTIONING_STEPS = 20  # greedy steps a caption (the JAX pipeline's default)
 # The JAX pipeline's VQA defaults: new tokens, beams (the reference's), and
 # the splice's row length (its LLM_MAX_LEN default there; the cache's is 1024).
 VQA_MAX_NEW_TOKENS, VQA_NUM_BEAMS, VQA_MAX_LEN = 8, 5, 64
+
+
+def model_config(cfg: dict):
+    """The ``SysLearnerConfig`` of a config dict, JAX's
+    ``XDecoderPipeline.model_config`` with its defaults (``DTYPE`` bfloat16;
+    ``llm_dim`` ``LLM_DIM`` 4096 only with ``Load_LLM``). JAX's
+    ``ATTN_IMPL`` names (``block``, ``xla``, ...) are passed on: the config
+    runs them as the port's routes, as ``SamConfig`` does."""
+    from .models.xdecoder.model import SysLearnerConfig
+
+    c = cfg
+    return SysLearnerConfig(
+        sam_size=c.get("SAM_SIZE", "base"),
+        img_size=c.get("IMAGE_SIZE", 1024),
+        syslearner_dim=c.get("SYSLEARNER_DIM", 512),
+        mask_proposals=c.get("MASK_PROPOSAL", 100),
+        contxt_len=c.get("CONTEXT_LEN", 77),
+        vocab_size=c.get("TEXT_VOCAB_SIZE", 49408),
+        text_width=c.get("TEXT_WIDTH", c.get("SYSLEARNER_DIM", 512)),
+        text_layers=c.get("TEXT_LAYERS", 12),
+        text_heads=c.get("TEXT_HEADS", 8),
+        pixel_decoder_layers=c.get("PIXEL_DECODER_LAYERS", 6),
+        nheads=c.get("NHEADS", 8),
+        dim_feedforward=c.get("DIM_FEEDFORWARD", 2048),
+        dtype=c.get("DTYPE", "bfloat16"),
+        attn_impl=c.get("ATTN_IMPL", "auto"),
+        msdeform_impl=c.get("MSDEFORM_IMPL", "auto"),
+        pixel_decoder=c.get("PIXEL_DECODER", "msdeform"),
+        detection=bool(c.get("DETECTION", False)),
+        llm_dim=(c.get("LLM_DIM", 4096) if c.get("Load_LLM") else 0),
+        retrieval_ensemble=bool(c.get("RETRIEVAL_ENSEMBLE", False)),
+    )
+
+
+def initialize_model(cfg: dict, device="cuda"):
+    """:func:`model_config`'s SysLearner on ``device`` (the card unless
+    ``device='cpu'``), its weights drawn from a CPU generator seeded 0
+    (``init_syslearner_``; JAX draws its own from ``PRNGKey(0)``)."""
+    from .models.xdecoder.model import build_syslearner
+
+    return build_syslearner(model_config(cfg), device, torch.Generator().manual_seed(0))
 
 
 @torch.no_grad()
@@ -327,23 +371,29 @@ def evaluate_classification_items(model, text_emb: torch.Tensor, items: Iterable
 
 
 def build_llm(cfg: dict, device="cuda", generator: torch.Generator | None = None):
-    """The LLM of JAX's ``_evaluate_vqa`` from the config's keys, with its
-    defaults: ``LLM`` {``VOCAB_SIZE`` 32000, ``DIM`` 4096, ``LAYERS`` 32,
-    ``HEADS`` 32, ``KV_HEADS`` 32, ``FFN_DIM`` 11008}, ``LLM_MAX_LEN`` 1024
-    (the cache), ``DTYPE`` bfloat16, ``LLM_QUANT`` none (or int8). Its
-    weights: the HF checkpoint at ``LLM_WEIGHTS`` (quantised after loading
-    with int8), else drawn from ``generator`` (a generator of ``device``;
-    by default one seeded 1). On the card unless ``device='cpu'``."""
+    """The LLM of JAX's ``_evaluate_vqa`` and ``Trainer.train_llm`` from the
+    config's keys, with their defaults: ``LLM`` {``VOCAB_SIZE`` 32000,
+    ``DIM`` 4096, ``LAYERS`` 32, ``HEADS`` 32, ``KV_HEADS`` 32, ``FFN_DIM``
+    11008}, ``LLM_MAX_LEN`` 1024 (the cache), ``DTYPE`` bfloat16,
+    ``LLM_QUANT`` none (or int8). Its weights: the HF checkpoint at
+    ``LLM_WEIGHTS`` (quantised after loading with int8), else drawn from
+    ``generator`` (a generator of ``device``; by default one seeded 1), kept
+    in ``DTYPE`` (the norms stay fp32; JAX keeps fp32). Every product casts
+    a weight to ``DTYPE`` first, so the values are those of fp32 storage,
+    in half the memory at bf16, and a train step's autograd saves the
+    weights themselves, not a cast copy of each. On the card unless
+    ``device='cpu'``."""
     from .models.llm.convert import load_hf_llama_params
     from .models.llm.llama import LlamaConfig, build_llama
     from .models.llm.quant import quantize_llama_state_dict
 
-    llm = cfg.get("LLM", {})
+    llm, dtype = cfg.get("LLM", {}), cfg.get("DTYPE", "bfloat16")
     lcfg = LlamaConfig(vocab_size=llm.get("VOCAB_SIZE", 32000), dim=llm.get("DIM", 4096),
                        layers=llm.get("LAYERS", 32), heads=llm.get("HEADS", 32),
                        kv_heads=llm.get("KV_HEADS", 32), ffn_dim=llm.get("FFN_DIM", 11008),
                        max_seq_len=cfg.get("LLM_MAX_LEN", 1024),
-                       dtype=cfg.get("DTYPE", "bfloat16"), quant=cfg.get("LLM_QUANT", "none"))
+                       dtype=dtype, param_dtype=dtype,
+                       quant=cfg.get("LLM_QUANT", "none"))
     if not cfg.get("LLM_WEIGHTS"):
         if generator is None:
             generator = torch.Generator(device=torch.device(device)).manual_seed(1)

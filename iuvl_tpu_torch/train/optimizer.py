@@ -110,3 +110,11 @@ class Optimizer:
         self.adamw.step()
         self.count += 1
         return g_norm
+
+    def state_dict(self) -> dict:
+        """The update count and AdamW's moments, for a checkpoint."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])

@@ -39,6 +39,10 @@ def test_port_imports_without_jax():
         "import iuvl_tpu_torch.models.llm.llama, iuvl_tpu_torch.models.llm.multimodal\n"
         "import iuvl_tpu_torch.models.llm.vqa_pipeline, iuvl_tpu_torch.models.llm.convert\n"
         "import iuvl_tpu_torch.models.llm.quant, iuvl_tpu_torch.evaluation.vqa\n"
+        "import iuvl_tpu_torch.config, iuvl_tpu_torch.entry, iuvl_tpu_torch.train.trainer\n"
+        "import iuvl_tpu_torch.train.llm_step, iuvl_tpu_torch.data.datasets\n"
+        "import iuvl_tpu_torch.data.vlp_datasets, iuvl_tpu_torch.runtime.checkpoint\n"
+        "import iuvl_tpu_torch.runtime.metrics, iuvl_tpu_torch.runtime.observability\n"
         "sam.build_sam('vit_b', embed_dim=32, depth=2, num_heads=2, "
         "global_attn_indexes=(1,), img_size=128, window_size=4, device='cpu')\n"
         "xd.build_syslearner(xd.SysLearnerConfig(img_size=64, syslearner_dim=32, "
